@@ -1,0 +1,23 @@
+"""tpufem_torch: the PyTorch/CUDA port of tpufem, for NVIDIA Hopper.
+
+The JAX package ``tpufem`` is the reference; this package mirrors its
+layout and names.  This slice covers the squirmer Stokes dense regime with
+tracer and dye transport, with the fused-step matvec as a hand-written
+CUDA kernel.
+
+Quick start::
+
+    from tpufem_torch import generate_annulus_mesh
+    from tpufem_torch.workloads import stokes
+    mesh = generate_annulus_mesh(n_side=33, n_circle=48)
+    cfg = stokes.StokesConfig(dt=0.01, nu=1.0, transport="tracers",
+                              solver="inverse", precision="f32",
+                              pressure_mode="merge", fused=True,
+                              matvec_impl="pallas")
+    problem = stokes.StokesProblem.build(mesh, cfg, device="cuda")
+    state, metrics = stokes.run(problem, steps=1000)
+"""
+
+from tpufem_torch.mesh import Mesh, generate_annulus_mesh, load_mesh, mesh_from_arrays
+
+__all__ = ["Mesh", "generate_annulus_mesh", "load_mesh", "mesh_from_arrays"]
