@@ -53,4 +53,26 @@ def jax_problem_arrays(problem) -> dict[str, np.ndarray]:
         })
     if problem.tracer_init is not None:
         arrays["tracer_init"] = np.asarray(problem.tracer_init)
+    if hasattr(problem.visc_solver, "K") and hasattr(problem.visc_solver.K, "offsets"):
+        arrays.update(_grid_extras(problem))
     return arrays
+
+
+def _grid_extras(problem) -> dict[str, np.ndarray]:
+    """What ``_extract_arrays`` leaves out of a grid-storage problem: the
+    operators' static fields, ω, the pairing axis and CSR div/grad."""
+    from tpufem.ops import calculus
+
+    out = {}
+    for prefix, op in (("visc_solver.K", problem.visc_solver.K),
+                       ("pressure_solver.K", problem.pressure_solver.K)):
+        out[f"{prefix}.offsets"] = np.asarray(op.offsets)
+        out[f"{prefix}.n_rest"] = np.asarray(op.n_rest)
+        out[f"{prefix}.coverage"] = np.asarray(op.coverage)
+    out["pressure_solver.omega"] = np.asarray(problem.pressure_solver.omega)
+    out["pressure_solver.pair_axis"] = np.asarray(problem.pressure_solver.pair_axis)
+    for key, op in zip(("mf_dx", "mf_dy"), calculus.divergence_csr_operators(problem.mesh)):
+        out[f"{key}.indptr"] = np.asarray(op.indptr)
+        out[f"{key}.indices"] = np.asarray(op.indices)
+        out[f"{key}.data"] = np.asarray(op.data)
+    return out

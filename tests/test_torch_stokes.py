@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from tpufem.workloads import stokes as jstokes
-from tpufem_torch import interop
+from tpufem_torch import bench_large, interop
 from tpufem_torch.ops import fused_matvec as fm
 from tpufem_torch.workloads import stokes as tstokes
 
@@ -135,11 +135,11 @@ def test_f32_port_tracks_tpufem_f64():
 @pytest.mark.parametrize(
     "kw,error",
     [
-        (dict(solver="cg"), NotImplementedError),
+        (dict(solver="cg", cg_storage="stencil"), NotImplementedError),
         (dict(variant="report"), NotImplementedError),
         (dict(transport="eulerian_dye"), NotImplementedError),
         (dict(transport="dye", locator="topk"), NotImplementedError),
-        (dict(cg_storage="grid"), NotImplementedError),
+        (dict(solver="cg", grid_steps_per_call=1), NotImplementedError),
         (dict(dense_ops=False), NotImplementedError),
         (dict(precision="bf16", pressure_mode="merge"), NotImplementedError),
         (dict(precision="f32", pressure_mode="penalty"), ValueError),
@@ -152,3 +152,14 @@ def test_unported_or_invalid_config_refused(kw, error):
     _, tm = meshes(12, 16)
     with pytest.raises(error):
         tstokes.StokesProblem.build(tm, tstokes.StokesConfig(**kw), device="cpu")
+
+
+def test_bench_large_config_accepted():
+    """bench_large's scale configuration (f32 with the default penalty
+    pressure_mode, which the cg path ignores, and non-default cg_* fields)
+    passes the checks, as in tpufem."""
+    cfg = bench_large.bench_config(n_nodes=1_048_576)
+    tstokes.check_config(cfg)
+    assert (cfg.precision, cfg.pressure_mode, cfg.cg_coarse_dtype) == ("f32", "penalty", "bf16")
+    # and cg_* settings are ignored under a dense solver
+    tstokes.check_config(tstokes.StokesConfig(cg_storage="stencil", grid_steps_per_call=1))

@@ -70,15 +70,17 @@ def timed_run(problem: stokes.StokesProblem, steps: int):
     return steps / (time.perf_counter() - t0), state, metrics
 
 
-def profile_steps(problem: stokes.StokesProblem, steps: int, top: int = 8) -> dict:
-    """Device kernels of one ``steps``-step run under ``torch.profiler``:
-    kernel launches and device ms per step, and the ``top`` kernels by
-    device time.  Profiling slows the host, so no wall time is taken here."""
+def profile_steps(problem: stokes.StokesProblem, steps: int, top: int = 8,
+                  state: dict | None = None) -> dict:
+    """Device kernels of one ``steps``-step run (from ``state``, default the
+    initial state) under ``torch.profiler``: kernel launches and device ms
+    per step, and the ``top`` kernels by device time.  Profiling slows the
+    host, so no wall time is taken here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stokes.run(problem, steps=steps)
+        stokes.run(problem, steps=steps, state=state)
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     for e in prof.events():

@@ -91,3 +91,22 @@ def divergence_matrices(mesh: Mesh):
     np.add.at(Dx, (rows, cols), w9 * gx)
     np.add.at(Dy, (rows, cols), w9 * gy)
     return inv_area[:, None] * Dx, inv_area[:, None] * Dy
+
+
+def divergence_csr_operators(mesh: Mesh):
+    """(Dx, Dy) as static CSR operators (float64, on the CPU): the sparse
+    form of :func:`divergence_matrices`, on the stiffness pattern.
+    div(u) = Dx uₓ + Dy u_y and ∇p = (Dx p, Dy p)."""
+    from tpufem_torch.ops import assembly
+
+    t, n = mesh.n_tris, mesh.n_nodes
+    w = np.where(mesh.valid, mesh.area / 3.0, 0.0)
+    ex = np.broadcast_to((w[:, None] * mesh.grads[:, :, 0])[:, None, :], (t, 3, 3))
+    ey = np.broadcast_to((w[:, None] * mesh.grads[:, :, 1])[:, None, :], (t, 3, 3))
+    area_sum = np.zeros(n)
+    np.add.at(area_sum, mesh.tris.reshape(-1), np.repeat(w, 3))
+    inv_area = 1.0 / (area_sum + _EPS_AREA)
+    dx = assembly.assemble_csr(mesh, torch.as_tensor(np.ascontiguousarray(ex)))
+    dy = assembly.assemble_csr(mesh, torch.as_tensor(np.ascontiguousarray(ey)))
+    scale = torch.as_tensor(inv_area[dx.row_ids])
+    return dx.with_data(dx.data * scale), dy.with_data(dy.data * scale)

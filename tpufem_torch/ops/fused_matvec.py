@@ -12,71 +12,34 @@
 
 The kernel is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``tpufem_torch/_build/``, keyed by a hash of
-its source and flags, and loaded with ``ctypes``.
+its source and flags (``ops/_nvcc.py``), and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_step_matvec.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # registers, shared memory and spills of each instance
-)
+from tpufem_torch.ops import _nvcc
+
+SOURCE = _nvcc.CSRC / "fused_step_matvec.cu"
 _SYMBOLS = {torch.float32: "fused_step_matvec_f32", torch.float64: "fused_step_matvec_f64"}
 _lib: ctypes.CDLL | None = None  # the loaded kernel library, once built
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): cannot build K1")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> Path:
+def library_path():
     """Where the library built from the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"fused_step_matvec-{key}.so"
+    return _nvcc.library_path(SOURCE)
 
 
 def build() -> ctypes.CDLL:
     """Compile the kernel library unless a build of this source is cached,
-    load it and return it.  nvcc's ``-Xptxas -v`` report (registers,
-    spills) is kept beside the library, with the suffix ``.log``."""
+    load it and return it (the ptxas report lands beside it as ``.log``)."""
     global _lib
     if _lib is not None:
         return _lib
-    path = library_path()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            res = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed building K1:\n{res.stderr}")
-            path.with_suffix(".log").write_text(res.stderr)
-            os.replace(tmp, path)  # atomic: a concurrent build sees a whole file or none
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(path))
+    lib = _nvcc.build(SOURCE)
     for name in _SYMBOLS.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]

@@ -1,7 +1,8 @@
-"""Operator-split Stokes solver with squirmer BCs and transport, dense regime.
+"""Operator-split Stokes solver with squirmer BCs and transport.
 
-The PyTorch counterpart of ``tpufem.workloads.stokes`` along its dense
-branch (``solver="lu"`` or ``"inverse"``, ``variant="color"``).  Per step:
+The PyTorch counterpart of ``tpufem.workloads.stokes`` (``variant="color"``)
+in its two regimes: the dense one (``solver="lu"`` or ``"inverse"``) and the
+matrix-free scale regime (``solver="cg"``).  Per step:
 
   1. implicit viscous solve  (I + Δt·ν·K) u* = uⁿ + Δt·F
   2. periodic copy + Dirichlet/squirmer overwrite on u*
@@ -11,11 +12,20 @@ branch (``solver="lu"`` or ``"inverse"``, ``variant="color"``).  Per step:
   6. optional transport: semi-Lagrangian dye + mixing index, or tracer
      advection + capture statistics
 
-All matrices are assembled, factored and (with ``fused=True``) composed
-once on the host in float64; a fused step is then one affine matvec
-``u ← M u + b`` (kernel K1 under ``matvec_impl="pallas"``).  :func:`run`
-is a Python loop on the device that keeps every per-step metric in
-preallocated device tensors: it never waits for the device.
+Dense regime: all matrices are assembled, factored and (with
+``fused=True``) composed once on the host in float64; a fused step is then
+one affine matvec ``u ← M u + b`` (kernel K1 under ``matvec_impl="pallas"``).
+
+Scale regime: sparse operators only.  With ``cg_storage="grid"`` (ring-in-
+grid pad_hole meshes, N = n_side²) each step is one whole viscous solve
+(kernel K2) and two whole pressure solves (kernel K3), warm-started from the
+previous step; with ``"csr"`` the same solves run as plain tensor CG.
+div/grad are CSR operators either way.
+
+:func:`run` is a Python loop on the device that keeps every per-step metric
+in preallocated device tensors: on the dense and grid paths it never waits
+for the device (the plain CSR CG with ``tol > 0`` reads its loop condition
+on the host).
 """
 
 from __future__ import annotations
@@ -32,16 +42,18 @@ from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.ops import assembly, calculus
 from tpufem_torch.ops.fused_matvec import fused_step_matvec, fused_step_matvec_ref
 from tpufem_torch.solve.dense import DenseInverse, make_dense_solver
+from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
+from tpufem_torch.solve.matfree import PressureCG, ViscousCG
 from tpufem_torch.solve.pressure import merged_pressure_apply_matrix
 
 
 @dataclasses.dataclass
 class StokesConfig:
     """Same fields and defaults as ``tpufem.workloads.stokes.StokesConfig``,
-    so a configuration carries across unchanged.  The iterative-solver
-    (``cg_*``, ``grid_steps_per_call``) fields belong to the scale regime,
-    which is not ported yet: setting any of them away from its default is
-    refused."""
+    so a configuration carries across unchanged.  The ``cg_*`` fields act
+    under ``solver="cg"`` only; the TPU-only ones (``cg_stream_*``,
+    ``cg_hbm_io``, ``cg_roll_cache``, ``cg_batch_cols``) are accepted and
+    change nothing here."""
 
     # physics & stepping
     dt: float = 0.05
@@ -63,11 +75,12 @@ class StokesConfig:
     H: float = 1.0
     tol: float = 1e-6
     # numerics
-    solver: str = "lu"  # "lu" (parity) | "inverse" (one matvec) | "cg" (not ported)
+    solver: str = "lu"  # "lu" (parity) | "inverse" (one matvec) | "cg" (matrix-free)
     cg_iters_visc: int = 60
     cg_iters_pressure: int = 300
     cg_iters_dye: int = 40
-    cg_storage: str = "auto"
+    cg_storage: str = "auto"  # "grid" (K2/K3) | "csr" | "grid_interpret" (grid, plain
+    # versions) | "auto" (grid on CUDA when f32 and grid-numbered, else csr)
     cg_warm_start: bool = True
     cg_tol_pressure: float = 0.0
     cg_tol_visc: float = 0.0
@@ -104,14 +117,8 @@ class StokesConfig:
     locator_grid: int = 0  # 0 = auto (~2√T cells per side)
 
 
-_SCALE_REGIME_FIELDS = (
-    "cg_iters_visc", "cg_iters_pressure", "cg_iters_dye", "cg_storage",
-    "cg_warm_start", "cg_tol_pressure", "cg_tol_visc", "cg_precond",
-    "cg_cheby_degree", "grid_steps_per_call", "cg_stream_diags",
-    "cg_stream_loop", "cg_hbm_io", "cg_coarse_nodes", "cg_coarse_dtype",
-    "cg_batch_cols", "cg_roll_cache", "cg_stream_chunk", "cg_precond_bf16",
-)
 _TRANSPORTS = ("none", "dye", "tracers", "eulerian_dye", "dye_griddata")
+_STORAGES = ("auto", "grid", "grid_interpret", "csr", "stencil", "banded")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -119,15 +126,17 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_config(config: StokesConfig) -> None:
-    """Raise for anything this port does not implement, before any work."""
+    """Raise for anything this port does not implement, before any work.
+
+    As in tpufem, ``pressure_mode`` and the f32 penalty rule concern the
+    dense solvers only (the cg path always uses the merged operator), and
+    the ``cg_*`` fields concern ``solver="cg"`` only."""
     if config.transport not in _TRANSPORTS:
         raise ValueError(f"unknown transport {config.transport!r}; expected one of {_TRANSPORTS}")
     if config.transport in ("eulerian_dye", "dye_griddata"):
         raise _not_ported(f"transport={config.transport!r}", "10")
-    if config.solver == "cg":
-        raise _not_ported("solver='cg' (the matrix-free scale regime)", "5-6")
-    if config.solver not in ("lu", "inverse"):
-        raise ValueError(f"unknown dense solver method: {config.solver}")
+    if config.solver not in ("lu", "inverse", "cg"):
+        raise ValueError(f"unknown solver method: {config.solver}")
     if config.variant == "report":
         raise _not_ported("variant='report'", "10")
     if config.variant != "color":
@@ -136,17 +145,16 @@ def check_config(config: StokesConfig) -> None:
         raise _not_ported("locator='topk' (TopKLocator)", "3")
     if config.locator != "grid":
         raise ValueError(f"unknown locator {config.locator!r}")
-    if not config.dense_ops:
-        raise _not_ported("dense_ops=False (sparse div/grad)", "5")
     if config.matvec_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown matvec_impl {config.matvec_impl!r}")
     if config.pressure_mode not in ("penalty", "merge"):
         raise ValueError(f"unknown pressure_mode {config.pressure_mode!r}")
-    default = StokesConfig()
-    changed = [f for f in _SCALE_REGIME_FIELDS if getattr(config, f) != getattr(default, f)]
-    if changed:
-        raise _not_ported(f"scale-regime settings {changed}", "5-6")
     tconfig.dtype(config.precision)  # refuses bf16 and unknown names
+    if config.solver == "cg":
+        _check_cg(config)
+        return
+    if not config.dense_ops:
+        raise _not_ported("dense_ops=False with a dense solver (sparse div/grad)", "5")
     if config.precision != "f64" and config.pressure_mode != "merge":
         raise ValueError(
             "the ±1e10 penalty pressure operator is numerically unusable below "
@@ -156,6 +164,23 @@ def check_config(config: StokesConfig) -> None:
         raise ValueError("fused step requires pressure_mode='merge' and no BC ramp")
 
 
+def _check_cg(config: StokesConfig) -> None:
+    if config.fused:
+        raise ValueError("fused and cg are mutually exclusive")
+    if config.cg_storage not in _STORAGES:
+        raise ValueError(f"unknown cg_storage {config.cg_storage!r}; expected one of {_STORAGES}")
+    if config.cg_storage in ("stencil", "banded"):
+        raise _not_ported(f"cg_storage={config.cg_storage!r}", "5")
+    if config.grid_steps_per_call >= 1:
+        raise _not_ported("grid_steps_per_call >= 1 (the fused whole-step kernel K5)", "6")
+    if config.cg_precond_bf16 == "on":
+        raise _not_ported("cg_precond_bf16='on'", "6")
+    if config.cg_precond not in ("jacobi", "chebyshev", "twolevel"):
+        raise ValueError(f"unknown cg_precond {config.cg_precond!r}")
+    if config.cg_coarse_dtype not in ("same", "bf16"):
+        raise ValueError(f"unknown cg_coarse_dtype {config.cg_coarse_dtype!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class StokesProblem:
     """Everything a run needs: host geometry and index sets, and the
@@ -163,8 +188,8 @@ class StokesProblem:
 
     mesh: Mesh
     boundary: bc.ChannelBoundary
-    visc_solver: Any  # DenseLU | DenseInverse
-    pressure_solver: Any  # DenseLU | DenseInverse
+    visc_solver: Any  # DenseLU | DenseInverse | ViscousGridCG | ViscousCG
+    pressure_solver: Any  # DenseLU | DenseInverse | PressureGridCG | PressureCG
     inner_values: torch.Tensor  # (k,2) squirmer / rotation surface velocities
     m_lumped: torch.Tensor
     locator: transport.GridLocator | None
@@ -173,13 +198,15 @@ class StokesProblem:
     bidx: dict[str, torch.Tensor]  # boundary index sets on the device
     outer_value: torch.Tensor  # (2,) wall velocity
     body_force: torch.Tensor  # (2,)
-    div_x: torch.Tensor  # (N,N) dense div/grad operators
-    div_y: torch.Tensor
+    div_x: torch.Tensor | None  # (N,N) dense div/grad operators (dense regime)
+    div_y: torch.Tensor | None
     fused_M: torch.Tensor | None = None  # (2N,2N) whole-step matrix
     fused_b: torch.Tensor | None = None  # (2N,) whole-step offset
     fused_Dstar: torch.Tensor | None = None  # (N,2N) u → div(u*) map
     fused_dstar0: torch.Tensor | None = None  # (N,)
     visc_lift: torch.Tensor | None = None  # (N,2) −Δt·ν·K[:, D]·u_D lift
+    mf_dx: Any = None  # CSR div/grad operators (scale regime)
+    mf_dy: Any = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -190,10 +217,14 @@ class StokesProblem:
         return self.m_lumped.device
 
     def div(self, u: torch.Tensor) -> torch.Tensor:
-        return self.div_x @ u[:, 0] + self.div_y @ u[:, 1]
+        if self.div_x is not None:
+            return self.div_x @ u[:, 0] + self.div_y @ u[:, 1]
+        return self.mf_dx.matvec(u[:, 0]) + self.mf_dy.matvec(u[:, 1])
 
     def grad(self, p: torch.Tensor) -> torch.Tensor:
-        return torch.stack([self.div_x @ p, self.div_y @ p], dim=1)
+        if self.div_x is not None:
+            return torch.stack([self.div_x @ p, self.div_y @ p], dim=1)
+        return torch.stack([self.mf_dx.matvec(p), self.mf_dy.matvec(p)], dim=1)
 
     @classmethod
     def build(cls, mesh: Mesh, config: StokesConfig = StokesConfig(), device=None) -> "StokesProblem":
@@ -207,6 +238,8 @@ class StokesProblem:
             tol=config.tol, all_walls=config.all_walls,
         )
         m_lumped = assembly.lumped_mass(mesh).numpy()
+        if config.solver == "cg":
+            return cls._build_matfree(mesh, config, boundary, m_lumped, dtype, dev)
         n = mesh.n_nodes
         K = assembly.assemble_dense(mesh, assembly.element_stiffness(mesh)).numpy()
 
@@ -256,9 +289,39 @@ class StokesProblem:
         )
 
     @classmethod
+    def _build_matfree(cls, mesh, config, boundary, m_lumped, dtype, dev) -> "StokesProblem":
+        """The scale regime: sparse operators and CG solvers, no dense matrix."""
+        visc, pressure, mf_dx, mf_dy = _build_matfree_problem_fields(
+            mesh, config, boundary, m_lumped, dtype, dev)
+        inner_values = _inner_values(mesh, boundary, config)
+        visc_lift = None
+        if config.dirichlet_lift:
+            # the dense path's lift, through the materialized K operator
+            ubc = _bc_field(mesh, boundary, inner_values, config)
+            m = visc.interior_mask
+            visc_lift = torch.stack([
+                -config.dt * config.nu * m * visc.K.matvec(
+                    torch.as_tensor(ubc[:, d], dtype=dtype, device=dev))
+                for d in range(2)
+            ], dim=1)
+        locator = None if config.transport == "none" else _make_locator(mesh, config, dtype, dev)
+        tracer_init = None
+        if config.transport == "tracers":
+            tracer_init = transport.init_tracer_grid(
+                config.tracer_density, L=config.L, H=config.H,
+                exclude_center=config.center, exclude_radius=0.25,
+            )
+        return cls.from_host(
+            mesh, config, dev, boundary=boundary, visc_solver=visc, pressure_solver=pressure,
+            inner_values=inner_values, m_lumped=m_lumped, div_xy=(None, None),
+            visc_lift=visc_lift, locator=locator, tracer_init=tracer_init,
+            mf_dxy=(mf_dx, mf_dy),
+        )
+
+    @classmethod
     def from_host(cls, mesh, config, device, *, boundary, visc_solver, pressure_solver,
                   inner_values, m_lumped, div_xy, fused=None, visc_lift=None,
-                  locator=None, tracer_init=None) -> "StokesProblem":
+                  locator=None, tracer_init=None, mf_dxy=(None, None)) -> "StokesProblem":
         """Assemble a problem from host arrays (moved to ``device``; arrays
         that are already tensors keep their dtype) and ready solvers."""
         dtype = tconfig.dtype(config.precision)
@@ -291,7 +354,112 @@ class StokesProblem:
             fused_Dstar=t(fused[2]),
             fused_dstar0=t(fused[3]),
             visc_lift=t(visc_lift),
+            mf_dx=mf_dxy[0],
+            mf_dy=mf_dxy[1],
         )
+
+
+def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
+    """(viscous solver, pressure solver, Dx, Dy) of the scale regime.
+
+    Storage, as tpufem decides it (``tpufem/workloads/stokes.py:589-670``):
+    ``"auto"`` takes the grid on CUDA when the run is f32, N = ns² and the
+    operator covers ≥ 90 % of its entries with grid planes, else CSR (tpufem
+    falls back to stencil or banded storage there, which are not ported).
+    ``"grid"`` runs the kernels at f32 and f64; ``"grid_interpret"`` takes
+    the grid storage with the kernels' plain versions on every device.  The
+    plane split follows tpufem's ``stream`` decision, so both packages build
+    the same operators at every size."""
+    from tpufem_torch.mesh.gridify import ensure_grid_numbering
+    from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
+    from tpufem_torch.solve.pressure import owner_map
+
+    storage = config.cg_storage
+    if storage == "auto":
+        storage = "auto_accel" if dev.type == "cuda" else "csr"
+    n = mesh.n_nodes
+    ke = assembly.element_stiffness(mesh)
+    K_csr = assembly.assemble_csr(mesh, ke)
+    interior_mask = np.ones(n)
+    interior_mask[boundary.dirichlet] = 0.0
+    owner = owner_map(n, boundary.masters, boundary.slaves)
+    Km_csr = assembly.assemble_csr(dataclasses.replace(mesh, tris=owner[mesh.tris].astype(np.int32)),
+                                   ke)
+    # active: owns its dof and is carried by an element (pad_hole dummies are not)
+    active_mask = ((owner == np.arange(n)) & (np.asarray(m_lumped) > 0)).astype(np.float64)
+    coarse_dtype = torch.bfloat16 if config.cg_coarse_dtype == "bf16" else None
+    dx_csr, dy_csr = calculus.divergence_csr_operators(mesh)
+    mf = (dx_csr.astype(dtype, dev), dy_csr.astype(dtype, dev))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    ns = int(round(np.sqrt(n)))
+    explicit = storage in ("grid", "grid_interpret")
+    if explicit:
+        ensure_grid_numbering(mesh, L=config.L, H=config.H, tol=config.tol)
+    if explicit or (storage == "auto_accel" and ns * ns == n and dtype == torch.float32):
+        stream = config.cg_stream_diags == "on" or (config.cg_stream_diags == "auto" and n >= 360_000)
+        hbm_io = config.cg_hbm_io == "on" or (config.cg_hbm_io == "auto" and n >= 700_000)
+        stream = stream or hbm_io
+        tpu_fields = dict(stream_diags=stream, stream_loop=config.cg_stream_loop in ("on", "auto"),
+                          hbm_io=hbm_io, roll_cache=config.cg_roll_cache == "on",
+                          stream_chunk=config.cg_stream_chunk)
+
+        def build_gridop(csr):
+            # tpufem's streamed regimes spend more planes to shrink the
+            # remainder to ≤128 entries; mirror the split, not the streaming
+            if stream:
+                try:
+                    return GridOperator.build(csr, ns, dtype=dtype, rest_target=128, device=dev)
+                except GridDecompositionError:
+                    pass
+            return GridOperator.build(csr, ns, dtype=dtype, device=dev)
+
+        try:
+            Gv = build_gridop(K_csr)
+            if Gv.coverage >= 0.9 or explicit:
+                visc = ViscousGridCG(
+                    K=Gv, interior_mask=t(interior_mask), dt_nu=config.dt * config.nu,
+                    iters=config.cg_iters_visc, tol=config.cg_tol_visc,
+                    plain=storage == "grid_interpret", **tpu_fields,
+                )
+                pressure = PressureGridCG.build(
+                    Km_csr, build_gridop(Km_csr), np.asarray(m_lumped), boundary.masters,
+                    boundary.slaves, active_mask, iters=config.cg_iters_pressure,
+                    tol=config.cg_tol_pressure, target_coarse=config.cg_coarse_nodes,
+                    use_coarse=config.cg_precond == "twolevel", coarse_dtype=coarse_dtype,
+                    plain=storage == "grid_interpret", **tpu_fields,
+                )
+                return visc, pressure, *mf
+        except GridDecompositionError:
+            if explicit:
+                raise  # asked for by name: say why it cannot be had
+
+    visc = ViscousCG(K=K_csr.astype(dtype, dev), interior_mask=t(interior_mask),
+                     dt_nu=config.dt * config.nu, iters=config.cg_iters_visc,
+                     tol=config.cg_tol_visc)
+    km = Km_csr.astype(dtype, dev)
+    lmax, tl = 0.0, None
+    if config.cg_precond in ("chebyshev", "twolevel"):
+        from tpufem_torch.solve.cg import estimate_lmax
+
+        diag = km.diag()
+        inv_diag = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
+                               torch.ones_like(diag))
+        lmax = estimate_lmax(km.matvec, inv_diag, n)
+        if config.cg_precond == "twolevel":
+            from tpufem_torch.solve.twolevel import build_twolevel
+
+            tl = build_twolevel(Km_csr, np.asarray(mesh.coords), km.matvec, inv_diag,
+                                target_coarse=config.cg_coarse_nodes, dtype=dtype,
+                                coarse_dtype=coarse_dtype, lmax=lmax)
+    pressure = PressureCG(
+        K_merged=km, m_lumped=t(m_lumped), masters=boundary.masters, slaves=boundary.slaves,
+        active_mask=t(active_mask), iters=config.cg_iters_pressure, precond=config.cg_precond,
+        cheby_degree=config.cg_cheby_degree, lmax=lmax, twolevel=tl, tol=config.cg_tol_pressure,
+    )
+    return visc, pressure, *mf
 
 
 def _bc_field(mesh, boundary, inner_values, config) -> np.ndarray:
@@ -415,6 +583,13 @@ def initial_state(problem: StokesProblem) -> dict:
     dtype, dev = problem.dtype, problem.device
     u = apply_field_bcs(problem, torch.zeros((n, 2), dtype=dtype, device=dev))
     state = {"u": u, "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.cg_warm_start and isinstance(problem.pressure_solver, (PressureCG, PressureGridCG)):
+        # the CG pressure solves warm-start from the previous step's solutions
+        state["p_warm"] = torch.zeros(n, dtype=dtype, device=dev)
+        state["p2_warm"] = torch.zeros(n, dtype=dtype, device=dev)
+        if cfg.cg_tol_visc > 0:
+            # the viscous CG warm-starts from the previous step's u*
+            state["ustar_warm"] = u
     if cfg.transport == "dye":
         # half-domain dye
         left = problem.mesh.coords[:, 0] < cfg.dye_threshold
@@ -437,9 +612,13 @@ def dye_baseline(problem: StokesProblem, state: dict) -> torch.Tensor:
     return var0
 
 
-def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0):
-    """The double-projection Stokes update → (u, p, metrics); ``p`` is None
-    on the fused path, whose pressure never materializes."""
+def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=None):
+    """The double-projection Stokes update → (u, p, metrics, warm_out); ``p``
+    is None on the fused path, whose pressure never materializes.
+
+    ``warm`` holds the previous step's solutions (CG solvers only): ``"p"``
+    and ``"p2"`` warm-start the two pressure solves, ``"u_star"`` the
+    viscous one; ``warm_out`` is this step's, or None without ``warm``."""
     cfg = problem.config
     dt = cfg.dt
 
@@ -456,27 +635,45 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0):
             "final_div_max": torch.max(torch.abs(final_div)),
             "max_u": torch.max(torch.abs(u_new)),
         }
-        return u_new, None, metrics
+        return u_new, None, metrics, None
 
     # 1. tentative velocity: one batched solve for both components
     rhs = u + dt * problem.body_force
     if problem.visc_lift is not None:
         rhs = rhs + bc_scale * problem.visc_lift
-    u_star = apply_field_bcs(problem, problem.visc_solver.solve(rhs), bc_scale)
+    if warm is not None and "u_star" in warm:
+        u_star_raw = problem.visc_solver.solve(rhs, x0=warm["u_star"])
+    else:
+        u_star_raw = problem.visc_solver.solve(rhs)
+    u_star = apply_field_bcs(problem, u_star_raw, bc_scale)
 
     # 2. pressure correction
     div_star = problem.div(u_star)
-    p = problem.pressure_solver.solve(-div_star / dt)
+    if warm is not None:
+        p = problem.pressure_solver.solve(-div_star / dt, x0=warm["p"])
+    else:
+        p = problem.pressure_solver.solve(-div_star / dt)
 
     # 3. velocity update
     u_new = apply_field_bcs(problem, u_star - dt * problem.grad(p), bc_scale)
 
     # 4. second projection, interior only
+    p2 = None
     if cfg.double_projection:
-        p2 = problem.pressure_solver.solve(-problem.div(u_new) / dt)
+        div_u = problem.div(u_new)
+        if warm is not None:
+            p2 = problem.pressure_solver.solve(-div_u / dt, x0=warm["p2"])
+        else:
+            p2 = problem.pressure_solver.solve(-div_u / dt)
         g2 = problem.grad(p2)
-        interior = problem.bidx["interior"]
-        u_new = u_new.index_add(0, interior, -dt * g2[interior])
+        imask = getattr(problem.visc_solver, "interior_mask", None)
+        if imask is not None:
+            # the CG solvers' interior mask is the 0/1 indicator of the
+            # interior nodes: one fused multiply-add instead of a scatter
+            u_new = u_new - dt * g2 * imask[:, None]
+        else:
+            interior = problem.bidx["interior"]
+            u_new = u_new.index_add(0, interior, -dt * g2[interior])
 
     final_div = problem.div(u_new)
     metrics = {
@@ -484,7 +681,12 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0):
         "final_div_max": torch.max(torch.abs(final_div)),
         "max_u": torch.max(torch.abs(u_new)),
     }
-    return u_new, p, metrics
+    warm_out = None
+    if warm is not None:
+        warm_out = {"p": p, "p2": p2 if p2 is not None else p}
+        if "u_star" in warm:
+            warm_out["u_star"] = u_star_raw
+    return u_new, p, metrics, warm_out
 
 
 def make_step(problem: StokesProblem, var0=None):
@@ -498,8 +700,18 @@ def make_step(problem: StokesProblem, var0=None):
             ramp = torch.clamp(state["step"].to(problem.dtype) / cfg.ramp_steps, max=1.0)
         else:
             ramp = 1.0
-        u, _, metrics = projection_step(problem, state["u"], bc_scale=ramp)
+        warm = None
+        if "p_warm" in state:
+            warm = {"p": state["p_warm"], "p2": state["p2_warm"]}
+            if "ustar_warm" in state:
+                warm["u_star"] = state["ustar_warm"]
+        u, _, metrics, warm_out = projection_step(problem, state["u"], bc_scale=ramp, warm=warm)
         new_state = {"u": u, "step": state["step"] + 1}
+        if warm_out is not None:
+            new_state["p_warm"] = warm_out["p"]
+            new_state["p2_warm"] = warm_out["p2"]
+            if "u_star" in warm_out:
+                new_state["ustar_warm"] = warm_out["u_star"]
         if cfg.transport == "dye":
             c = transport.advect_semilagrange(
                 mesh, problem.locator, state["c"], u, cfg.dt, L=cfg.L, H=cfg.H
