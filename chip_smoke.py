@@ -4,9 +4,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 
 1. device: the card's name and power limit; TF32 off;
-2. build: kernels K1 (``tpufem_torch/csrc/fused_step_matvec.cu``) and K2/K3
-   (``tpufem_torch/csrc/grid_cg.cu``), one nvcc for each source, started
-   together; K1's build report;
+2. build: kernels K1 (``tpufem_torch/csrc/fused_step_matvec.cu``) and
+   K2/K3/K4 (``tpufem_torch/csrc/grid_cg.cu``), one nvcc for each source,
+   started together; K1's build report;
 3. K1 against its plain version (``torch.addmv``) on the card, f32 and f64,
    at 2N = 1704 (the bench mesh), 700 (off the TPU's 128/256 tiles) and 6200 (near the top
    of the dense regime), with µs per call of both, and the kernel's
@@ -32,10 +32,34 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 10. the grid path at f64 on the card (kernels) against the port's CPU path
     (plain versions) at ``n_side=40`` over 10 steps, fixed iterations and
     then tol 1e-5 with warm starts; f32 on the card against f64;
-11. tracers on the scale path at 78,400 nodes for 200 steps.
+11. tracers on the scale path at 78,400 nodes for 200 steps;
+12. the K4 build report (K4 is in ``grid_cg.cu``, built in phase 2):
+    registers and spills of its instances;
+13. K4 against its plain version on the card: f32 and f64, fixed 30
+    iterations from zero and ``tol=1e-5`` from the warm start the step
+    uses, at ``n_side=20`` and on the 1,048,576-node operator refilled from
+    a seeded u; and K3 against its plain version on the NS step's own
+    pressure operator (active mask deg > 0, no periodic pairs, float32
+    coarse inverse; ragged 3×3 coarse blocks at ``n_side=20``) at both
+    sizes, at the step's f32 and at f64, fixed 120 iterations and
+    ``tol=1e-5`` from a warm start; rel L2, iterations and ms per solve of
+    both, two launches bit-equal;
+14. the NS main path: ``bench_large.ns_config`` (tpufem's ``run_ns``) at
+    1,048,576 nodes through ``NSProblem.build`` and ``navier_stokes.run``:
+    200 steps from rest, then 200 continued; K4 and K3 must each run once a
+    step; tpufem's NS gates;
+15. the NS grid path at f64 on the card (kernels) against the port's CPU
+    path (plain versions) at ``n_side=40`` over 10 steps, held in max abs
+    and in relative L2 (|u| is about 1e-5 there); f32 on the card against
+    f64;
+16. the NS dense path on the card against the CPU at f64 on
+    ``generate_annulus_mesh(12, 16)`` over 20 steps.
 
-Any failed check raises, so the exit code is not 0.  The line before the
-last is a JSON summary of the kernels; the last line is
+Each phase prints its seconds.  Any failed check raises, so the exit code
+is not 0.  The line before the last is a JSON summary of the kernels (each
+with its bound: the larger of its bytes, each input read once and each
+output written once, over the HBM rate, and its operations over the
+float32 rate); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -53,10 +77,10 @@ import torch
 from tpufem_torch import bench_large
 from tpufem_torch.bench import bench_config, bench_mesh, card, timed_run
 from tpufem_torch.mesh import generate_annulus_mesh
-from tpufem_torch.ops import _nvcc
+from tpufem_torch.ops import _nvcc, assembly
 from tpufem_torch.ops import fused_matvec as fm
 from tpufem_torch.solve import grid_cg
-from tpufem_torch.workloads import stokes
+from tpufem_torch.workloads import navier_stokes, stokes
 
 MAX_U_FACTOR = 1.25  # boundedness gate of tpufem/bench_large.py: max|u| < 1.25·(|B1|+|B2|)
 KERNEL_SHAPES = (1704, 700, 6200)  # 2N of the bench mesh, an off-tile size, 2N at 3,100 nodes
@@ -81,6 +105,26 @@ TRACER_STEPS = 200
 # solve's tolerance.
 GRID_RTOL = {(torch.float64, 0.0): 1e-9, (torch.float64, 1e-5): 1e-5,
              (torch.float32, 0.0): 1e-3, (torch.float32, 1e-5): 1e-3}
+NS_STEPS = 200
+NS_PARITY_MESH = (40, 48)
+NS_PARITY_STEPS = 10
+NS_DENSE_MESH = (12, 16)
+NS_DENSE_STEPS = 20
+# the card's peaks (H100 SXM data sheet, at its 700 W limit): HBM3 rate and
+# float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    fm.fused_step_matvec.launches = 0
+    grid_cg.viscous_cg.launches = grid_cg.pressure_cg.launches = grid_cg.ns_bicgstab.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"K1": fm.fused_step_matvec.launches, "K2": grid_cg.viscous_cg.launches,
+            "K3": grid_cg.pressure_cg.launches, "K4": grid_cg.ns_bicgstab.launches}
 
 
 def check(ok: bool, what: str) -> None:
@@ -141,11 +185,22 @@ def phase_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def ptxas_report(path) -> str:
+def ptxas_report(path, entry: str = "") -> str:
+    """Registers and spill stores of the instances in ``path``'s ptxas
+    report whose mangled name contains ``entry`` (all with "")."""
     report = path.with_suffix(".log").read_text()
-    regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", report)})
-    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", report))
+    parts = [p for p in report.split("Compiling entry function")[1:] if entry in p.split("'")[1]]
+    text = "".join(parts) if entry else report
+    regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
     return f"registers per instance {regs}, spill stores {spills} bytes"
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the float32 rate, in ms."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_build() -> float:
@@ -155,7 +210,7 @@ def phase_build() -> float:
     fm.build()
     grid_cg.build()
     seconds = time.perf_counter() - t0
-    print(f"[2 build] K1 from {fm.SOURCE.relative_to(_nvcc.PKG.parent)} and K2/K3 from "
+    print(f"[2 build] K1 from {fm.SOURCE.relative_to(_nvcc.PKG.parent)} and K2/K3/K4 from "
           f"{grid_cg.SOURCE.relative_to(_nvcc.PKG.parent)} in parallel: {seconds:.2f} s; "
           f"K1 {ptxas_report(fm.library_path())}")
     return seconds
@@ -187,7 +242,9 @@ def phase_kernel(dev: torch.device) -> dict:
             print(f"{line}; us/call eager loop K1 {k1[0] * 1e3:.2f} addmv {plain[0] * 1e3:.2f}, "
                   f"device (graph replay) K1 {k1[1] * 1e3:.2f} addmv {plain[1] * 1e3:.2f}")
             if r == KERNEL_SHAPES[0] and dtype == torch.float32:
-                at_main = {"max_abs_err": max_abs, "ms": k1[1], "plain_ms": plain[1]}
+                at_main = {"max_abs_err": max_abs, "ms": k1[1], "plain_ms": plain[1],
+                           **bound((r * c + c + 2 * r) * M.element_size(), 2.0 * r * c),
+                           "library_ms": device_ms(lambda M, x, b: torch.addmv(b, M, x), M, x, b)}
     return at_main
 
 
@@ -207,13 +264,15 @@ def phase_main_path(dev: torch.device, mesh, steps: int = MAIN_STEPS) -> int:
     cfg = bench_config()
     problem = stokes.StokesProblem.build(mesh, cfg, device=dev)
     n_tracers = problem.tracer_init.shape[0]
-    fm.fused_step_matvec.launches = 0
+    zero_launches()
     cold, _, _ = timed_run(problem, steps)
     check(fm.fused_step_matvec.launches == steps,
           f"K1 launched {fm.fused_step_matvec.launches} times in a {steps}-step run")
     warm, state, metrics = timed_run(problem, steps)
-    launches = fm.fused_step_matvec.launches
-    check(launches == 2 * steps, f"K1 launched {launches} times in two {steps}-step runs")
+    counts = launch_counts()
+    launches = counts["K1"]
+    check(counts == {"K1": 2 * steps, "K2": 0, "K3": 0, "K4": 0},
+          f"launches {counts} in two {steps}-step runs (want K1 = steps)")
     for k, v in {**state, **metrics}.items():
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"{k} is finite")
@@ -284,6 +343,15 @@ def scale_problem(dev, n_side: int, n_circle: int, **overrides):
     return stokes.StokesProblem.build(mesh, cfg, device=dev)
 
 
+def k3_cast(pres, dtype, coarse_dtype):
+    """``pres`` (a PressureGridCG) with its fields and operator cast to
+    ``dtype`` and its coarse inverse to ``coarse_dtype``."""
+    return dataclasses.replace(
+        pres, K=pres.K.astype(dtype), m_lumped=pres.m_lumped.to(dtype),
+        active_mask=pres.active_mask.to(dtype), master_mask=pres.master_mask.to(dtype),
+        slave_mask=pres.slave_mask.to(dtype), ac_inv=pres.ac_inv.to(coarse_dtype))
+
+
 def solver_variants(problem, dtype):
     """The problem's K2 and K3 solvers with fields and operators cast to
     ``dtype``: [(label, solver, rhs planes)], K3 once with the problem's
@@ -291,16 +359,12 @@ def solver_variants(problem, dtype):
     visc, pres = problem.visc_solver, problem.pressure_solver
     K = visc.K.astype(dtype)
     v = dataclasses.replace(visc, K=K, interior_mask=visc.interior_mask.to(dtype))
-    base = dict(K=pres.K.astype(dtype), m_lumped=pres.m_lumped.to(dtype),
-                active_mask=pres.active_mask.to(dtype), master_mask=pres.master_mask.to(dtype),
-                slave_mask=pres.slave_mask.to(dtype))
     coarse = [pres.ac_inv.dtype] if dtype == torch.float64 else [torch.bfloat16, torch.float32]
     if dtype == torch.float64 and pres.ac_inv.dtype == torch.bfloat16:
         coarse = [torch.float64]
     out = [("K2", v, 2)]
     for cd in coarse:
-        out.append((f"K3 coarse {str(cd)[6:]}",
-                    dataclasses.replace(pres, ac_inv=pres.ac_inv.to(cd), **base), 1))
+        out.append((f"K3 coarse {str(cd)[6:]}", k3_cast(pres, dtype, cd), 1))
     return out
 
 
@@ -313,6 +377,48 @@ def solve_timed_ms(fn, solver, b, x0, calls: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def check_solve(phase: int, case: str, kernel, plain, solver, b, x0, rtol: float,
+                calls: int, plain_calls: int) -> dict:
+    """One whole-solve kernel against its plain version on one right-hand
+    side: two launches bit-equal, relative L2 within ``rtol``; prints the
+    case and returns its numbers (and the kernel's iterations)."""
+    dev = b.device
+    it_k = torch.zeros(1, dtype=torch.int32, device=dev)
+    it_p = torch.zeros(1, dtype=torch.int32, device=dev)
+    y1 = kernel(solver, b, x0, it_k)
+    y2 = kernel(solver, b, x0)
+    want = plain(solver, b, x0, it_p)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y1, y2))
+    err = rel(y1, want)
+    max_abs = float((y1 - want).abs().max())
+    ms = solve_timed_ms(kernel, solver, b, x0, calls)
+    plain_ms = solve_timed_ms(plain, solver, b, x0, plain_calls)
+    print(f"[{phase} kernel] {case}: rel L2 {err:.3e} (<= {rtol:g}), max abs {max_abs:.3e}, "
+          f"iterations kernel {int(it_k.item())} plain {int(it_p.item())}, "
+          f"ms per solve kernel {ms:.3f} plain {plain_ms:.3f}, repeat bit-equal {same}")
+    check(same, f"{case}: two launches differ")
+    check(err <= rtol, f"{case}: rel L2 {err} > {rtol}")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "iters": int(it_k.item())}
+
+
+def check_cg_cases(phase: int, case: str, kernel, plain, solver, b, calls: int,
+                   plain_calls: int) -> dict:
+    """K2 or K3 (``solver``) against its plain version: fixed iterations
+    from zero, then tol 1e-5 from a warm start (the fixed-iteration
+    solution of a nearby rhs); returns the numbers of the tol 1e-5 case."""
+    out = None
+    for tol in (0.0, 1e-5):
+        s = dataclasses.replace(solver, tol=tol)
+        x0 = torch.zeros_like(b)
+        if tol:
+            x0 = plain(dataclasses.replace(solver, tol=0.0),
+                       b * (1 + 1e-3 * torch.randn_like(b)), torch.zeros_like(b))
+        out = check_solve(phase, f"{case} tol {tol:g}", kernel, plain, s, b, x0,
+                          GRID_RTOL[(b.dtype, tol)], calls, plain_calls)
+    return out
 
 
 def check_grid_kernels(label: str, problem, dev, calls: int, plain_calls: int) -> dict:
@@ -329,34 +435,35 @@ def check_grid_kernels(label: str, problem, dev, calls: int, plain_calls: int) -
             b = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
             if name != "K2":
                 b = b * solver.act_grid  # a prepared rhs: zero off the active dofs
-            for tol in (0.0, 1e-5):
-                s = dataclasses.replace(solver, tol=tol)
-                x0 = torch.zeros_like(b)
-                if tol:
-                    # warm start: the fixed-iteration solution of a nearby rhs
-                    x0 = plain(dataclasses.replace(solver, tol=0.0),
-                               b * (1 + 1e-3 * torch.randn_like(b)), torch.zeros_like(b))
-                it_k = torch.zeros(1, dtype=torch.int32, device=dev)
-                it_p = torch.zeros(1, dtype=torch.int32, device=dev)
-                y1 = kernel(s, b, x0, it_k)
-                y2 = kernel(s, b, x0)
-                want = plain(s, b, x0, it_p)
-                torch.cuda.synchronize()
-                same = bool(torch.equal(y1, y2))
-                err = rel(y1, want)
-                max_abs = float((y1 - want).abs().max())
-                ms = solve_timed_ms(kernel, s, b, x0, calls)
-                plain_ms = solve_timed_ms(plain, s, b, x0, plain_calls)
-                rtol = GRID_RTOL[(dtype, tol)]
-                case = f"{name} {str(dtype)[6:]} tol {tol:g} at {label}"
-                print(f"[8 kernel] {case}: rel L2 {err:.3e} (<= {rtol:g}), max abs {max_abs:.3e}, "
-                      f"iterations kernel {int(it_k.item())} plain {int(it_p.item())}, "
-                      f"ms per solve kernel {ms:.3f} plain {plain_ms:.3f}, repeat bit-equal {same}")
-                check(same, f"{case}: two launches differ")
-                check(err <= rtol, f"{case}: rel L2 {err} > {rtol}")
-                if dtype == torch.float32 and tol and name in ("K2", "K3 coarse bfloat16"):
-                    at_main[name[:2]] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            numbers = check_cg_cases(8, f"{name} {str(dtype)[6:]} at {label}", kernel, plain,
+                                     solver, b, calls, plain_calls)
+            if dtype == torch.float32 and name in ("K2", "K3 coarse bfloat16"):
+                iters = numbers.pop("iters")
+                at_main[name[:2]] = {**numbers, **solve_bound(name[:2], solver.K, cols, iters,
+                                                              getattr(solver, "ac_inv", None)),
+                                     "library_ms": None}
     return at_main
+
+
+def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
+    """The bound of one whole solve of K2, K3 or K4: its inputs read once
+    (operator planes, masks and diagonals, right-hand sides, warm starts,
+    K3's coarse inverse) and its solutions written once, against the flops
+    of this run's iterations (two a plane entry for each apply, ten a point
+    for the vector updates, K3's coarse product)."""
+    n, n_off, item = K.n, len(K.offsets), K.diags.element_size()
+    planes = (n_off * n + 3 * K.n_rest) * item
+    if kernel == "K2":
+        nbytes = planes + (2 + 3 * cols) * n * item
+        flops = (iters + 1) * cols * (2 * n_off + 10) * n
+    elif kernel == "K3":
+        m = ac_inv.shape[0]
+        nbytes = planes + 5 * n * item + m * m * ac_inv.element_size()
+        flops = (iters + 1) * ((3 * 2 * n_off + 30) * n + 2 * m * m)
+    else:
+        nbytes = planes + (2 + 3 * cols) * n * item
+        flops = (2 * iters + 1) * cols * (2 * n_off + 15) * n
+    return bound(nbytes, flops)
 
 
 def phase_grid_kernels(dev, big_problem) -> dict:
@@ -372,12 +479,11 @@ def phase_scale_main_path(problem, build_s: float, steps: int = SCALE_STEPS) -> 
     """The scale configuration through the user's entry points; returns the
     launch counts of K2 and K3 over both runs."""
     problem, counters = bench_large.with_iteration_counters(problem)
-    grid_cg.viscous_cg.launches = 0
-    grid_cg.pressure_cg.launches = 0
+    zero_launches()
     cold, state, metrics, warm, state2 = bench_large.run_problem(problem, steps)
-    launches = {"K2": grid_cg.viscous_cg.launches, "K3": grid_cg.pressure_cg.launches}
+    launches = launch_counts()
     iters = bench_large.iterations_per_solve(counters, 2 * steps)
-    check(launches == {"K2": 2 * steps, "K3": 4 * steps},
+    check(launches == {"K1": 0, "K2": 2 * steps, "K3": 4 * steps, "K4": 0},
           f"launches {launches} in two {steps}-step runs (want K2 = steps, K3 = 2·steps)")
     for k, v in {**state, **state2, **metrics}.items():
         if v.is_floating_point():
@@ -426,23 +532,190 @@ def phase_scale_tracers(dev, steps: int = TRACER_STEPS) -> None:
           f"max|u| {float(metrics['max_u'].max()):.4f}, captured {frac:.4f}")
 
 
-def main() -> None:
-    dev = phase_device()
-    build_s = phase_build()
-    at_main = phase_kernel(dev)
-    mesh = bench_mesh()
-    launches = phase_main_path(dev, mesh)
-    phase_parity(dev, mesh)
-    phase_dye(dev, bench_mesh("mesh.1", fallback=(20, 24)))
-    phase_grid_build(build_s)
+def phase_ns_build(seconds: float) -> None:
+    print(f"[12 build] K4 ({grid_cg.library_path().name}, built in the {seconds:.2f} s parallel "
+          f"build of phase 2): {ptxas_report(grid_cg.library_path(), 'ns_bicgstab')}")
+
+
+def ns_problem(dev, n_side: int, n_circle: int, precision: str = "f32", storage: str = "grid",
+               **overrides):
+    mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=True)
+    return navier_stokes.NSProblem.build(
+        mesh, bench_large.ns_config(precision, storage=storage, **overrides), device=dev)
+
+
+def ns_operator(problem, dtype, seed: int = 3):
+    """A = Δt·C(u) + νΔt·K of ``problem`` refilled from a seeded u = 0.1·N(0, 1),
+    cast to ``dtype``, with the step's mask and inverse diagonal: (op, mask,
+    inverse diagonal, u planes, rhs planes u + Δt·f)."""
+    cfg, ns = problem.config, problem.grid_refill.template.ns
+    dev = problem.device
+    u = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal((problem.mesh.n_nodes, 2)),
+                        dtype=dtype, device=dev)
+    C = problem.grid_refill.refill_flat(assembly.element_convection_flat(problem.mesh, u, "opsplit"))
+    op = dataclasses.replace(C, diags=cfg.dt * C.diags + problem.Kg_diags.to(dtype),
+                             rest_vals=cfg.dt * C.rest_vals + problem.Kg_rest.to(dtype))
+
+    def planes(v):
+        return v.T.reshape(-1, ns, ns).contiguous()
+
+    return (op, torch.ones(ns, ns, dtype=dtype, device=dev),
+            problem.inv_diag_visc.to(dtype).reshape(ns, ns).contiguous(), planes(u),
+            planes(u + cfg.dt * problem.body_force.to(dtype)))
+
+
+def check_ns_kernel(label: str, problem, calls: int, plain_calls: int) -> dict:
+    """K4 against its plain version on ``problem``'s operator at f32 and f64,
+    fixed 30 iterations from zero and tol 1e-5 from the step's warm start;
+    returns the numbers of the f32 tol 1e-5 case."""
+    dev = problem.device
+    at_main = {}
+    for dtype in (torch.float32, torch.float64):
+        op, mask, invd, u, b_step = ns_operator(problem, dtype)
+        b_rand = torch.as_tensor(np.random.default_rng(8).standard_normal(tuple(u.shape)),
+                                 dtype=dtype, device=dev)
+
+        def kernel(s, b, x0, it=None):
+            return grid_cg.ns_bicgstab(s, op, mask, invd, b, x0, it)
+
+        def plain(s, b, x0, it=None):
+            return grid_cg.ns_bicgstab_ref(s, op, mask, invd, b, x0, it)
+
+        for iters, tol, b, x0 in ((30, 0.0, b_rand, torch.zeros_like(u)), (30, 1e-5, b_step, u)):
+            s = dataclasses.replace(problem.vel_solver_grid, iters=iters, tol=tol, iters_count=None)
+            case = f"K4 {str(dtype)[6:]} {'tol 1e-5 warm' if tol else 'fixed 30'} at {label}"
+            numbers = check_solve(13, case, kernel, plain, s, b, x0, GRID_RTOL[(dtype, tol)],
+                                  calls, plain_calls)
+            if dtype == torch.float32 and tol:
+                iters = numbers.pop("iters")
+                at_main = {**numbers, **solve_bound("K4", op, 2, iters), "library_ms": None}
+    return at_main
+
+
+def check_ns_pressure(label: str, problem, calls: int, plain_calls: int) -> None:
+    """K3 against its plain version on the NS step's own pressure operator
+    (active mask deg > 0, no periodic pairs): the step's instance, with the
+    problem's field and coarse dtypes, and the same at f64 throughout."""
+    pres = problem.pressure_solver
+    rng = np.random.default_rng(9)
+    ns = pres.K.ns
+    for dtype, coarse in ((pres.K.diags.dtype, pres.ac_inv.dtype), (torch.float64, torch.float64)):
+        solver = k3_cast(pres, dtype, coarse)
+        b = torch.as_tensor(rng.standard_normal((ns, ns)), dtype=dtype, device=problem.device)
+        b = b * solver.act_grid  # a prepared rhs: zero off the active dofs
+        check_cg_cases(13, f"K3 coarse {str(coarse)[6:]} {str(dtype)[6:]} NS pressure at {label}",
+                       grid_cg.pressure_cg, grid_cg.pressure_cg_ref, solver, b, calls, plain_calls)
+
+
+def phase_ns_kernel(dev, big) -> dict:
+    # 64 coarse nodes give ragged 3×3 blocks at n_side=20.  With the default
+    # 2048 the coarse space is the whole grid (block 1), the preconditioner
+    # is exact, and a fixed-iteration f32 solve converges in one or two
+    # iterations and then iterates on roundoff, where kernel and plain
+    # version drift apart (both diverge; the step's tol 1e-5 stops at one)
+    small = ns_problem(dev, 20, 24, cg_coarse_nodes=64)
+    check(small.pressure_solver.block == 3 and small.pressure_solver.n_blocks == 7,
+          "n_side=20 with cg_coarse_nodes=64 gives ragged 3×3 blocks")
+    check_ns_kernel("n_side=20", small, calls=20, plain_calls=5)
+    check_ns_pressure("n_side=20", small, calls=20, plain_calls=5)
+    check_ns_pressure(f"{big.mesh.n_nodes} nodes", big, calls=5, plain_calls=2)
+    return check_ns_kernel(f"{big.mesh.n_nodes} nodes", big, calls=20, plain_calls=2)
+
+
+def phase_ns_main_path(problem, build_s: float, steps: int = NS_STEPS) -> dict:
+    """The NS configuration through the user's entry points; returns the
+    launch counts of K4 and K3 over both runs (every count set to 0 just
+    before, read just after)."""
+    problem, counters = bench_large.with_iteration_counters(problem, bench_large.NS_SOLVES)
+    zero_launches()
+    row = bench_large.run_ns_problem(problem, steps, counters)
+    launches = launch_counts()
+    check(launches == {"K1": 0, "K2": 0, "K3": 2 * steps, "K4": 2 * steps},
+          f"launches {launches} in two {steps}-step NS runs (want K4 = K3 = steps)")
+    u, p = row.pop("state")
+    check(bool(torch.isfinite(u).all() and torch.isfinite(p).all()), "NS state is finite")
+    t = problem.grid_refill.template
+    print(f"[14 NS main path] {problem.mesh.n_nodes} nodes ({len(t.offsets)} velocity planes, "
+          f"{t.n_rest} remainder entries; {len(problem.pressure_solver.K.offsets)} pressure "
+          f"planes), {steps}+{steps} steps: build {build_s:.1f} s, cold "
+          f"{row['cold_steps_per_sec']:.2f} steps/s, warm {row['warm_steps_per_sec']:.2f} "
+          f"steps/s; launches {launches}; {json.dumps(row)}")
+    return launches
+
+
+def phase_ns_grid_parity(dev, steps: int = NS_PARITY_STEPS) -> None:
+    """The NS grid path: f64 kernels on the card against the plain versions
+    on the CPU; f32 on the card against f64."""
+    runs = {}
+    for name, device, precision in (("gpu64", dev, "f64"), ("cpu64", torch.device("cpu"), "f64"),
+                                    ("gpu32", dev, "f32")):
+        problem = ns_problem(device, *NS_PARITY_MESH, precision=precision)
+        check(problem.grid_refill is not None, f"{name} took the grid path")
+        runs[name], _ = navier_stokes.run(problem, steps=steps)
+    g, c, f = (runs[k].double().cpu() for k in ("gpu64", "cpu64", "gpu32"))
+    du, dr = float((g - c).abs().max()), rel(g, c)
+    df = rel(f, g)
+    print(f"[15 NS grid parity] n_side={NS_PARITY_MESH[0]}, {steps} steps, max|u| "
+          f"{float(c.abs().max()):.3e}: f64 card vs CPU max abs du {du:.3e} (<= 1e-6), u rel "
+          f"{dr:.3e} (<= 1e-9); f32 vs f64 card u rel {df:.3e} (<= 5e-3)")
+    check(du <= 1e-6, f"NS f64 card vs CPU max abs du {du}")
+    # |u| is about 1e-5 here, so the absolute bound alone would let a wrong
+    # f64 kernel through: the f64 runs differ in summation order only
+    check(dr <= 1e-9, f"NS f64 card vs CPU u rel {dr}")
+    check(df <= 5e-3, f"NS f32 vs f64 card u rel {df}")
+
+
+def phase_ns_dense_parity(dev, steps: int = NS_DENSE_STEPS) -> None:
+    mesh = generate_annulus_mesh(*NS_DENSE_MESH)
+    runs = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        problem = navier_stokes.NSProblem.build(mesh, navier_stokes.NSConfig(), device=device)
+        runs[name], _ = navier_stokes.run(problem, steps=steps)
+    du = rel(runs["gpu"], runs["cpu"])
+    print(f"[16 NS dense parity] {mesh.n_nodes} nodes, {steps} steps, f64: card vs CPU u rel "
+          f"{du:.3e} (<= 1e-10), max|u| {float(runs['gpu'].abs().max()):.4e}")
+    check(du <= 1e-10, f"NS dense f64 card vs CPU rel {du}")
+
+
+def timed(n: int, fn, *args):
+    """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
-    big = scale_problem(dev, *SCALE_MESH)
+    out = fn(*args)
     torch.cuda.synchronize()
-    big_build_s = time.perf_counter() - t0
-    grid_main = phase_grid_kernels(dev, big)
-    grid_launches = phase_scale_main_path(big, big_build_s)
-    phase_scale_parity(dev)
-    phase_scale_tracers(dev)
+    print(f"[{n} seconds] {time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
+def built(n_side: int, n_circle: int, make):
+    """A 1,048,576-node problem from ``make`` and its build seconds."""
+    t0 = time.perf_counter()
+    problem = make(torch.device("cuda", 0), n_side, n_circle)
+    torch.cuda.synchronize()
+    return problem, time.perf_counter() - t0
+
+
+def main() -> None:
+    dev = timed(1, phase_device)
+    build_s = timed(2, phase_build)
+    at_main = timed(3, phase_kernel, dev)
+    mesh = bench_mesh()
+    launches = timed(4, phase_main_path, dev, mesh)
+    timed(5, phase_parity, dev, mesh)
+    timed(6, phase_dye, dev, bench_mesh("mesh.1", fallback=(20, 24)))
+    timed(7, phase_grid_build, build_s)
+    big, big_build_s = built(*SCALE_MESH, scale_problem)
+    grid_main = timed(8, phase_grid_kernels, dev, big)
+    grid_launches = timed(9, phase_scale_main_path, big, big_build_s)
+    timed(10, phase_scale_parity, dev)
+    timed(11, phase_scale_tracers, dev)
+    del big
+    torch.cuda.empty_cache()
+    timed(12, phase_ns_build, build_s)
+    ns_big, ns_build_s = built(*SCALE_MESH, ns_problem)
+    k4_main = timed(13, phase_ns_kernel, dev, ns_big)
+    ns_launches = timed(14, phase_ns_main_path, ns_big, ns_build_s)
+    timed(15, phase_ns_grid_parity, dev)
+    timed(16, phase_ns_dense_parity, dev)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",
@@ -451,10 +724,13 @@ def main() -> None:
         "launches": launches,
         **at_main,
     }]
-    for key, name, replaces in (("K2", "viscous_cg", "tpufem/solve/pallas_cg.py:825"),
-                                ("K3", "pressure_cg", "tpufem/solve/pallas_cg.py:1275")):
+    for key, name, replaces, count in (
+            ("K2", "viscous_cg", "tpufem/solve/pallas_cg.py:825", grid_launches["K2"]),
+            ("K3", "pressure_cg", "tpufem/solve/pallas_cg.py:1275", grid_launches["K3"]),
+            ("K4", "ns_bicgstab", "tpufem/solve/pallas_cg.py:1844", ns_launches["K4"])):
+        numbers = grid_main[key] if key != "K4" else k4_main
         kernels.append({"name": name, "route": "cuda", "source": "tpufem_torch/csrc/grid_cg.cu",
-                        "replaces": replaces, "launches": grid_launches[key], **grid_main[key]})
+                        "replaces": replaces, "launches": count, **numbers})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

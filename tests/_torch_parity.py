@@ -58,6 +58,70 @@ def jax_problem_arrays(problem) -> dict[str, np.ndarray]:
     return arrays
 
 
+NS_MESH = (20, 24)  # pad_hole: N = 400 on a 20×20 grid
+# the NS grid path at f64, short enough for tpufem's interpreted kernels
+NS_GRID = dict(dt=1e-4, nu=1.0, solver="cg", precision="f64", cg_iters_visc=40,
+               cg_iters_pressure=80, cg_tol=1e-10, cg_storage="grid_interpret")
+
+
+@functools.lru_cache(maxsize=None)
+def ns_grid_pair():
+    """One NS grid-path problem in both packages on
+    ``generate_annulus_mesh(20, 24, pad_hole=True)``, and the seeded velocity
+    the refill and K4 tests use: (tpufem problem, port problem, u (N, 2))."""
+    from tpufem.workloads import navier_stokes as jns
+
+    jm, _ = meshes(*NS_MESH, pad_hole=True)
+    jp = jns.NSProblem.build(jm, jns.NSConfig(**NS_GRID))
+    return (jp,) + _ns_port_problem()
+
+
+@functools.lru_cache(maxsize=None)
+def ns_refill_pair():
+    """What the refill and K4 tests need of :func:`ns_grid_pair` without
+    tpufem's whole problem, whose build (JAX compiles, the pressure
+    solver's λmax estimate) takes most of a test file's time: (tpufem mesh,
+    tpufem ``GridRefill`` at f64, port problem, u (N, 2))."""
+    import jax.numpy as jnp
+
+    from tpufem.ops.gridop import GridRefill
+
+    jm, _ = meshes(*NS_MESH, pad_hole=True)
+    tp, u = _ns_port_problem()
+    return jm, GridRefill.build(jm, tp.grid_refill.template.ns, dtype=jnp.float64), tp, u
+
+
+@functools.lru_cache(maxsize=None)
+def _ns_port_problem():
+    import torch
+
+    from tpufem_torch.workloads import navier_stokes as tns
+
+    _, tm = meshes(*NS_MESH, pad_hole=True)
+    tp = tns.NSProblem.build(tm, tns.NSConfig(**NS_GRID), device=torch.device("cpu"))
+    u = 0.1 * np.random.default_rng(1).standard_normal((tm.n_nodes, 2))
+    return tp, u
+
+
+def ns_problem_arrays(problem) -> dict[str, np.ndarray]:
+    """A tpufem grid-path ``NSProblem`` as the arrays
+    ``interop.ns_problem_from_numpy`` takes."""
+    from tpufem.workloads import stokes as jstokes
+
+    arrays = {k: np.asarray(v) for k, v in jstokes._extract_arrays(problem).items()}
+    arrays["wall_mask"] = np.asarray(problem.wall_mask)
+    arrays["grid_refill.order_k"] = np.asarray(problem.grid_refill.order_k)
+    arrays["grid_refill.order"] = np.asarray(problem.grid_refill.order)
+    for prefix, op in (("grid_refill.template", problem.grid_refill.template),
+                       ("pressure_solver.K", problem.pressure_solver.K)):
+        arrays[f"{prefix}.offsets"] = np.asarray(op.offsets)
+        arrays[f"{prefix}.n_rest"] = np.asarray(op.n_rest)
+        arrays[f"{prefix}.coverage"] = np.asarray(op.coverage)
+    arrays["pressure_solver.omega"] = np.asarray(problem.pressure_solver.omega)
+    arrays["pressure_solver.pair_axis"] = np.asarray(problem.pressure_solver.pair_axis)
+    return arrays
+
+
 def _grid_extras(problem) -> dict[str, np.ndarray]:
     """What ``_extract_arrays`` leaves out of a grid-storage problem: the
     operators' static fields, ω, the pairing axis and CSR div/grad."""

@@ -181,6 +181,12 @@ def test_matfree_solvers_match_tpufem(precond, tol):
 
 
 def test_pressure_pin_refused():
-    _, _, _, tp = _matfree_solvers("jacobi", 0.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        dataclasses.replace(tp, pin=3)
+    """Named for when the port refused the gauge pin: the pin is ported
+    now (with the Navier–Stokes workload), and this holds it against
+    tpufem's pinned solve (symmetric masking, no deflation)."""
+    _, _, jp, tp = _matfree_solvers("jacobi", 0.0)
+    jp, tp = dataclasses.replace(jp, pin=3), dataclasses.replace(tp, pin=3)
+    rng = np.random.default_rng(7)
+    b, x0 = rng.standard_normal(tp.active_mask.shape[0]), rng.standard_normal(tp.active_mask.shape[0])
+    got = tp.solve(torch.as_tensor(b), torch.as_tensor(x0)).numpy()
+    assert rel(got, np.asarray(jp.solve(jnp.asarray(b), jnp.asarray(x0)))) <= 1e-11

@@ -1,9 +1,10 @@
 """tpufem_torch: the PyTorch/CUDA port of tpufem, for NVIDIA Hopper.
 
 The JAX package ``tpufem`` is the reference; this package mirrors its
-layout and names.  This slice covers the squirmer Stokes dense regime with
-tracer and dye transport, with the fused-step matvec as a hand-written
-CUDA kernel.
+layout and names.  It covers the squirmer Stokes step in its dense and
+scale regimes with tracer and dye transport, and the Navier–Stokes
+workload; the TPU kernels on those paths are hand-written CUDA kernels
+(``csrc/``).
 
 Quick start::
 

@@ -72,15 +72,22 @@ def timed_run(problem: stokes.StokesProblem, steps: int):
 
 def profile_steps(problem: stokes.StokesProblem, steps: int, top: int = 8,
                   state: dict | None = None) -> dict:
-    """Device kernels of one ``steps``-step run (from ``state``, default the
-    initial state) under ``torch.profiler``: kernel launches and device ms
-    per step, and the ``top`` kernels by device time.  Profiling slows the
-    host, so no wall time is taken here."""
+    """Device kernels of one ``steps``-step Stokes run (from ``state``,
+    default the initial state) under ``torch.profiler``: see
+    :func:`profile_run`."""
+    return profile_run(lambda: stokes.run(problem, steps=steps, state=state), steps, top)
+
+
+def profile_run(run, steps: int, top: int = 8) -> dict:
+    """Device kernels of ``run()``, a run of ``steps`` steps, under
+    ``torch.profiler``: kernel launches and device ms per step, and the
+    ``top`` kernels by device time.  Profiling slows the host, so no wall
+    time is taken here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stokes.run(problem, steps=steps, state=state)
+        run()
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     for e in prof.events():

@@ -10,8 +10,9 @@ both pressure solves, f32 fields, bf16 coarse inverse.
 prints one JSON row like tpufem's (cold and warm steps/s, the physics
 report), plus the card's name and power limit, the mean CG iterations per
 solve of each run, and a device-time breakdown of the warm run, repeated
-under ``torch.profiler``.  There is no CPU fallback: without a CUDA device it
-fails.
+under ``torch.profiler``.  ``--ns`` runs tpufem's Navier–Stokes row instead
+(:func:`run_ns`: f32, the grid path's K4 velocity and K3 pressure solves on
+CUDA).  There is no CPU fallback: without a CUDA device it fails.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from tpufem_torch.workloads import stokes
+from tpufem_torch.workloads import navier_stokes, stokes
 
 # (label, n_side, n_circle): pad_hole annulus sizes, N = n_side²
 SIZES = [
@@ -109,18 +110,32 @@ def physics_report(problem, state, metrics, steps: int, gate: str = "stokes") ->
     return row
 
 
-def with_iteration_counters(problem):
-    """(problem, counters): the problem with int32 device counters on its
-    grid solvers, to which each solve adds its iteration count."""
-    dev = problem.device
+def with_iteration_counters(problem, solves_per_step: dict | None = None):
+    """(problem, counters): the problem with int32 device counters on the
+    grid solvers named in ``solves_per_step`` (field → solves a step;
+    default the Stokes step's one viscous and two pressure solves), to which
+    each solve adds its iteration count.  ``counters`` maps each field that
+    has a grid solver to (counter, solves a step)."""
+    if solves_per_step is None:
+        solves_per_step = {"visc_solver": 1, "pressure_solver": 2}
     counters = {}
     changes = {}
-    for field in ("visc_solver", "pressure_solver"):
+    for field, per_step in solves_per_step.items():
         solver = getattr(problem, field)
         if hasattr(solver, "iters_count"):
-            counters[field] = torch.zeros(1, dtype=torch.int32, device=dev)
-            changes[field] = dataclasses.replace(solver, iters_count=counters[field])
+            count = torch.zeros(1, dtype=torch.int32, device=problem.device)
+            counters[field] = (count, per_step)
+            changes[field] = dataclasses.replace(solver, iters_count=count)
     return dataclasses.replace(problem, **changes), counters
+
+
+def _build_kernels(device) -> None:
+    """Build (or load) the grid kernels' library before any timing, so a
+    cold run does not include nvcc; a set-up cost, counted in ``build_s``."""
+    if torch.device(device).type == "cuda":
+        from tpufem_torch.solve import grid_cg
+
+        grid_cg.build()
 
 
 def _sync(problem) -> None:
@@ -146,13 +161,12 @@ def run_problem(problem, steps: int):
 
 
 def iterations_per_solve(counters: dict, steps: int) -> dict:
-    """Mean iterations per solve since the counters were zeroed (one
-    viscous and two pressure solves a step); zeroes them again."""
+    """Mean iterations per solve since the counters were zeroed, keyed by
+    the solver field's first word; zeroes them again."""
     out = {}
-    for key, per_step in (("visc_solver", 1), ("pressure_solver", 2)):
-        if key in counters:
-            out[key.split("_")[0]] = int(counters[key].item()) / (per_step * steps)
-            counters[key].zero_()
+    for field, (count, per_step) in counters.items():
+        out[field.split("_")[0]] = int(count.item()) / (per_step * steps)
+        count.zero_()
     return out
 
 
@@ -168,6 +182,7 @@ def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
     from tpufem_torch.mesh import generate_annulus_mesh
 
     t0 = time.perf_counter()
+    _build_kernels(device)
     mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=True)
     config = bench_config(precond, n_nodes=mesh.n_nodes, transport=transport, storage=storage)
     problem = stokes.StokesProblem.build(mesh, config, device=device)
@@ -213,6 +228,123 @@ def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
     return row
 
 
+NS_SOLVES = {"vel_solver_grid": 1, "pressure_solver": 1}  # grid solves a step (one projection)
+
+
+def ns_config(precision: str = "f32", precond: str = "twolevel", storage: str = "auto",
+              **overrides) -> navier_stokes.NSConfig:
+    """tpufem's ``run_ns`` configuration: implicit advection at Δt = 1e-4,
+    ν = 1, BiCGStab capped at 30 iterations, pressure PCG capped at 120,
+    both exiting at tol 1e-5 (f32) or 1e-8 (f64)."""
+    kw = dict(dt=1e-4, nu=1.0, solver="cg", precision=precision, cg_precond=precond,
+              cg_iters_visc=30, cg_iters_pressure=120,
+              cg_tol=1e-5 if precision == "f32" else 1e-8, cg_storage=storage)
+    kw.update(overrides)
+    return navier_stokes.NSConfig(**kw)
+
+
+def ns_physics_report(problem, u: torch.Tensor, steps: int) -> dict:
+    """tpufem's NS gates after ``steps`` steps from rest: a finite velocity,
+    max|u| < 10·|f|·t (the ballistic growth of the impulsively forced
+    channel, ten times over) and the normalized divergence below
+    ``DIV_REL_GATES["ns"]``; raises on a failed gate."""
+    from tpufem_torch.ops import assembly, calculus
+
+    mesh, cfg = problem.mesh, problem.config
+    uh = u.detach().double().cpu().numpy()
+    if not np.isfinite(uh).all():
+        raise FloatingPointError("NS run diverged: non-finite velocity")
+    u_cap = 10.0 * float(np.abs(np.asarray(cfg.body_force)).max()) * steps * cfg.dt
+    if not np.abs(uh).max() < u_cap:
+        raise AssertionError(f"NS velocity {np.abs(uh).max():.3e} exceeds 10·|f|·t = {u_cap:.3e}")
+    div = calculus.divergence(mesh, u.double()).cpu().numpy()
+    ml = assembly.lumped_mass(mesh).numpy()
+    h = float(np.sqrt(2.0 * np.median(np.asarray(mesh.area))))
+    div_l2 = float(np.sqrt((ml * div**2).sum()))
+    u_l2 = float(np.sqrt((ml * (uh**2).sum(axis=1)).sum()))
+    div_rel = div_l2 * h / max(u_l2, 1e-30)
+    if not div_rel < DIV_REL_GATES["ns"]:
+        raise AssertionError(f"NS normalized divergence {div_rel:.4f} ≥ {DIV_REL_GATES['ns']}")
+    return {"max_u": float(np.abs(uh).max()), "u_cap": u_cap, "div_rel": div_rel}
+
+
+def _timed_ns(problem, steps: int, state=None):
+    """One synchronised NS ``run``: (steps/s, u, metrics, (u, p))."""
+    _sync(problem)
+    t0 = time.perf_counter()
+    u, metrics, state = navier_stokes.run(problem, steps=steps, state=state, return_state=True)
+    _sync(problem)
+    return steps / (time.perf_counter() - t0), u, metrics, state
+
+
+def run_ns_problem(problem, steps: int, counters: dict | None = None) -> dict:
+    """A run of ``steps`` from rest and a continuation from its end state,
+    with tpufem's gates on both (the continuation at its own elapsed time)
+    and, given ``counters``, the mean iterations per solve of each."""
+    cold, u, metrics, state = _timed_ns(problem, steps)
+    out = {"cold_steps_per_sec": cold, "div_star_max": float(metrics["div_star_max"][-1]),
+           "cold": ns_physics_report(problem, u, steps), "state": state}
+    if counters:
+        out["iters_per_solve"] = {"cold": iterations_per_solve(counters, steps)}
+    warm, u2, _, _ = _timed_ns(problem, steps, state)
+    out["warm_steps_per_sec"] = warm
+    out["warm"] = ns_physics_report(problem, u2, 2 * steps)
+    if counters:
+        out["iters_per_solve"]["warm"] = iterations_per_solve(counters, steps)
+    return out
+
+
+def run_ns(n_side: int, n_circle: int, steps: int, precision: str = "f32",
+           precond: str = "twolevel", storage: str = "auto", device="cuda",
+           profile: bool = True) -> dict:
+    """One NS row, the twin of tpufem's ``run_ns``: build; a run from rest
+    and a continuation from its end state, each with its steps/s and mean
+    iterations per solve; tpufem's gates on both (the continuation at its
+    own elapsed time); on CUDA the continuation repeated under
+    ``torch.profiler`` from the same state."""
+    from tpufem_torch.bench import card, profile_run
+    from tpufem_torch.mesh import generate_annulus_mesh
+
+    t0 = time.perf_counter()
+    _build_kernels(device)
+    mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=True)
+    config = ns_config(precision, precond, storage)
+    problem = navier_stokes.NSProblem.build(mesh, config, device=device)
+    problem, counters = with_iteration_counters(problem, NS_SOLVES)
+    _sync(problem)
+    t_build = time.perf_counter() - t0
+    runs = run_ns_problem(problem, steps, counters)
+    state = runs.pop("state")
+    grid = problem.grid_refill is not None
+    row = {
+        "workload": "navier_stokes",
+        "n_nodes": int(mesh.n_nodes),
+        "n_tris": int(mesh.n_tris),
+        "steps": steps,
+        "precision": precision,
+        "precond": precond,
+        "storage": "grid" if grid else "csr",
+        "build_s": t_build,
+        **runs,
+    }
+    if grid:
+        row["planes"] = {"velocity": len(problem.grid_refill.template.offsets),
+                         "pressure": len(problem.pressure_solver.K.offsets)}
+        row["remainder"] = {"velocity": problem.grid_refill.template.n_rest,
+                            "pressure": problem.pressure_solver.K.n_rest}
+    if problem.device.type == "cuda":
+        row["device"] = torch.cuda.get_device_name(problem.device)
+        row["card"] = card()
+        if profile:
+            prof = profile_run(lambda: navier_stokes.run(problem, steps=steps, state=state),
+                               steps)
+            if counters:
+                prof["iters_per_solve"] = iterations_per_solve(counters, steps)
+            prof["device_busy_share"] = prof["device_ms_per_step"] * row["warm_steps_per_sec"] / 1e3
+            row["profile_of_warm_run"] = prof
+    return row
+
+
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(prog="python -m tpufem_torch.bench_large")
     parser.add_argument("--size", default="1.05M",
@@ -221,6 +353,8 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--precond", default="twolevel", choices=["twolevel", "jacobi"])
     parser.add_argument("--transport", default="none", choices=["none", "tracers", "dye"])
     parser.add_argument("--storage", default="auto", help="cg_storage: auto | grid | csr")
+    parser.add_argument("--ns", action="store_true",
+                        help="run the Navier–Stokes configuration (run_ns) instead of Stokes")
     parser.add_argument("--out", default=None, help="write the rows as JSON lines here too")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -235,8 +369,12 @@ def main(argv=None) -> list[dict]:
     for label, n_side, n_circle in SIZES:
         if label not in wanted:
             continue
-        row = run_one(n_side, n_circle, args.steps, precond=args.precond,
-                      transport=args.transport, storage=args.storage)
+        if args.ns:
+            row = run_ns(n_side, n_circle, args.steps, precond=args.precond,
+                         storage=args.storage)
+        else:
+            row = run_one(n_side, n_circle, args.steps, precond=args.precond,
+                          transport=args.transport, storage=args.storage)
         row["label"] = label
         print(json.dumps(row), flush=True)
         rows.append(row)

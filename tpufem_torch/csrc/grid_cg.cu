@@ -1,4 +1,4 @@
-// Kernels K2 and K3: whole-solve preconditioned CG on the grid-offset
+// Kernels K2, K3 and K4: whole-solve Krylov solvers on the grid-offset
 // operator of ring-in-grid meshes (N = ns² nodes), one launch per solve.
 //
 // Replaces the TPU kernels
@@ -8,8 +8,16 @@
 //       (m(I + dtν K)m + (1−m)I) x = b, both velocity columns in lockstep;
 //   K3  PressureGridCG._solve_fn  (pallas_cg.py:1275; kernel :1310,
 //       _cg_core :597): PCG on the merged periodic pressure operator with
-//       constant-nullspace deflation and the two-level preconditioner.
-// Both exit early on the device when tol > 0.
+//       constant-nullspace deflation and the two-level preconditioner;
+//   K4  NSGridBiCGStab._solve_fn  (pallas_cg.py:1844; kernels :1869/:1905,
+//       _bicgstab_core_cols :1653): right-preconditioned Jacobi-BiCGStab on
+//       the nonsymmetric Navier–Stokes velocity system
+//       (m(I + Δt C(u) + νΔt K)m + (1−m)I) x = b, both columns in lockstep,
+//       with the finite-or-zero guards on β, α and ω.  Its planes, remainder
+//       values and inverse diagonal are new every step (GridRefill); only the
+//       remainder pattern and the shift table are static.  One form: the
+//       TPU's HBM-resident kernel_hbm exists for VMEM capacity only.
+// All three exit early on the device when tol > 0.
 //
 // Operator: K·X = Σ_g d_g ⊙ X[(iy+dy_g) mod ns, (ix+s_g) mod ns] + R·x, both
 // axes cyclic as tpufem's _roll2.  The (dy, s) table arrives as kernel
@@ -34,7 +42,14 @@
 // has 20 viscous and 26 pressure planes (84 and 109 MB, beyond L2), so an
 // iteration moves ~190 MB in K2 and ~480 MB in K3: 56 and 142 µs at the HBM
 // peak.  Below ~10⁵ nodes the planes sit in L2 and the grid syncs dominate:
-// K2 has 3 and K3 11 per iteration, a few µs each.  This first version is simple and correct: it reads each
+// K2 has 3 and K3 11 per iteration, a few µs each.  K4 applies A twice per
+// iteration, both columns sharing each read of the planes, and makes five
+// vector passes (p̂; v and r̂·v; s, x and ŝ; t, t·t and t·s; x, r, r·r and
+// r̂·r) with one grid sync each: 2·n_off operator planes plus 54 vector planes
+// (two columns, mask and D⁻¹ counted per pass) an iteration, all HBM traffic
+// at 1,048,576 nodes.  There GridRefill picks 13 planes (560 remainder
+// entries; it passes no rest_target, so not the Stokes split): 80 planes of
+// 4.19 MB, 335.5 MB an iteration, 0.100 ms at 3.35 TB/s.  This first version is simple and correct: it reads each
 // plane once per apply with coalesced loads and keeps the CG vectors in
 // device memory; no TMA, no L2 residency control, no fused phases.
 //
@@ -524,6 +539,189 @@ __global__ void __launch_bounds__(kThreads) pressure_cg_kernel(PressureArgs<T, A
 }
 
 // ---------------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ T finite_or_zero(T v) { return isfinite(v) ? v : T(0); }
+
+template <typename T>
+struct NSArgs {
+  GridOp<T> op;  // A = Δt·C(u) + νΔt·K, refilled every step
+  const T* __restrict__ mask;
+  const T* __restrict__ invd;
+  const T* __restrict__ b;   // (C, N)
+  const T* __restrict__ x0;  // (C, N)
+  T* x;                      // (C, N) the solution
+  T* r;                      // holds s between phases C and E
+  T* rhat;
+  T* p;
+  T* v;
+  T* phat;
+  T* shat;
+  T* t;
+  T* partials;
+  T tol;
+  int iters;
+  int* iters_out;
+};
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads) ns_bicgstab_kernel(NSArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  const int ns = a.op.ns, n = ns * ns;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  int slot = 0;
+
+  // m·(X + A(m·X)) + (1−m)·X at point i of plane X
+  auto mv = [&](const T* X, int i, int iy, int ix) -> T {
+    const T* m = a.mask;
+    const T ax = apply_at(a.op, iy, ix, [&](int j) { return m[j] * X[j]; });
+    const T mi = m[i], xi = X[i];
+    return mi * (xi + ax) + (T(1) - mi) * xi;
+  };
+
+  // x = x0, r = r̂ = b − A x0, p = v = 0; sums b·b and r·r (= r̂·r) per column
+  T s0[2 * C];
+#pragma unroll
+  for (int j = 0; j < 2 * C; ++j) s0[j] = T(0);
+  for (int i = tid; i < n; i += stride) {
+    const int iy = i / ns, ix = i - iy * ns;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int e = c * n + i;
+      const T* x0 = a.x0 + c * n;
+      const T bv = a.b[e];
+      a.x[e] = x0[i];
+      const T rv = bv - mv(x0, i, iy, ix);
+      a.r[e] = rv;
+      a.rhat[e] = rv;
+      a.p[e] = T(0);
+      a.v[e] = T(0);
+      s0[c] += bv * bv;
+      s0[C + c] += rv * rv;
+    }
+  }
+  reduce_grid(grid, s0, a.partials, slot);
+  T atol2[C], rr[C], rho_new[C], rho[C], alpha[C], omega[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const T tl = a.tol * tmax(tsqrt(s0[c]), T(1e-30));
+    atol2[c] = tl * tl;
+    rr[c] = s0[C + c];
+    rho_new[c] = s0[C + c];
+    rho[c] = alpha[c] = omega[c] = T(1);
+  }
+
+  int k = 0;
+  for (;;) {
+    bool live = k < a.iters;
+    if (live && a.tol > T(0)) {
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < C; ++c) any = any || (rr[c] > atol2[c]);
+      live = any;
+    }
+    if (!live) break;
+
+    // p = r + β(p − ωv), p̂ = D⁻¹p
+    T beta[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      beta[c] = finite_or_zero((rho[c] != T(0) && omega[c] != T(0))
+                                   ? (rho_new[c] / rho[c]) * (alpha[c] / omega[c])
+                                   : T(0));
+    for (int i = tid; i < n; i += stride) {
+      const T di = a.invd[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int e = c * n + i;
+        const T pv = a.r[e] + beta[c] * (a.p[e] - omega[c] * a.v[e]);
+        a.p[e] = pv;
+        a.phat[e] = di * pv;
+      }
+    }
+    grid.sync();
+
+    // v = A p̂; sums r̂·v
+    T s1[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s1[c] = T(0);
+    for (int i = tid; i < n; i += stride) {
+      const int iy = i / ns, ix = i - iy * ns;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const T vv = mv(a.phat + c * n, i, iy, ix);
+        a.v[c * n + i] = vv;
+        s1[c] += a.rhat[c * n + i] * vv;
+      }
+    }
+    reduce_grid(grid, s1, a.partials, slot);
+#pragma unroll
+    for (int c = 0; c < C; ++c) alpha[c] = finite_or_zero(s1[c] != T(0) ? rho_new[c] / s1[c] : T(0));
+
+    // s = r − αv (into r), x += α p̂, ŝ = D⁻¹s
+    for (int i = tid; i < n; i += stride) {
+      const T di = a.invd[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int e = c * n + i;
+        const T sv = a.r[e] - alpha[c] * a.v[e];
+        a.r[e] = sv;
+        a.x[e] = a.x[e] + alpha[c] * a.phat[e];
+        a.shat[e] = di * sv;
+      }
+    }
+    grid.sync();
+
+    // t = A ŝ; sums t·t, t·s
+    T s2[2 * C];
+#pragma unroll
+    for (int j = 0; j < 2 * C; ++j) s2[j] = T(0);
+    for (int i = tid; i < n; i += stride) {
+      const int iy = i / ns, ix = i - iy * ns;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const T tv = mv(a.shat + c * n, i, iy, ix);
+        a.t[c * n + i] = tv;
+        s2[c] += tv * tv;
+        s2[C + c] += tv * a.r[c * n + i];
+      }
+    }
+    reduce_grid(grid, s2, a.partials, slot);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      omega[c] = finite_or_zero(s2[c] != T(0) ? s2[C + c] / s2[c] : T(0));
+
+    // x += ω ŝ, r = s − ωt; sums r·r (the stop test) and r̂·r (the next ρ)
+    T s3[2 * C];
+#pragma unroll
+    for (int j = 0; j < 2 * C; ++j) s3[j] = T(0);
+    for (int i = tid; i < n; i += stride) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int e = c * n + i;
+        a.x[e] = a.x[e] + omega[c] * a.shat[e];
+        const T rv = a.r[e] - omega[c] * a.t[e];
+        a.r[e] = rv;
+        s3[c] += rv * rv;
+        s3[C + c] += a.rhat[e] * rv;
+      }
+    }
+    reduce_grid(grid, s3, a.partials, slot);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      rho[c] = rho_new[c];
+      rr[c] = s3[c];
+      rho_new[c] = s3[C + c];
+    }
+    ++k;
+  }
+  if (tid == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -637,6 +835,38 @@ int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
   return (int)launch_coop(pressure_cg_kernel<T, A>, a, (int)n, (cudaStream_t)stream);
 }
 
+template <typename T>
+int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns, const int* rowptr,
+                const int* lane, const int* src, const T* val, const T* mask, const T* invd,
+                const T* b, const T* x0, T* x, T* work, int C, int iters, double tol,
+                int* iters_out, void* stream) {
+  NSArgs<T> a;
+  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val);
+  if (err != cudaSuccess) return (int)err;
+  const size_t cn = (size_t)C * ns * ns;
+  a.mask = mask;
+  a.invd = invd;
+  a.b = b;
+  a.x0 = x0;
+  a.x = x;
+  a.r = work;
+  a.rhat = work + cn;
+  a.p = work + 2 * cn;
+  a.v = work + 3 * cn;
+  a.phat = work + 4 * cn;
+  a.shat = work + 5 * cn;
+  a.t = work + 6 * cn;
+  a.partials = work + 7 * cn;
+  a.tol = (T)tol;
+  a.iters = iters;
+  a.iters_out = iters_out;
+  const int n = ns * ns;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C == 1) return (int)launch_coop(ns_bicgstab_kernel<T, 1>, a, n, s);
+  if (C == 2) return (int)launch_coop(ns_bicgstab_kernel<T, 2>, a, n, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 #define VISCOUS_ENTRY(NAME, T)                                                                  \
@@ -660,9 +890,20 @@ int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
                              tol, iters_out, stream);                                           \
   }
 
+#define NS_ENTRY(NAME, T)                                                                       \
+  extern "C" int NAME(const T* diags, const int* rs, const int* ls, int n_off, int ns,          \
+                      const int* rowptr, const int* lane, const int* src, const T* val,         \
+                      const T* mask, const T* invd, const T* b, const T* x0, T* x, T* work,     \
+                      int C, int iters, double tol, int* iters_out, void* stream) {             \
+    return ns_bicgstab<T>(diags, rs, ls, n_off, ns, rowptr, lane, src, val, mask, invd, b, x0,  \
+                          x, work, C, iters, tol, iters_out, stream);                           \
+  }
+
 VISCOUS_ENTRY(viscous_cg_f32, float)
 VISCOUS_ENTRY(viscous_cg_f64, double)
 PRESSURE_ENTRY(pressure_cg_f32, float, float)
 PRESSURE_ENTRY(pressure_cg_f32_bf16, float, __nv_bfloat16)
 PRESSURE_ENTRY(pressure_cg_f64, double, double)
 PRESSURE_ENTRY(pressure_cg_f64_bf16, double, __nv_bfloat16)
+NS_ENTRY(ns_bicgstab_f32, float)
+NS_ENTRY(ns_bicgstab_f64, double)

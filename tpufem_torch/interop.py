@@ -30,6 +30,12 @@ Both: ``m_lumped``; ``boundary.<walls|inner|dirichlet|interior|masters|slaves>``
 ``inner_values``; for transport ``locator.<cells|rows|origin|extent|g>``;
 for tracers ``tracer_init``.
 
+Navier–Stokes grid path (:func:`ns_problem_from_numpy`, the JAX package's
+``NSProblem`` layout): ``grid_refill.<dest|order|order_k>`` and the template
+operator under ``grid_refill.template.`` (as ``<op>`` above; its values are
+not used); ``Kg_diags``, ``Kg_rest``; ``inv_diag_visc``; ``wall_mask``; the
+pressure solver's arrays as above.
+
 Operator arrays keep their own dtype on the device; the arrays are copied,
 so read-only inputs (such as views of JAX arrays) are fine.
 """
@@ -44,10 +50,12 @@ import torch
 from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
-from tpufem_torch.ops.gridop import GridOperator
+from tpufem_torch.ops.gridop import GridOperator, GridRefill
 from tpufem_torch.ops.sparse import CSROperator
 from tpufem_torch.solve.dense import DenseInverse, DenseLU
-from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
+from tpufem_torch.solve.grid_cg import NSGridBiCGStab, PressureGridCG, ViscousGridCG
+from tpufem_torch.workloads.navier_stokes import NSConfig, NSProblem
+from tpufem_torch.workloads.navier_stokes import check_config as check_ns_config
 from tpufem_torch.workloads.stokes import StokesConfig, StokesProblem, check_config
 
 
@@ -73,6 +81,21 @@ def _grid_operator(arrays: dict, prefix: str, device) -> GridOperator:
     )
 
 
+def _grid_pressure(arrays: dict, iters: int, tol: float, use_coarse: bool, plain: bool,
+                   device) -> PressureGridCG:
+    pr = np.asarray(arrays["pressure_solver.Pr"])  # (nc, ns) one-hot row blocks
+    field = lambda name: _tensor(arrays[f"pressure_solver.{name}"], device)
+    return PressureGridCG(
+        K=_grid_operator(arrays, "pressure_solver.K", device),
+        m_lumped=field("m_lumped"), active_mask=field("active_mask"),
+        master_mask=field("master_mask"), slave_mask=field("slave_mask"),
+        iters=iters, ac_inv=field("ac_inv"), block=int(pr[0].sum()),
+        n_blocks=pr.shape[0], omega=float(arrays["pressure_solver.omega"]),
+        tol=tol, plain=plain, pair_axis=int(arrays["pressure_solver.pair_axis"]),
+        use_coarse=use_coarse,
+    )
+
+
 def _grid_solvers(arrays: dict, config: StokesConfig, device):
     plain = config.cg_storage == "grid_interpret"
     visc = ViscousGridCG(
@@ -81,18 +104,8 @@ def _grid_solvers(arrays: dict, config: StokesConfig, device):
         dt_nu=config.dt * config.nu, iters=config.cg_iters_visc, tol=config.cg_tol_visc,
         plain=plain,
     )
-    pr = np.asarray(arrays["pressure_solver.Pr"])  # (nc, ns) one-hot row blocks
-    field = lambda name: _tensor(arrays[f"pressure_solver.{name}"], device)
-    pressure = PressureGridCG(
-        K=_grid_operator(arrays, "pressure_solver.K", device),
-        m_lumped=field("m_lumped"), active_mask=field("active_mask"),
-        master_mask=field("master_mask"), slave_mask=field("slave_mask"),
-        iters=config.cg_iters_pressure, ac_inv=field("ac_inv"), block=int(pr[0].sum()),
-        n_blocks=pr.shape[0], omega=float(arrays["pressure_solver.omega"]),
-        tol=config.cg_tol_pressure, plain=plain,
-        pair_axis=int(arrays["pressure_solver.pair_axis"]),
-        use_coarse=config.cg_precond == "twolevel",
-    )
+    pressure = _grid_pressure(arrays, config.cg_iters_pressure, config.cg_tol_pressure,
+                              config.cg_precond == "twolevel", plain, device)
     return visc, pressure
 
 
@@ -160,6 +173,41 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
         div_xy=(dev_array("div_x"), dev_array("div_y")),
         fused=fused,
         **common,
+    )
+
+
+def ns_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: NSConfig,
+                          device=None) -> NSProblem:
+    """A port grid-path ``NSProblem`` holding the given operator arrays."""
+    check_ns_config(config)
+    if config.solver != "cg" or "grid_refill.dest" not in arrays:
+        raise ValueError("ns_problem_from_numpy carries the grid path only: grid_refill.* "
+                         "arrays and a solver='cg' configuration")
+    dev = tconfig.device(device)
+    template = _grid_operator(arrays, "grid_refill.template", dev)
+    m = template.n_rest
+
+    def index(key):
+        return torch.as_tensor(np.asarray(arrays[key], dtype=np.int64), device=dev)
+
+    refill = GridRefill(template=template, dest=index("grid_refill.dest"),
+                        order=index("grid_refill.order"), order_k=index("grid_refill.order_k"),
+                        n_flat=len(template.offsets) * template.n + m)
+    plain = config.cg_storage == "grid_interpret"
+    wall_mask = np.asarray(arrays["wall_mask"], dtype=bool)
+    dtype = tconfig.dtype(config.precision)
+    return NSProblem(
+        mesh=mesh, wall_mask=wall_mask, config=config, wall=torch.as_tensor(wall_mask, device=dev),
+        body_force=torch.as_tensor(np.asarray(config.body_force), dtype=dtype, device=dev),
+        pressure_solver=_grid_pressure(arrays, config.cg_iters_pressure, config.cg_tol,
+                                       config.cg_precond == "twolevel", plain, dev),
+        inv_diag_visc=_tensor(arrays["inv_diag_visc"], dev), grid_refill=refill,
+        Kg_diags=_tensor(arrays["Kg_diags"], dev),
+        Kg_rest=_tensor(np.asarray(arrays["Kg_rest"])[:m, 0], dev),
+        vel_solver_grid=NSGridBiCGStab(ns=template.ns, offsets=template.offsets, n_rest=m,
+                                       iters=config.cg_iters_visc, tol=config.cg_tol,
+                                       interpret=plain),
+        ones_mask=torch.ones(mesh.n_nodes, dtype=dtype, device=dev),
     )
 
 

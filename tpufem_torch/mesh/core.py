@@ -73,6 +73,28 @@ class Mesh:
         """(T, 2) triangle centroids."""
         return self.tri_coords().mean(axis=1)
 
+    def tensors(self, dtype, device) -> dict:
+        """The per-element arrays as tensors on ``device``: ``tris`` (int64),
+        ``grads``, ``det``, ``area`` (in ``dtype``) and ``valid`` (bool).
+        Made once per (dtype, device) and kept on the mesh, so a per-step
+        operator does not copy the geometry to the device every step."""
+        import torch
+
+        cache = self.__dict__.setdefault("_tensors", {})
+        dev = torch.device(device if device is not None else "cpu")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        hit = cache.get((dtype, dev))
+        if hit is None:
+            hit = cache[(dtype, dev)] = {
+                "tris": torch.as_tensor(self.tris, dtype=torch.int64, device=dev),
+                "grads": torch.as_tensor(self.grads, dtype=dtype, device=dev),
+                "det": torch.as_tensor(self.det, dtype=dtype, device=dev),
+                "area": torch.as_tensor(self.area, dtype=dtype, device=dev),
+                "valid": torch.as_tensor(self.valid, dtype=torch.bool, device=dev),
+            }
+        return hit
+
 
 def geometry(coords: np.ndarray, tris: np.ndarray):
     """Vectorized per-element geometry: (det, area, grads, valid).

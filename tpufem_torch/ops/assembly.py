@@ -50,6 +50,61 @@ def element_mass(mesh: Mesh, dtype=torch.float64, device=None) -> torch.Tensor:
     return torch.where(valid[:, None, None], me, torch.zeros((), dtype=dtype, device=device))
 
 
+def _convection_scaling(mesh: Mesh, variant: str, dtype, device):
+    """(scale, row): ∇̃φ = grads·scale and the row weight of the two
+    reference scalings, ``"stokescolor"`` (diffs/(2|det|), unsigned area/3)
+    and ``"opsplit"`` (diffs/det, signed area/3)."""
+    geo = mesh.tensors(dtype, device)
+    det = geo["det"]
+    if variant == "stokescolor":
+        return det / (2.0 * torch.abs(det)), geo["area"] / 3.0
+    if variant == "opsplit":
+        return torch.ones_like(det), 0.5 * det / 3.0
+    raise ValueError(f"unknown convection variant: {variant}")
+
+
+def _centroid_velocity(mesh: Mesh, u: torch.Tensor, mean: bool = True):
+    """(ūx, ūy) per element: the corner sum times 1/3 (the rounding of
+    tpufem's ``mean``), or with ``mean=False`` divided by 3 (the rounding of
+    tpufem's flat convection form; the two differ by an ulp at times)."""
+    tris = mesh.tensors(u.dtype, u.device)["tris"]
+    total = u[tris[:, 0]] + u[tris[:, 1]] + u[tris[:, 2]]
+    uc = total * (1.0 / 3.0) if mean else total / 3.0
+    return uc[:, 0], uc[:, 1]
+
+
+def element_convection(mesh: Mesh, u: torch.Tensor, variant: str = "stokescolor") -> torch.Tensor:
+    """(T, 3, 3) convection element matrices C(u), in ``u``'s dtype and device.
+
+    C^e_ij = row_e · (ū_e · ∇̃φ_j), ū the element-centroid velocity, the row
+    index uniform (test-function lumping); ``variant`` picks the scaling
+    (:func:`_convection_scaling`).  ū·∇̃φ is y·y fused-multiply-added onto
+    x·x, the rounding of tpufem's einsum on the CPU."""
+    dtype, dev = u.dtype, u.device
+    geo = mesh.tensors(dtype, dev)
+    scale, row = _convection_scaling(mesh, variant, dtype, dev)
+    g = geo["grads"] * scale[:, None, None]
+    ucx, ucy = _centroid_velocity(mesh, u)
+    udotg = torch.addcmul(ucx[:, None] * g[..., 0], ucy[:, None], g[..., 1])  # (T, 3)
+    ce = row[:, None, None] * udotg[:, None, :].expand(mesh.n_tris, 3, 3)
+    return torch.where(geo["valid"][:, None, None], ce, torch.zeros((), dtype=dtype, device=dev))
+
+
+def element_convection_flat(mesh: Mesh, u: torch.Tensor, variant: str = "stokescolor") -> torch.Tensor:
+    """(9·T,) k-major convection values: entry ``k·T + t`` equals
+    ``element_convection(mesh, u, variant)[t, k // 3, k % 3]`` up to
+    rounding: the centroid is divided by 3 and no multiply-add is fused,
+    both as in tpufem's flat form outside a compiled program."""
+    dtype, dev = u.dtype, u.device
+    geo = mesh.tensors(dtype, dev)
+    scale, row = _convection_scaling(mesh, variant, dtype, dev)
+    row = torch.where(geo["valid"], row, torch.zeros((), dtype=dtype, device=dev))
+    grads = geo["grads"]
+    ucx, ucy = _centroid_velocity(mesh, u, mean=False)
+    w = [row * (ucx * (grads[:, j, 0] * scale) + ucy * (grads[:, j, 1] * scale)) for j in range(3)]
+    return torch.cat(w * 3)  # k = 3i + j, the row index i uniform
+
+
 def assemble_coo(mesh: Mesh, elem: torch.Tensor):
     """Flatten (T, 3, 3) element matrices to COO triplets (rows, cols, vals)."""
     tris = torch.as_tensor(mesh.tris, dtype=torch.int64, device=elem.device)
@@ -60,7 +115,7 @@ def assemble_coo(mesh: Mesh, elem: torch.Tensor):
 
 def assemble_dense(mesh: Mesh, elem: torch.Tensor) -> torch.Tensor:
     """Scatter (T, 3, 3) element matrices into a dense (N, N) matrix."""
-    tris = torch.as_tensor(mesh.tris, dtype=torch.int64, device=elem.device)
+    tris = mesh.tensors(elem.dtype, elem.device)["tris"]
     rows = tris.repeat_interleave(3, dim=1).reshape(-1)  # i varies slower
     cols = tris.repeat(1, 3).reshape(-1)
     n = mesh.n_nodes

@@ -9,7 +9,9 @@ Same semantics as ``tpufem.ops.calculus``:
   the accumulated area.
 
 The gather → segment-sum pipelines are torch functions of the field's dtype
-and device (the segment sum is ``index_add_``); :func:`divergence_matrices`
+and device (the segment sum is ``index_add_``; the per-element sums are
+elementwise products and sums, not ``einsum``, which CUDA runs as batched
+GEMVs split into many launches at 10⁶ elements); :func:`divergence_matrices`
 materializes the same linear map as dense host NumPy matrices, the form
 the dense regime applies on the device.
 """
@@ -28,10 +30,9 @@ def _lump(mesh: Mesh, per_element: torch.Tensor) -> torch.Tensor:
     """Scatter a per-element quantity (T,) or (T, k) to nodes with ⅓-area
     lumping and normalize by the accumulated area."""
     dtype, device = per_element.dtype, per_element.device
-    area = torch.as_tensor(mesh.area, dtype=dtype, device=device)
-    valid = torch.as_tensor(mesh.valid, dtype=torch.bool, device=device)
-    w = torch.where(valid, area / 3.0, torch.zeros((), dtype=dtype, device=device))
-    seg = torch.as_tensor(mesh.tris, dtype=torch.int64, device=device).reshape(-1)
+    geo = mesh.tensors(dtype, device)
+    w = torch.where(geo["valid"], geo["area"] / 3.0, torch.zeros((), dtype=dtype, device=device))
+    seg = geo["tris"].reshape(-1)
     n, t = mesh.n_nodes, mesh.n_tris
 
     def scatter(q):
@@ -47,9 +48,8 @@ def _lump(mesh: Mesh, per_element: torch.Tensor) -> torch.Tensor:
 
 def element_gradient(mesh: Mesh, p: torch.Tensor) -> torch.Tensor:
     """(T, 2) element-constant gradient of a nodal scalar p."""
-    grads = torch.as_tensor(mesh.grads, dtype=p.dtype, device=p.device)  # (T,3,2)
-    tris = torch.as_tensor(mesh.tris, dtype=torch.int64, device=p.device)
-    return torch.einsum("ti,tid->td", p[tris], grads)
+    geo = mesh.tensors(p.dtype, p.device)
+    return torch.sum(p[geo["tris"]][:, :, None] * geo["grads"], dim=1)
 
 
 def gradient(mesh: Mesh, p: torch.Tensor) -> torch.Tensor:
@@ -59,17 +59,34 @@ def gradient(mesh: Mesh, p: torch.Tensor) -> torch.Tensor:
 
 def element_divergence(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
     """(T,) element-constant divergence of nodal velocity u (N, 2)."""
-    grads = torch.as_tensor(mesh.grads, dtype=u.dtype, device=u.device)
-    tris = torch.as_tensor(mesh.tris, dtype=torch.int64, device=u.device)
-    u_loc = u[tris]  # (T,3,2)
-    dudx = torch.einsum("ti,ti->t", u_loc[..., 0], grads[..., 0])
-    dvdy = torch.einsum("ti,ti->t", u_loc[..., 1], grads[..., 1])
-    return dudx + dvdy
+    geo = mesh.tensors(u.dtype, u.device)
+    d = torch.sum(u[geo["tris"]] * geo["grads"], dim=1)  # (T, 2): ∂uₓ/∂x, ∂u_y/∂y
+    return d[:, 0] + d[:, 1]
 
 
 def divergence(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
     """(N,) lumped nodal divergence."""
     return _lump(mesh, element_divergence(mesh, u))
+
+
+def convection_apply(mesh: Mesh, u: torch.Tensor, c: torch.Tensor,
+                     variant: str = "stokescolor") -> torch.Tensor:
+    """Matrix-free convection product C(u)·c, never materialized:
+    (C c)_i = Σ_{e∋i} row_e · ū_e · (Σ_j ∇̃φ_j c_j), with the scalings of
+    ``assembly.element_convection`` (``variant`` "stokescolor" or "opsplit")."""
+    from tpufem_torch.ops.assembly import _centroid_velocity, _convection_scaling
+
+    dtype, dev = c.dtype, c.device
+    geo = mesh.tensors(dtype, dev)
+    scale, row = _convection_scaling(mesh, variant, dtype, dev)
+    grads = geo["grads"] * scale[:, None, None]
+    valid = geo["valid"].to(dtype)
+    tris = geo["tris"]
+    ucx, ucy = _centroid_velocity(mesh, u)
+    gradc = torch.sum(c[tris][:, :, None] * grads, dim=1)
+    val = valid * row * (ucx * gradc[:, 0] + ucy * gradc[:, 1])
+    contrib = val[:, None].expand(mesh.n_tris, 3).reshape(-1)
+    return torch.zeros(mesh.n_nodes, dtype=dtype, device=dev).index_add_(0, tris.reshape(-1), contrib)
 
 
 def divergence_matrices(mesh: Mesh):

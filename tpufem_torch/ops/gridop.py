@@ -211,3 +211,98 @@ class GridOperator:
             d = d + torch.zeros_like(d).index_add_(
                 0, self.rest_tgt[same], self.rest_vals[same])
         return d
+
+
+class _PatternCSR:
+    """The mesh's CSR pattern with unit values, as ``GridOperator.build``
+    reads an operator (tpufem's ``ops/stencil._PatternCSR``)."""
+
+    def __init__(self, pattern: dict, n: int):
+        self.indptr = pattern["indptr"]
+        self.indices = pattern["indices"]
+        self.data = torch.ones(pattern["nnz"], dtype=torch.float64)
+        self.shape = (n, n)
+
+    @property
+    def row_ids(self) -> np.ndarray:
+        return np.repeat(np.arange(self.shape[0], dtype=np.int64),
+                         np.diff(self.indptr).astype(np.int64))
+
+
+@dataclasses.dataclass(frozen=True)
+class GridRefill:
+    """Per-step value refill of a :class:`GridOperator` with a static
+    pattern: the element matrices of a state-dependent operator (the
+    advection C(u), rebuilt every step) summed straight into the offset
+    planes and remainder values with one ``index_add_``.
+
+    Built on the host from the mesh's CSR pattern: each element entry's
+    flat slot is ``g·N + row`` on plane g and ``n_off·N + k`` for remainder
+    entry k, in the template's remainder order (sorted stably by target,
+    which keeps the CSR order; ``build`` asserts it).  On CUDA the sum uses
+    atomics, so two refills of one state are not bit-equal there."""
+
+    template: GridOperator  # pattern donor; its values are not used
+    dest: torch.Tensor  # (E,) int64: ordered element entry → flat slot
+    order: torch.Tensor  # (E,) int64: (T, 3, 3) flat index of each ordered entry
+    order_k: torch.Tensor  # (E,) int64: the same entries in the k-major (9·T,) layout
+    n_flat: int  # n_off·N + n_rest
+
+    @classmethod
+    def build(cls, mesh, ns: int, dtype=torch.float32, rest_target: int | None = None,
+              device=None) -> "GridRefill":
+        from tpufem_torch.ops import assembly
+
+        pattern = assembly._csr_pattern(mesh)
+        n = mesh.n_nodes
+        if n != ns * ns:
+            raise GridDecompositionError(f"{n} nodes is not a {ns}×{ns} grid")
+        template = GridOperator.build(_PatternCSR(pattern, n), ns, dtype=dtype,
+                                      rest_target=rest_target, device=device)
+        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(pattern["indptr"]).astype(np.int64))
+        cols = pattern["indices"].astype(np.int64)
+        iy, ix = np.divmod(rows, ns)
+        jy, jx = np.divmod(cols, ns)
+        key = (jy - iy) * ns + (jx - ix) % ns
+        n_off = len(template.offsets)
+        slot = np.empty(pattern["nnz"], dtype=np.int64)
+        in_dense = np.zeros(pattern["nnz"], dtype=bool)
+        for g, (dy, s) in enumerate(template.offsets):
+            sel = key == dy * ns + s
+            slot[sel] = g * n + rows[sel]  # plane slot (iy, ix) flattens to the row
+            in_dense |= sel
+        rest = np.nonzero(~in_dense)[0]
+        if not (np.array_equal(template.rest_tgt.cpu().numpy(), rows[rest])
+                and np.array_equal(template.rest_src.cpu().numpy(), cols[rest])):
+            raise AssertionError("the template's remainder is not in CSR order")
+        slot[rest] = n_off * n + np.arange(len(rest))
+        order = pattern["order"].astype(np.int64)
+        dev = template.device
+
+        def it(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+        return cls(
+            template=template,
+            dest=it(slot[pattern["inverse"]]),
+            order=it(order),
+            order_k=it((order % 9) * mesh.n_tris + order // 9),
+            n_flat=n_off * n + len(rest),
+        )
+
+    def refill(self, elem: torch.Tensor) -> GridOperator:
+        """(T, 3, 3) element values → the filled operator."""
+        return self._from_gathered(elem.reshape(-1)[self.order])
+
+    def refill_flat(self, flat_k: torch.Tensor) -> GridOperator:
+        """(9·T,) k-major element values (entry ``k·T + t``, the layout of
+        ``assembly.element_convection_flat``) → the filled operator."""
+        return self._from_gathered(flat_k[self.order_k])
+
+    def _from_gathered(self, vals: torch.Tensor) -> GridOperator:
+        flat = torch.zeros(self.n_flat, dtype=vals.dtype, device=vals.device)
+        flat.index_add_(0, self.dest, vals)
+        t = self.template
+        split = len(t.offsets) * t.n
+        return dataclasses.replace(t, diags=flat[:split].reshape(len(t.offsets), t.ns, t.ns),
+                                   rest_vals=flat[split:])

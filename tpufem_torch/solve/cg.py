@@ -4,9 +4,11 @@ The counterpart of ``tpufem.solve.cg``, with the same algorithms and
 guards:
 
 * :func:`cg`: tolerance-controlled loop (early exit),
-* :func:`cg_fixed`: a fixed iteration count.
+* :func:`cg_fixed`: a fixed iteration count,
+* :func:`bicgstab_fixed`: right-preconditioned BiCGStab for nonsymmetric
+  systems, fixed count or tolerance exit, with finite-or-zero guards.
 
-PyTorch runs eagerly, so :func:`cg`'s loop condition is read on the host
+PyTorch runs eagerly, so a tolerance loop's condition is read on the host
 each iteration: a device synchronisation per iteration on CUDA.  The scale
 regime's hot path does not use these (its whole solves are kernels K2 and
 K3 in ``solve/grid_cg.py``, which decide their early exit on the device).
@@ -111,6 +113,69 @@ def cg_fixed(
         p = z + beta * p
         rz = rz_new
     return (project(x) if deflate else x), torch.linalg.norm(r)
+
+
+def _finite(v: torch.Tensor) -> torch.Tensor:
+    """v where finite, else 0: a BiCGStab ratio at breakdown (ρ or ω zero,
+    denormal or overflowing) then makes no progress instead of poisoning
+    every later iterate."""
+    return torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+
+
+def bicgstab_fixed(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    iters: int = 100,
+    precond: Callable | None = None,
+    tol: float = 0.0,
+):
+    """Right-preconditioned BiCGStab for nonsymmetric systems; returns
+    (x, ‖r‖).  ``tol = 0`` runs exactly ``iters`` iterations; ``tol > 0``
+    stops once ‖r‖ ≤ tol·‖b‖ (``iters`` is then the cap), reading the test
+    on the host each iteration."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    atol2 = (tol * torch.clamp(torch.linalg.norm(b), min=1e-30)) ** 2
+    x, r, _ = bicgstab_core(matvec, b, x0, iters=iters, precond=precond, tol=tol,
+                            atol2=atol2, dot=_dot)
+    return x, torch.linalg.norm(r)
+
+
+def bicgstab_core(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, *, iters: int,
+                  precond: Callable | None, tol: float, atol2: torch.Tensor, dot: Callable):
+    """The BiCGStab loop of :func:`bicgstab_fixed` and of the plain grid
+    solve (``grid_cg.ns_bicgstab_ref``), which runs several columns in
+    lockstep: ``dot`` gives one scalar per column, shaped to broadcast
+    against the vectors (a 0-d tensor for one column), and ``atol2`` is
+    that shape too.  With ``tol > 0`` the loop runs while any column's
+    ‖r‖² exceeds its ``atol2``.  Returns (x, r, iterations run)."""
+    M = precond if precond is not None else (lambda r: r)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    x, r = x0, b - matvec(x0)
+    rhat = r
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones_like(atol2)
+    k = 0
+    while k < iters and (tol <= 0 or bool(torch.any(dot(r, r) > atol2))):
+        rho_new = dot(rhat, r)
+        beta = _finite(torch.where((rho != 0) & (omega != 0), (rho_new / rho) * (alpha / omega), zero))
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = matvec(phat)
+        denom = dot(rhat, v)
+        alpha = _finite(torch.where(denom != 0, rho_new / denom, zero))
+        s = r - alpha * v
+        shat = M(s)
+        t = matvec(shat)
+        tt = dot(t, t)
+        omega = _finite(torch.where(tt != 0, dot(t, s) / tt, zero))
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        k += 1
+    return x, r, k
 
 
 def jacobi_pcg(matvec, diag, b, **kwargs):

@@ -1,8 +1,7 @@
-"""Whole-solve PCG on the grid-offset operator: kernels K2 and K3.
+"""Whole-solve Krylov solvers on the grid-offset operator: kernels K2, K3, K4.
 
-The counterpart of ``tpufem.solve.pallas_cg`` for the Stokes step's two
-solvers on ring-in-grid meshes (N = ns²), over a
-:class:`~tpufem_torch.ops.gridop.GridOperator`:
+The counterpart of ``tpufem.solve.pallas_cg`` on ring-in-grid meshes
+(N = ns²), over a :class:`~tpufem_torch.ops.gridop.GridOperator`:
 
 * :class:`ViscousGridCG`: ``(m·(I + dtν·K)·m + (1−m)I) x = b`` for both
   velocity columns in lockstep, Jacobi-PCG, warm start, ``tol > 0`` early
@@ -11,20 +10,26 @@ solvers on ring-in-grid meshes (N = ns²), over a
   constant-nullspace deflation on the active dofs and the two-level
   preconditioner (damped Jacobi ω = 1/λmax, block-aggregate restriction,
   dense coarse inverse, piecewise-constant prolongation), ``tol > 0`` early
-  exit (kernel K3).
+  exit (kernel K3);
+* :class:`NSGridBiCGStab`: the Navier–Stokes velocity system
+  ``(m·(I + Δt·C(u) + νΔt·K)·m + (1−m)I) x = b``, nonsymmetric and refilled
+  every step, right-preconditioned Jacobi-BiCGStab for both columns in
+  lockstep with finite-or-zero guards, ``tol > 0`` early exit once every
+  column has converged (kernel K4).
 
 For each kernel there are three functions:
 
-* the plain PyTorch version (:func:`viscous_cg_ref`, :func:`pressure_cg_ref`),
-  which follows tpufem's ``_cg_core_cols`` / ``_cg_core`` step for step:
-  denominator guards, the loop condition, where the projections sit, and
-  the coarse path's float32 rounding (below);
-* the wrapper (:func:`viscous_cg`, :func:`pressure_cg`), which launches the
-  CUDA kernel in ``csrc/grid_cg.cu`` for CUDA tensors, takes the plain
-  version for CPU tensors, and raises for anything else;
-* the wrapper's launch count, ``viscous_cg.launches`` / ``pressure_cg.launches``.
+* the plain PyTorch version (:func:`viscous_cg_ref`, :func:`pressure_cg_ref`,
+  :func:`ns_bicgstab_ref`), which follows tpufem's ``_cg_core_cols`` /
+  ``_cg_core`` / ``_bicgstab_core_cols`` step for step: denominator guards,
+  the loop condition, where the projections sit, and the float32 rounding
+  (below);
+* the wrapper (:func:`viscous_cg`, :func:`pressure_cg`, :func:`ns_bicgstab`),
+  which launches the CUDA kernel in ``csrc/grid_cg.cu`` for CUDA tensors,
+  takes the plain version for CPU tensors, and raises for anything else;
+* the wrapper's launch count, ``<wrapper>.launches``.
 
-Both solves round to float32 where tpufem's kernels do, at every field
+The solves round to float32 where tpufem's kernels do, at every field
 precision: the TPU kernels take ``preferred_element_type=float32`` in the
 operator's remainder products (``pallas_cg.py:388-392``, so each remainder
 source value and each target's remainder sum is a float32 value) and in
@@ -34,11 +39,12 @@ float32).  With a bfloat16 coarse inverse the restricted vector is rounded
 to bfloat16 first and the product accumulates in float32.
 
 The solvers' TPU-only fields (``stream_diags``, ``stream_loop``,
-``hbm_io``, ``roll_cache``, ``stream_chunk``, ``lean``) are accepted so
-that configurations carry across, and ignored; the port always runs the
-velocity columns in lockstep (tpufem's ``batch_cols=True``).  ``probe``
-and ``precond_bf16`` are refused.  ``plain=True``
-(``cg_storage="grid_interpret"``) takes the plain versions on every device.
+``hbm_io``, ``roll_cache``, ``stream_chunk``, ``lean``, K4's
+``batch_cols``) are accepted so that configurations carry across, and
+ignored; the port always runs the velocity columns in lockstep (tpufem's
+``batch_cols=True``).  ``probe`` and ``precond_bf16`` are refused.
+``plain=True`` (K2/K3) and ``interpret=True`` (K4, tpufem's name), set by
+``cg_storage="grid_interpret"``, take the plain versions on every device.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import torch
 
 from tpufem_torch.ops import _nvcc
 from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
+from tpufem_torch.solve.cg import bicgstab_core
 
 SOURCE = _nvcc.CSRC / "grid_cg.cu"
 _PARTIAL_VALUES = 2 * 4096 * 8  # kMaxBlocks × kSlots × 2 slots, as in the source
@@ -62,12 +69,15 @@ _PRESSURE = {
     (torch.float64, torch.float64): "pressure_cg_f64",
     (torch.float64, torch.bfloat16): "pressure_cg_f64_bf16",
 }
+_NS = {torch.float32: "ns_bicgstab_f32", torch.float64: "ns_bicgstab_f64"}
+_NS_PLANES = 7  # K4's work planes per column: r, r̂, p, v, p̂, ŝ, t
 _lib: ctypes.CDLL | None = None
 
 _vp, _int, _dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _OP_ARGS = [_vp, _vp, _vp, _int, _int, _vp, _vp, _vp, _vp]  # planes, shifts, remainder
 _VISCOUS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _dbl, _int, _dbl, _vp, _vp]
 _PRESSURE_ARGTYPES = _OP_ARGS + [_vp] * 3 + [_int] * 3 + [_vp] * 5 + [_dbl, _int, _dbl, _vp, _vp]
+_NS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _int, _dbl, _vp, _vp]
 
 
 def build() -> ctypes.CDLL:
@@ -81,6 +91,9 @@ def build() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     for name in _PRESSURE.values():
         getattr(lib, name).argtypes = _PRESSURE_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    for name in _NS.values():
+        getattr(lib, name).argtypes = _NS_ARGTYPES
         getattr(lib, name).restype = ctypes.c_int
     _lib = lib
     return lib
@@ -499,3 +512,102 @@ def pressure_cg(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
 
 
 pressure_cg.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: Navier–Stokes velocity solve (nonsymmetric)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NSGridBiCGStab:
+    """``(m·(I + A)·m + (1−m)I) x = b`` with A = Δt·C(u) + νΔt·K refilled
+    every step: right-preconditioned Jacobi-BiCGStab, both velocity columns
+    in lockstep, the whole solve in one launch of K4.
+
+    Only the static configuration lives here (tpufem's fields); the
+    operator, mask and inverse diagonal are arguments of :meth:`solve`.
+    ``interpret=True`` (``cg_storage="grid_interpret"``) takes the plain
+    version on every device."""
+
+    ns: int
+    offsets: tuple  # the GridRefill template's (dy, s) offsets
+    n_rest: int
+    iters: int
+    tol: float = 0.0
+    interpret: bool = False
+    iters_count: torch.Tensor | None = None  # as ViscousGridCG.iters_count
+    # accepted and ignored: the port always runs the columns in lockstep
+    # (tpufem's batch_cols=True), and the rest are TPU memory layouts
+    batch_cols: bool = True
+    stream_diags: bool = False
+    roll_cache: bool = True
+    hbm_io: bool = False
+
+    def solve(self, op: GridOperator, interior_mask: torch.Tensor, inv_diag: torch.Tensor,
+              b: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        """``op``: this step's A (refilled); ``b``, ``x0``: (N, C) → x (N, C)."""
+        ns = self.ns
+        if op.ns != ns or op.offsets != tuple(self.offsets) or op.n_rest != self.n_rest:
+            raise ValueError("the operator's layout is not this solver's")
+        cols = b.shape[1]
+
+        def planes(v):
+            return v.T.reshape(cols, ns, ns).contiguous()
+
+        fn = ns_bicgstab_ref if self.interpret else ns_bicgstab
+        xg = fn(self, op, interior_mask.reshape(ns, ns).contiguous(),
+                inv_diag.reshape(ns, ns).contiguous(), planes(b), planes(x0), self.iters_count)
+        return xg.reshape(cols, ns * ns).T
+
+
+def ns_bicgstab_ref(solver: NSGridBiCGStab, op: GridOperator, mask: torch.Tensor,
+                    inv_diag: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
+                    iters_out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K4 on (C, ns, ns) planes: tpufem's ``_bicgstab_core_cols``
+    (per-column scalars, finite-or-zero guards, x += α·p̂ then += ω·ŝ) as
+    :func:`~tpufem_torch.solve.cg.bicgstab_core` runs it, the remainder
+    rounded to float32 as in K2.  With ``tol > 0`` it runs while any
+    column's ‖r‖² exceeds its (tol·‖b‖)², read on the host."""
+    def dot(a, c):  # one scalar a column, (C, 1, 1)
+        return torch.sum(a * c, dim=(-2, -1), keepdim=True)
+
+    def mv(X):
+        return mask * (X + op.matvec_grid(mask * X, round32=True)) + (1.0 - mask) * X
+
+    atol2 = (solver.tol * torch.clamp(torch.sqrt(dot(b, b)), min=1e-30)) ** 2
+    x, _, k = bicgstab_core(mv, b, x0, iters=solver.iters, precond=lambda r: inv_diag * r,
+                            tol=solver.tol, atol2=atol2, dot=dot)
+    if iters_out is not None:
+        iters_out += k
+    return x
+
+
+def ns_bicgstab(solver: NSGridBiCGStab, op: GridOperator, mask: torch.Tensor,
+                inv_diag: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
+                iters_out: torch.Tensor | None = None) -> torch.Tensor:
+    """K4 on (C, ns, ns) planes, C ≤ 2: the kernel on CUDA tensors, the
+    plain version on CPU tensors.  ``iters_out`` as in :func:`viscous_cg`."""
+    _check_planes(op, b, x0, mask, inv_diag)
+    if b.ndim != 3 or b.shape != x0.shape or b.shape[0] not in (1, 2):
+        raise ValueError(f"need b, x0 of shape (C ≤ 2, ns, ns); got {tuple(b.shape)}, "
+                         f"{tuple(x0.shape)}")
+    if mask.shape != (op.ns, op.ns) or inv_diag.shape != mask.shape:
+        raise ValueError("need an (ns, ns) mask and inverse diagonal")
+    _check_counter(iters_out, b)
+    if not _device_ok(b, "K4"):
+        return ns_bicgstab_ref(solver, op, mask, inv_diag, b, x0, iters_out)
+    lib = _lib or build()
+    C, n = b.shape[0], op.n
+    b, x0 = b.contiguous(), x0.contiguous()
+    x = torch.empty_like(b)
+    work = torch.empty(_NS_PLANES * C * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
+    _launch(getattr(lib, _NS[b.dtype]), b.device, *_kernel_operator_args(op),
+            mask.contiguous().data_ptr(), inv_diag.contiguous().data_ptr(), b.data_ptr(),
+            x0.data_ptr(), x.data_ptr(), work.data_ptr(), C, int(solver.iters),
+            float(solver.tol), None if iters_out is None else iters_out.data_ptr())
+    ns_bicgstab.launches += 1
+    return x
+
+
+ns_bicgstab.launches = 0

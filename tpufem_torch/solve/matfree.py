@@ -7,12 +7,14 @@ numbering).
 * :class:`ViscousCG`: (I + Δt·ν·K) with the Dirichlet row+column surgery
   as masking, A(x) = m ∘ (x + Δt·ν·K(m ∘ x)) + (1−m) ∘ x.
 * :class:`PressureCG`: the periodic pressure Poisson in merged symmetric
-  weak form, K_merged p = merge(M_L ∘ b), constant nullspace deflated.
+  weak form, K_merged p = merge(M_L ∘ b), constant nullspace deflated, or
+  gauge-pinned at one dof (``pin``, the Navier–Stokes CSR path).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -94,16 +96,22 @@ class PressureCG:
     lmax: float = 0.0  # power-iteration estimate (set-up time)
     twolevel: object = None  # solve.twolevel.TwoLevel (precond="twolevel")
     tol: float = 0.0  # > 0: early exit (relative); ``iters`` is then the cap
-    pin: int = -1  # the "report" variant's gauge pin: not ported
-
-    def __post_init__(self):
-        if self.pin >= 0:
-            raise NotImplementedError(
-                "PressureCG.pin (the variant='report' gauge pin) is not ported to "
-                "tpufem_torch yet (ROADMAP Queue 1 item 10)")
+    pin: int = -1  # ≥ 0: gauge pin at this dof, masked out of the operator
+    # symmetrically (row and column), its rhs and diagonal zeroed, and no
+    # constant-nullspace deflation (the pin fixes the gauge: p[pin] = 0)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pin >= 0:
+            mp = self._pin_mask
+            return mp * self.K_merged.matvec(mp * x) + (1.0 - mp) * x
         return self.K_merged.matvec(x)
+
+    @functools.cached_property
+    def _pin_mask(self) -> torch.Tensor:
+        """The active mask with the pinned dof zeroed."""
+        mask = self.active_mask.clone()
+        mask[self.pin] = 0.0
+        return mask
 
     @property
     def _index(self):
@@ -120,6 +128,9 @@ class PressureCG:
             rhs = rhs.index_add(0, m, rhs[s])
             rhs = rhs * self.active_mask
         diag = self.K_merged.diag()
+        if self.pin >= 0:
+            rhs = rhs * self._pin_mask  # identity row at the pin
+            diag = torch.where(self._pin_mask > 0, diag, torch.zeros_like(diag))
         inv_diag = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
                                torch.ones_like(diag))
         if self.precond == "chebyshev":
@@ -135,13 +146,14 @@ class PressureCG:
         else:
             M = lambda r: inv_diag * r
         if x0 is not None:
-            x0 = x0 * self.active_mask
+            x0 = x0 * (self._pin_mask if self.pin >= 0 else self.active_mask)
+        deflate = self.pin < 0
         if self.tol > 0:
             p, _ = cg(self.matvec, rhs, x0=x0, tol=self.tol, maxiter=self.iters, precond=M,
-                      deflate=True, deflate_weights=self.active_mask)
+                      deflate=deflate, deflate_weights=self.active_mask)
         else:
             p, _ = cg_fixed(self.matvec, rhs, x0=x0, iters=self.iters, precond=M,
-                            deflate=True, deflate_weights=self.active_mask)
+                            deflate=deflate, deflate_weights=self.active_mask)
         if has_pairs:
             m, s = self._index
             p = p.index_put((s,), p[m])

@@ -1,4 +1,5 @@
 """Workload entry points.
 
-stokes — operator-split Stokes + squirmer + transport, dense regime
+stokes — operator-split Stokes + squirmer + transport, dense and scale regimes
+navier_stokes — monolithic Stokes and operator-split Navier–Stokes
 """
