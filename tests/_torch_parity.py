@@ -128,8 +128,13 @@ def _grid_extras(problem) -> dict[str, np.ndarray]:
     from tpufem.ops import calculus
 
     out = {}
-    for prefix, op in (("visc_solver.K", problem.visc_solver.K),
-                       ("pressure_solver.K", problem.pressure_solver.K)):
+    ops = [("visc_solver.K", problem.visc_solver.K),
+           ("pressure_solver.K", problem.pressure_solver.K)]
+    if problem.grid_step is not None:
+        ops += [("grid_step.Gdx", problem.grid_step.Gdx), ("grid_step.Gdy", problem.grid_step.Gdy)]
+    if problem.gridified is not None:
+        out["gridified.perm"] = np.asarray(problem.gridified.perm)
+    for prefix, op in ops:
         out[f"{prefix}.offsets"] = np.asarray(op.offsets)
         out[f"{prefix}.n_rest"] = np.asarray(op.n_rest)
         out[f"{prefix}.coverage"] = np.asarray(op.coverage)

@@ -110,6 +110,9 @@ def test_decomposition_refused_by_both_on_a_scrambled_numbering():
 def test_grid_numbering_ok_matches_tpufem(pad_hole):
     jm, tm = meshes(20, 24, pad_hole=pad_hole)
     assert tgridify.grid_numbering_ok(tm) == jgridify.grid_numbering_ok(jm) == pad_hole
-    if not pad_hole:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tgridify.ensure_grid_numbering(tm)
+    mesh, g = tgridify.ensure_grid_numbering(tm)
+    jmesh, jg = jgridify.ensure_grid_numbering(jm)
+    assert (g is None) == (jg is None) == pad_hole
+    if not pad_hole:  # renumbered onto a raster, as tpufem does
+        assert mesh.n_nodes == g.ns ** 2 == jmesh.n_nodes
+        np.testing.assert_array_equal(g.perm, jg.perm)

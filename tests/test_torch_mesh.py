@@ -119,6 +119,6 @@ def test_config_dtype_and_device_policy():
     assert tconfig.device("cpu").type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card refusal cannot be shown here")
-    assert tconfig.device(None).type == "cpu"
-    with pytest.raises(RuntimeError):
-        tconfig.device("cuda")
+    for name in (None, "cuda"):  # no default to the CPU: the card or an error
+        with pytest.raises(RuntimeError):
+            tconfig.device(name)

@@ -159,7 +159,8 @@ def test_auto_storage_is_csr_on_the_cpu_and_continues():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda m: tns.NSProblem.build(m, tns.NSConfig(solver="cg", cg_storage="stencil")), "item 5"),
+    (lambda m: tns.NSProblem.build(m, tns.NSConfig(solver="cg", cg_storage="stencil"),
+                                   device=CPU), "item 5"),
     (lambda m: tns.solve_taylor_hood(m), "item 9"),
     (lambda m: tns.TransientTHProblem.build(m), "item 9"),
 ])

@@ -139,7 +139,7 @@ def test_f32_port_tracks_tpufem_f64():
         (dict(variant="report"), NotImplementedError),
         (dict(transport="eulerian_dye"), NotImplementedError),
         (dict(transport="dye", locator="topk"), NotImplementedError),
-        (dict(solver="cg", grid_steps_per_call=1), NotImplementedError),
+        (dict(solver="cg", cg_storage="banded"), NotImplementedError),
         (dict(dense_ops=False), NotImplementedError),
         (dict(precision="bf16", pressure_mode="merge"), NotImplementedError),
         (dict(precision="f32", pressure_mode="penalty"), ValueError),
@@ -152,6 +152,15 @@ def test_unported_or_invalid_config_refused(kw, error):
     _, tm = meshes(12, 16)
     with pytest.raises(error):
         tstokes.StokesProblem.build(tm, tstokes.StokesConfig(**kw), device="cpu")
+
+
+def test_grid_steps_per_call_ignored_on_csr_storage():
+    """As in tpufem: K5 needs the grid storage; on CSR the setting is
+    ignored and the unfused step runs."""
+    _, tm = meshes(12, 16)
+    cfg = tstokes.StokesConfig(solver="cg", cg_storage="csr", grid_steps_per_call=1)
+    problem = tstokes.StokesProblem.build(tm, cfg, device="cpu")
+    assert problem.grid_step is None and tstokes.steps_per_call(problem) == 1
 
 
 def test_bench_large_config_accepted():

@@ -15,6 +15,7 @@ from tpufem.workloads import stokes as jstokes
 from tpufem_torch import interop
 from tpufem_torch.solve import grid_cg
 from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
+from tpufem_torch.solve.grid_step import GridStokesStep
 from tpufem_torch.solve.matfree import PressureCG, ViscousCG
 from tpufem_torch.workloads import stokes as tstokes
 
@@ -116,12 +117,17 @@ def test_tracers_step_on_the_grid_path():
     assert {"p_warm", "p2_warm", "ustar_warm"} <= set(state)
 
 
+def test_grid_steps_per_call_builds_k5():
+    tp = _port_problem("grid", grid_steps_per_call=1)
+    assert isinstance(tp.grid_step, GridStokesStep) and tp.grid_step.steps_per_call == 1
+    assert tp.grid_step.visc is tp.visc_solver and tp.grid_step.pressure is tp.pressure_solver
+
+
 @pytest.mark.parametrize(
     "storage,kw,item",
     [
         ("stencil", {}, "item 5"),
         ("banded", {}, "item 5"),
-        ("grid", dict(grid_steps_per_call=1), "item 6"),
         ("grid", dict(cg_precond_bf16="on"), "item 6"),
         ("grid", dict(variant="report"), "item 10"),
     ],

@@ -2,9 +2,9 @@
 
 The JAX package ``tpufem`` is the reference; this package mirrors its
 layout and names.  It covers the squirmer Stokes step in its dense and
-scale regimes with tracer and dye transport, and the Navier–Stokes
-workload; the TPU kernels on those paths are hand-written CUDA kernels
-(``csrc/``).
+scale regimes (on any mesh: ``gridify_mesh`` renumbers one for the grid
+kernels) with tracer and dye transport, and the Navier–Stokes workload;
+the TPU kernels on those paths are hand-written CUDA kernels (``csrc/``).
 
 Quick start::
 
@@ -20,5 +20,7 @@ Quick start::
 """
 
 from tpufem_torch.mesh import Mesh, generate_annulus_mesh, load_mesh, mesh_from_arrays
+from tpufem_torch.mesh.gridify import Gridified, gridify_mesh
 
-__all__ = ["Mesh", "generate_annulus_mesh", "load_mesh", "mesh_from_arrays"]
+__all__ = ["Mesh", "generate_annulus_mesh", "load_mesh", "mesh_from_arrays", "Gridified",
+           "gridify_mesh"]

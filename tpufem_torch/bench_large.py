@@ -6,13 +6,19 @@ the viscous solve and K3 (two-level PCG, warm start, tolerance exit) for
 both pressure solves, f32 fields, bf16 coarse inverse.
 
     python -m tpufem_torch.bench_large --size 1.05M [--steps 200] [--transport tracers]
+        [--steps-per-call K] [--no-pad-hole] [--storage grid]
 
 prints one JSON row like tpufem's (cold and warm steps/s, the physics
 report), plus the card's name and power limit, the mean CG iterations per
 solve of each run, and a device-time breakdown of the warm run, repeated
-under ``torch.profiler``.  ``--ns`` runs tpufem's Navier–Stokes row instead
-(:func:`run_ns`: f32, the grid path's K4 velocity and K3 pressure solves on
-CUDA).  There is no CPU fallback: without a CUDA device it fails.
+under ``torch.profiler``.  ``--steps-per-call K`` runs the step as kernel
+K5 (K whole steps a launch); ``--no-pad-hole`` generates the compacted
+numbering, which ``--storage grid`` renumbers onto a raster (``gridify``);
+``--mesh PATH`` runs an imported Triangle mesh (:func:`run_imported`,
+tpufem's "imported" gate) instead of the generated sizes.  ``--ns`` runs
+tpufem's Navier–Stokes row instead (:func:`run_ns`: f32, the grid path's K4
+velocity and K3 pressure solves on CUDA).  There is no CPU fallback:
+without a CUDA device it fails.
 """
 
 from __future__ import annotations
@@ -126,16 +132,24 @@ def with_iteration_counters(problem, solves_per_step: dict | None = None):
             count = torch.zeros(1, dtype=torch.int32, device=problem.device)
             counters[field] = (count, per_step)
             changes[field] = dataclasses.replace(solver, iters_count=count)
+    step = getattr(problem, "grid_step", None)
+    if step is not None:  # K5 runs the same solvers: count there too
+        changes["grid_step"] = dataclasses.replace(
+            step, visc=changes.get("visc_solver", step.visc),
+            pressure=changes.get("pressure_solver", step.pressure))
     return dataclasses.replace(problem, **changes), counters
 
 
 def _build_kernels(device) -> None:
-    """Build (or load) the grid kernels' library before any timing, so a
+    """Build (or load) the grid kernels' libraries before any timing, so a
     cold run does not include nvcc; a set-up cost, counted in ``build_s``."""
     if torch.device(device).type == "cuda":
-        from tpufem_torch.solve import grid_cg
+        from tpufem_torch.ops import _nvcc
+        from tpufem_torch.solve import grid_cg, grid_step
 
+        _nvcc.build_all([grid_cg.SOURCE, grid_step.SOURCE])
         grid_cg.build()
+        grid_step.build()
 
 
 def _sync(problem) -> None:
@@ -172,19 +186,57 @@ def iterations_per_solve(counters: dict, steps: int) -> dict:
 
 def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
             transport: str = "none", storage: str = "auto", device="cuda",
-            profile: bool = True) -> dict:
-    """One row: build; the cold run from rest and the warm continuation,
-    each with its mean iterations per solve (counted on the device); the
-    physics report; on CUDA, the warm run repeated under
-    ``torch.profiler`` (the same steps from the same state) for the device
-    time a step and the device's busy share of the warm run."""
-    from tpufem_torch.bench import card, profile_steps
+            profile: bool = True, pad_hole: bool = True, steps_per_call: int = 0) -> dict:
+    """One row on a generated annulus: see :func:`run_mesh`.  ``pad_hole``
+    False takes the compacted numbering, which explicit grid storage
+    renumbers (``gridify``)."""
     from tpufem_torch.mesh import generate_annulus_mesh
 
     t0 = time.perf_counter()
     _build_kernels(device)
-    mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=True)
-    config = bench_config(precond, n_nodes=mesh.n_nodes, transport=transport, storage=storage)
+    mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=pad_hole)
+    return run_mesh(mesh, steps, t0, precond, transport, storage, device, profile,
+                    steps_per_call)
+
+
+def run_imported(path: str, steps: int, precond: str = "twolevel", transport: str = "none",
+                 storage: str = "grid", device="cuda", profile: bool = True,
+                 steps_per_call: int = 0) -> dict:
+    """One row on a Triangle mesh (see :func:`imported_mesh`), through the
+    grid kernels by renumbering, under tpufem's "imported" gate (its
+    ``run_imported``)."""
+    t0 = time.perf_counter()
+    _build_kernels(device)
+    mesh = imported_mesh(path)
+    row = run_mesh(mesh, steps, t0, precond, transport, storage, device, profile,
+                   steps_per_call, gate="imported")
+    row["mesh"] = path
+    row["n_nodes_input"] = int(mesh.n_nodes)
+    return row
+
+
+def imported_mesh(path: str):
+    """The mesh of a reference stem such as ``mesh_fine.1``, or of
+    ``<path>.node``/``.ele`` (and ``.poly`` where present)."""
+    from tpufem_torch import config as tconfig
+    from tpufem_torch.mesh import load_mesh
+
+    return load_mesh(tconfig.reference_mesh_path(path) or path)
+
+
+def run_mesh(mesh, steps: int, t0: float, precond: str = "twolevel", transport: str = "none",
+             storage: str = "auto", device="cuda", profile: bool = True,
+             steps_per_call: int = 0, gate: str = "stokes") -> dict:
+    """One row: build (timed from ``t0``); the cold run from rest and the
+    warm continuation, each with its mean iterations per solve (counted on
+    the device); the physics report under ``gate``; on CUDA, the warm run
+    repeated under ``torch.profiler`` (the same steps from the same state)
+    for the device time a step and the device's busy share of the warm
+    run.  ``steps_per_call`` ≥ 1 runs K5 (``steps`` a multiple of it)."""
+    from tpufem_torch.bench import card, profile_steps
+
+    config = bench_config(precond, n_nodes=mesh.n_nodes, transport=transport, storage=storage,
+                          grid_steps_per_call=steps_per_call)
     problem = stokes.StokesProblem.build(mesh, config, device=device)
     problem, counters = with_iteration_counters(problem)
     _sync(problem)
@@ -194,7 +246,7 @@ def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
     warm, _, _ = _timed_run(problem, steps, state)
     iters["warm"] = iterations_per_solve(counters, steps)
     row = {
-        "n_nodes": int(mesh.n_nodes),
+        "n_nodes": int(problem.mesh.n_nodes),
         "n_tris": int(mesh.n_tris),
         "steps": steps,
         "cold_steps_per_sec": cold,
@@ -202,6 +254,8 @@ def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
         "precond": precond,
         "transport": transport,
         "storage": type(problem.visc_solver.K).__name__,
+        "steps_per_call": 0 if problem.grid_step is None else problem.grid_step.steps_per_call,
+        "renumbered": problem.gridified is not None,
         "build_s": t_build,
     }
     if hasattr(problem.visc_solver.K, "offsets"):
@@ -211,7 +265,7 @@ def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
                             "pressure": problem.pressure_solver.K.n_rest}
     if counters:
         row["iters_per_solve"] = iters
-    row.update(physics_report(problem, state, metrics, steps))
+    row.update(physics_report(problem, state, metrics, steps, gate))
     if transport == "tracers":
         n_tr = int(problem.tracer_init.shape[0])
         row["n_tracers"] = n_tr
@@ -353,6 +407,14 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--precond", default="twolevel", choices=["twolevel", "jacobi"])
     parser.add_argument("--transport", default="none", choices=["none", "tracers", "dye"])
     parser.add_argument("--storage", default="auto", help="cg_storage: auto | grid | csr")
+    parser.add_argument("--steps-per-call", type=int, default=0,
+                        help="grid_steps_per_call: K ≥ 1 runs kernel K5, K steps a launch")
+    parser.add_argument("--no-pad-hole", action="store_true",
+                        help="compacted (non-grid) numbering: with --storage grid it is "
+                             "renumbered onto a raster (gridify)")
+    parser.add_argument("--mesh", default=None,
+                        help="an imported Triangle mesh (path stem or reference mesh name) "
+                             "instead of the generated sizes; storage grid unless --storage")
     parser.add_argument("--ns", action="store_true",
                         help="run the Navier–Stokes configuration (run_ns) instead of Stokes")
     parser.add_argument("--out", default=None, help="write the rows as JSON lines here too")
@@ -366,15 +428,22 @@ def main(argv=None) -> list[dict]:
     if unknown:
         raise SystemExit(f"unknown sizes {sorted(unknown)}")
     rows = []
+    if args.mesh:
+        rows.append(run_imported(args.mesh, args.steps, precond=args.precond,
+                                 transport=args.transport,
+                                 storage="grid" if args.storage == "auto" else args.storage,
+                                 steps_per_call=args.steps_per_call))
+        print(json.dumps(rows[-1]), flush=True)
     for label, n_side, n_circle in SIZES:
-        if label not in wanted:
+        if args.mesh or label not in wanted:
             continue
         if args.ns:
             row = run_ns(n_side, n_circle, args.steps, precond=args.precond,
                          storage=args.storage)
         else:
             row = run_one(n_side, n_circle, args.steps, precond=args.precond,
-                          transport=args.transport, storage=args.storage)
+                          transport=args.transport, storage=args.storage,
+                          pad_hole=not args.no_pad_hole, steps_per_call=args.steps_per_call)
         row["label"] = label
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -49,12 +49,10 @@ def dtype(precision: str) -> torch.dtype:
 def device(name: str | torch.device | None = None) -> torch.device:
     """The device to run on.
 
-    ``None`` picks CUDA when a card is present and the CPU otherwise.  A
-    CUDA device that was asked for by name must exist: this raises rather
-    than falling back to the CPU."""
-    if name is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(name)
+    ``None`` means CUDA: the port runs on the card unless the caller asks
+    for the CPU by name.  A CUDA device must exist: this raises rather than
+    falling back to the CPU."""
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(dev)!r} was asked for but CUDA is not available")
     return dev

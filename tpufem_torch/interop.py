@@ -24,7 +24,11 @@ COO list):
     ``pressure_solver.Pr`` (the block size and count are read off it),
     ``pressure_solver.omega`` (taken as is) and ``pressure_solver.pair_axis``;
     ``mf_dx.<indptr|indices|data>`` and the same under ``mf_dy.`` for
-    div/grad.
+    div/grad.  Under ``grid_steps_per_call ≥ 1`` (kernel K5), the JAX
+    package's ``GridStokesStep``: ``grid_step.Gdx`` and ``grid_step.Gdy`` (as
+    ``<op>`` above) and ``grid_step.<wall_mask|inner_mask|inner_vals|interior2>``.
+    A renumbered mesh (``mesh.gridify``) comes as the renumbered mesh plus
+    ``gridified.perm``.
 
 Both: ``m_lumped``; ``boundary.<walls|inner|dirichlet|interior|masters|slaves>``;
 ``inner_values``; for transport ``locator.<cells|rows|origin|extent|g>``;
@@ -50,10 +54,12 @@ import torch
 from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
+from tpufem_torch.mesh.gridify import Gridified
 from tpufem_torch.ops.gridop import GridOperator, GridRefill
 from tpufem_torch.ops.sparse import CSROperator
 from tpufem_torch.solve.dense import DenseInverse, DenseLU
 from tpufem_torch.solve.grid_cg import NSGridBiCGStab, PressureGridCG, ViscousGridCG
+from tpufem_torch.solve.grid_step import GridStokesStep, steps_per_call
 from tpufem_torch.workloads.navier_stokes import NSConfig, NSProblem
 from tpufem_torch.workloads.navier_stokes import check_config as check_ns_config
 from tpufem_torch.workloads.stokes import StokesConfig, StokesProblem, check_config
@@ -109,6 +115,25 @@ def _grid_solvers(arrays: dict, config: StokesConfig, device):
     return visc, pressure
 
 
+def _grid_step(arrays: dict, problem: StokesProblem, device) -> GridStokesStep | None:
+    """K5's operators and masks from the arrays, on ``problem``'s solvers;
+    None when the arrays carry none or the configuration does not ask for K5."""
+    k = steps_per_call(problem.config)
+    if k < 1 or "grid_step.Gdx.diags" not in arrays:
+        return None
+    cfg = problem.config
+    field = lambda name: _tensor(arrays[f"grid_step.{name}"], device)
+    return GridStokesStep(
+        visc=problem.visc_solver, pressure=problem.pressure_solver,
+        Gdx=_grid_operator(arrays, "grid_step.Gdx", device),
+        Gdy=_grid_operator(arrays, "grid_step.Gdy", device),
+        wall_mask=field("wall_mask"), inner_mask=field("inner_mask"),
+        inner_vals=field("inner_vals"), interior2=field("interior2"),
+        outer_value=tuple(float(v) for v in np.asarray(cfg.outer_value)), dt=float(cfg.dt),
+        body_force=tuple(float(v) for v in np.asarray(cfg.body_force)), steps_per_call=k,
+    )
+
+
 def _csr(arrays: dict, prefix: str, n: int, dtype, device) -> CSROperator:
     return CSROperator(
         indptr=np.asarray(arrays[f"{prefix}.indptr"], dtype=np.int32),
@@ -160,9 +185,15 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
         visc, pressure = _grid_solvers(arrays, config, dev)
         dtype = tconfig.dtype(config.precision)
         mf = tuple(_csr(arrays, k, mesh.n_nodes, dtype, dev) for k in ("mf_dx", "mf_dy"))
-        return StokesProblem.from_host(mesh, config, dev, visc_solver=visc,
-                                       pressure_solver=pressure, div_xy=(None, None),
-                                       mf_dxy=mf, **common)
+        problem = StokesProblem.from_host(mesh, config, dev, visc_solver=visc,
+                                          pressure_solver=pressure, div_xy=(None, None),
+                                          mf_dxy=mf, **common)
+        gridified = None
+        if "gridified.perm" in arrays:
+            gridified = Gridified(mesh=mesh, perm=np.asarray(arrays["gridified.perm"]),
+                                  ns=visc.K.ns)
+        return dataclasses.replace(problem, grid_step=_grid_step(arrays, problem, dev),
+                                   gridified=gridified)
     fused = None
     if "fused_M" in arrays:
         fused = tuple(dev_array(k) for k in ("fused_M", "fused_b", "fused_Dstar", "fused_dstar0"))

@@ -4,7 +4,8 @@ Each source under ``tpufem_torch/csrc/`` becomes its own shared library
 with a plain C interface, loaded with ``ctypes``:
 
 * the library's path is ``_build/<name>-<hash>.so``, the hash taken over
-  the source and the flags, so an edit or a flag change builds anew;
+  the source, the headers beside it (``csrc/*.cuh``) and the flags, so an
+  edit or a flag change builds anew;
 * nvcc's ``-Xptxas -v`` report (registers, shared memory, spills of each
   kernel instance) is kept beside it with the suffix ``.log``;
 * the library is compiled to a temporary file and moved into place with an
@@ -46,8 +47,10 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
-    """Where the library built from ``source`` with ``flags`` lives."""
-    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    """Where the library built from ``source`` with ``flags`` lives; the
+    hash covers the headers beside it, which a source may include."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{key}.so"
 
 

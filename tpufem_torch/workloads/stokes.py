@@ -17,10 +17,12 @@ Dense regime: all matrices are assembled, factored and (with
 one affine matvec ``u ← M u + b`` (kernel K1 under ``matvec_impl="pallas"``).
 
 Scale regime: sparse operators only.  With ``cg_storage="grid"`` (ring-in-
-grid pad_hole meshes, N = n_side²) each step is one whole viscous solve
-(kernel K2) and two whole pressure solves (kernel K3), warm-started from the
-previous step; with ``"csr"`` the same solves run as plain tensor CG.
-div/grad are CSR operators either way.
+grid pad_hole meshes, N = n_side², or any other mesh renumbered onto a
+raster by ``mesh.gridify``) each step is one whole viscous solve (kernel K2)
+and two whole pressure solves (kernel K3), warm-started from the previous
+step, with CSR div/grad; ``grid_steps_per_call=K ≥ 1`` runs K whole steps
+in one launch of kernel K5 instead (``solve/grid_step.py``).  With ``"csr"``
+the same solves run as plain tensor CG.
 
 :func:`run` is a Python loop on the device that keeps every per-step metric
 in preallocated device tensors: on the dense and grid paths it never waits
@@ -43,6 +45,7 @@ from tpufem_torch.ops import assembly, calculus
 from tpufem_torch.ops.fused_matvec import fused_step_matvec, fused_step_matvec_ref
 from tpufem_torch.solve.dense import DenseInverse, make_dense_solver
 from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
+from tpufem_torch.solve.grid_step import GridStokesStep
 from tpufem_torch.solve.matfree import PressureCG, ViscousCG
 from tpufem_torch.solve.pressure import merged_pressure_apply_matrix
 
@@ -171,8 +174,6 @@ def _check_cg(config: StokesConfig) -> None:
         raise ValueError(f"unknown cg_storage {config.cg_storage!r}; expected one of {_STORAGES}")
     if config.cg_storage in ("stencil", "banded"):
         raise _not_ported(f"cg_storage={config.cg_storage!r}", "5")
-    if config.grid_steps_per_call >= 1:
-        raise _not_ported("grid_steps_per_call >= 1 (the fused whole-step kernel K5)", "6")
     if config.cg_precond_bf16 == "on":
         raise _not_ported("cg_precond_bf16='on'", "6")
     if config.cg_precond not in ("jacobi", "chebyshev", "twolevel"):
@@ -207,6 +208,8 @@ class StokesProblem:
     visc_lift: torch.Tensor | None = None  # (N,2) −Δt·ν·K[:, D]·u_D lift
     mf_dx: Any = None  # CSR div/grad operators (scale regime)
     mf_dy: Any = None
+    grid_step: GridStokesStep | None = None  # K5, under grid_steps_per_call ≥ 1
+    gridified: Any = None  # mesh.gridify.Gridified when the mesh was renumbered
 
     @property
     def dtype(self) -> torch.dtype:
@@ -229,17 +232,29 @@ class StokesProblem:
     @classmethod
     def build(cls, mesh: Mesh, config: StokesConfig = StokesConfig(), device=None) -> "StokesProblem":
         """Assemble, factor and compose on the host in float64; move the
-        finished operators to ``device`` (see :func:`tpufem_torch.config.device`)."""
+        finished operators to ``device`` (see :func:`tpufem_torch.config.device`).
+
+        Explicit grid storage (``cg_storage="grid"`` or ``"grid_interpret"``)
+        renumbers a mesh whose numbering does not fit it onto an ns×ns
+        raster: the problem's mesh is then the renumbered, dummy-padded one
+        (N = ns²), and ``problem.gridified.pull`` maps its fields back to the
+        input's order."""
+        from tpufem_torch.mesh.gridify import ensure_grid_numbering
+
         check_config(config)
         dtype = tconfig.dtype(config.precision)
         dev = tconfig.device(device)
+        gridified = None
+        if config.solver == "cg" and config.cg_storage in ("grid", "grid_interpret"):
+            mesh, gridified = ensure_grid_numbering(mesh, L=config.L, H=config.H, tol=config.tol)
         boundary = bc.ChannelBoundary.build(
             mesh, inner_marker=config.inner_marker, L=config.L, H=config.H,
             tol=config.tol, all_walls=config.all_walls,
         )
         m_lumped = assembly.lumped_mass(mesh).numpy()
         if config.solver == "cg":
-            return cls._build_matfree(mesh, config, boundary, m_lumped, dtype, dev)
+            problem = cls._build_matfree(mesh, config, boundary, m_lumped, dtype, dev)
+            return dataclasses.replace(problem, gridified=gridified)
         n = mesh.n_nodes
         K = assembly.assemble_dense(mesh, assembly.element_stiffness(mesh)).numpy()
 
@@ -311,12 +326,13 @@ class StokesProblem:
                 config.tracer_density, L=config.L, H=config.H,
                 exclude_center=config.center, exclude_radius=0.25,
             )
-        return cls.from_host(
+        problem = cls.from_host(
             mesh, config, dev, boundary=boundary, visc_solver=visc, pressure_solver=pressure,
             inner_values=inner_values, m_lumped=m_lumped, div_xy=(None, None),
             visc_lift=visc_lift, locator=locator, tracer_init=tracer_init,
             mf_dxy=(mf_dx, mf_dy),
         )
+        return dataclasses.replace(problem, grid_step=GridStokesStep.build(problem))
 
     @classmethod
     def from_host(cls, mesh, config, device, *, boundary, visc_solver, pressure_solver,
@@ -359,6 +375,14 @@ class StokesProblem:
         )
 
 
+def _storage(config: StokesConfig, dev: torch.device) -> str:
+    """The storage to try: ``"auto"`` becomes ``"auto_accel"`` (the grid
+    where the operator fits it, else CSR) on CUDA and ``"csr"`` elsewhere."""
+    if config.cg_storage == "auto":
+        return "auto_accel" if dev.type == "cuda" else "csr"
+    return config.cg_storage
+
+
 def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     """(viscous solver, pressure solver, Dx, Dy) of the scale regime.
 
@@ -367,16 +391,14 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     operator covers ≥ 90 % of its entries with grid planes, else CSR (tpufem
     falls back to stencil or banded storage there, which are not ported).
     ``"grid"`` runs the kernels at f32 and f64; ``"grid_interpret"`` takes
-    the grid storage with the kernels' plain versions on every device.  The
-    plane split follows tpufem's ``stream`` decision, so both packages build
-    the same operators at every size."""
-    from tpufem_torch.mesh.gridify import ensure_grid_numbering
+    the grid storage with the kernels' plain versions on every device (the
+    mesh is grid-numbered by then: ``StokesProblem.build`` renumbers it).
+    The plane split follows tpufem's ``stream`` decision, so both packages
+    build the same operators at every size."""
     from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
     from tpufem_torch.solve.pressure import owner_map
 
-    storage = config.cg_storage
-    if storage == "auto":
-        storage = "auto_accel" if dev.type == "cuda" else "csr"
+    storage = _storage(config, dev)
     n = mesh.n_nodes
     ke = assembly.element_stiffness(mesh)
     K_csr = assembly.assemble_csr(mesh, ke)
@@ -396,8 +418,6 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
 
     ns = int(round(np.sqrt(n)))
     explicit = storage in ("grid", "grid_interpret")
-    if explicit:
-        ensure_grid_numbering(mesh, L=config.L, H=config.H, tol=config.tol)
     if explicit or (storage == "auto_accel" and ns * ns == n and dtype == torch.float32):
         stream = config.cg_stream_diags == "on" or (config.cg_stream_diags == "auto" and n >= 360_000)
         hbm_io = config.cg_hbm_io == "on" or (config.cg_hbm_io == "auto" and n >= 700_000)
@@ -622,6 +642,10 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
     cfg = problem.config
     dt = cfg.dt
 
+    if problem.grid_step is not None:
+        # K whole steps in one launch of K5; bc_scale is 1 (K5 refuses ramps)
+        return problem.grid_step(u, warm)
+
     if problem.fused_M is not None:
         n = problem.mesh.n_nodes
         u_flat = torch.cat([u[:, 0], u[:, 1]])
@@ -706,7 +730,7 @@ def make_step(problem: StokesProblem, var0=None):
             if "ustar_warm" in state:
                 warm["u_star"] = state["ustar_warm"]
         u, _, metrics, warm_out = projection_step(problem, state["u"], bc_scale=ramp, warm=warm)
-        new_state = {"u": u, "step": state["step"] + 1}
+        new_state = {"u": u, "step": state["step"] + steps_per_call(problem)}
         if warm_out is not None:
             new_state["p_warm"] = warm_out["p"]
             new_state["p2_warm"] = warm_out["p2"]
@@ -746,26 +770,37 @@ def _metric_dtypes(problem: StokesProblem) -> dict[str, torch.dtype]:
     return keys
 
 
+def steps_per_call(problem: StokesProblem) -> int:
+    """The physics steps one call of the step function advances: K under
+    K5, else 1."""
+    return 1 if problem.grid_step is None else problem.grid_step.steps_per_call
+
+
 def run(problem: StokesProblem, steps: int | None = None, state: dict | None = None):
     """Run ``steps`` steps (default ``config.steps``) → (state, metrics).
 
     A Python loop that only enqueues device work: each step's metrics go
     into preallocated (steps,) device tensors, and nothing here reads a
-    value back to the host.  Dye runs also report ``mixing_progress``
-    against the canonical initial state's variance."""
+    value back to the host.  Under K5 with K steps a call, ``steps`` must
+    be a multiple of K, and each call's (K,) series fills K entries.  Dye
+    runs also report ``mixing_progress`` against the canonical initial
+    state's variance."""
     cfg = problem.config
     if state is None:
         state = initial_state(problem)
     n_steps = steps if steps is not None else cfg.steps
+    k = steps_per_call(problem)
+    if n_steps % k:
+        raise ValueError(f"run(steps={n_steps}) must be a multiple of grid_steps_per_call={k}")
     metrics = {
-        k: torch.empty(n_steps, dtype=dt, device=problem.device)
-        for k, dt in _metric_dtypes(problem).items()
+        key: torch.empty(n_steps, dtype=dt, device=problem.device)
+        for key, dt in _metric_dtypes(problem).items()
     }
     step = make_step(problem)
-    for i in range(n_steps):
+    for i in range(n_steps // k):
         state, m = step(state)
-        for k, series in metrics.items():
-            series[i] = m[k]
+        for key, series in metrics.items():
+            series[i * k:(i + 1) * k] = m[key]
     if cfg.transport == "dye":
         var0 = dye_baseline(problem, initial_state(problem))
         metrics["mixing_progress"] = 1.0 - metrics["mixing_var"] / (var0 + 1e-16)
