@@ -4,9 +4,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 
 1. device: the card's name and power limit; TF32 off;
-2. build: kernels K1 (``tpufem_torch/csrc/fused_step_matvec.cu``) and
-   K2/K3/K4 (``tpufem_torch/csrc/grid_cg.cu``), one nvcc for each source,
-   started together; K1's build report;
+2. build: kernels K1 (``tpufem_torch/csrc/fused_step_matvec.cu``),
+   K2/K3/K4 (``tpufem_torch/csrc/grid_cg.cu``), K5
+   (``tpufem_torch/csrc/grid_step.cu``) and K6
+   (``tpufem_torch/csrc/halo_rdma.cu``), one nvcc for each source, started
+   together; K1's build report;
 3. K1 against its plain version (``torch.addmv``) on the card, f32 and f64,
    at 2N = 1704 (the bench mesh), 700 (off the TPU's 128/256 tiles) and 6200 (near the top
    of the dense regime), with µs per call of both, and the kernel's
@@ -79,6 +81,35 @@ grid_step.cu``, built in phase 2), run after phase 11 while phase 9's
     pad_hole=False)``, renumbered on the host (``gridify``), under tpufem's
     "imported" gate.
 
+Phases 23–26, the space-sharded grid path (``tpufem_torch.parallel``) and
+kernel K6 (the ring halo exchange, ``tpufem_torch/csrc/halo_rdma.cu``, built
+in phase 2), run after phase 22 on phase 9's 1,048,576-node problem, with
+all shards on the one card:
+
+23. K6 against its plain version (``torch.cat``), bit for bit: f32 and f64,
+    2, 4 and 8 shards and one, depths 1, 3 and the solvers' ``dmax``, at
+    the 1,048,576-node strips (256 × 1024) and a ragged shape whose row is
+    no multiple of 16 bytes; µs a call of both and of ``torch.cat`` (CUDA-
+    graph replay), the build report, the bound;
+24. the sharded grid solvers (4 shards): ``halo="rdma"`` against
+    ``"ppermute"``, both against the single-device K2/K3 and their plain
+    versions, at ``n_side=40`` f64 (fixed iterations and tol 1e-8) and on
+    phase 9's problem at f32; ms a solve of each;
+25. the sharded main path: ``make_sharded_matfree_step(mesh, problem,
+    halo="rdma")`` on phase 9's problem, 20 steps from rest; K6 must launch
+    as often as the solves' iterations imply and K1–K5 never; tpufem's
+    physics gates; steps/s, device ms a step and K6's share beside the
+    single-device unfused step from zero on the same problem;
+26. at f64 and ``n_side=40``, 4 shards, 10 steps: the card's sharded step
+    (K6) against the port's CPU sharded step (plain), both against the
+    single-device step; the distributed CSR viscous CG against the
+    single-device CSR solve.
+
+``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
+one shard on each of N cards: K6 pushes into its neighbours' outputs on
+the other cards through peer access, and its times there are taken by the
+host clock.
+
 Each phase prints its seconds.  Any failed check raises, so the exit code
 is not 0.  The line before the last is a JSON summary of the kernels (each
 with its bound: the larger of its bytes, each input read once and each
@@ -89,6 +120,7 @@ float32 rate); the last line is
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import re
@@ -99,12 +131,17 @@ import numpy as np
 import torch
 
 from tpufem_torch import bench_large
-from tpufem_torch.bench import bench_config, bench_mesh, card, timed_run
+from tpufem_torch.bench import bench_config, bench_mesh, card, profile_run, timed_run
 from tpufem_torch.mesh import generate_annulus_mesh
 from tpufem_torch.ops import _nvcc, assembly
 from tpufem_torch.ops import fused_matvec as fm
+from tpufem_torch.parallel import (build_device_mesh, make_sharded_grid_solvers,
+                                   make_sharded_matfree_step, make_sharded_viscous_solver)
+from tpufem_torch.parallel import grid_remote_dma as rdma
+from tpufem_torch.parallel.grid_sharded import _signed_dy
 from tpufem_torch.solve import grid_cg
 from tpufem_torch.solve import grid_step as gs
+from tpufem_torch.solve.matfree import ViscousCG
 from tpufem_torch.workloads import navier_stokes, stokes
 
 MAX_U_FACTOR = 1.25  # boundedness gate of tpufem/bench_large.py: max|u| < 1.25·(|B1|+|B2|)
@@ -152,12 +189,13 @@ def zero_launches() -> None:
     fm.fused_step_matvec.launches = 0
     grid_cg.viscous_cg.launches = grid_cg.pressure_cg.launches = grid_cg.ns_bicgstab.launches = 0
     gs.grid_step.launches = 0
+    rdma.halo_rdma.launches = 0
 
 
 def launch_counts() -> dict:
     return {"K1": fm.fused_step_matvec.launches, "K2": grid_cg.viscous_cg.launches,
             "K3": grid_cg.pressure_cg.launches, "K4": grid_cg.ns_bicgstab.launches,
-            "K5": gs.grid_step.launches}
+            "K5": gs.grid_step.launches, "K6": rdma.halo_rdma.launches}
 
 
 def check(ok: bool, what: str) -> None:
@@ -237,16 +275,18 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def phase_build() -> float:
-    """Build both kernel libraries at once; returns the seconds it took."""
+    """Build every kernel library at once; returns the seconds it took."""
     t0 = time.perf_counter()
-    _nvcc.build_all([fm.SOURCE, grid_cg.SOURCE, gs.SOURCE])
+    _nvcc.build_all([fm.SOURCE, grid_cg.SOURCE, gs.SOURCE, rdma.SOURCE])
     fm.build()
     grid_cg.build()
     gs.build()
+    rdma.build()
     seconds = time.perf_counter() - t0
     print(f"[2 build] K1 from {fm.SOURCE.relative_to(_nvcc.PKG.parent)}, K2/K3/K4 from "
-          f"{grid_cg.SOURCE.relative_to(_nvcc.PKG.parent)} and K5 from "
-          f"{gs.SOURCE.relative_to(_nvcc.PKG.parent)} in parallel: {seconds:.2f} s; "
+          f"{grid_cg.SOURCE.relative_to(_nvcc.PKG.parent)}, K5 from "
+          f"{gs.SOURCE.relative_to(_nvcc.PKG.parent)} and K6 from "
+          f"{rdma.SOURCE.relative_to(_nvcc.PKG.parent)} in parallel: {seconds:.2f} s; "
           f"K1 {ptxas_report(fm.library_path())}")
     return seconds
 
@@ -306,7 +346,7 @@ def phase_main_path(dev: torch.device, mesh, steps: int = MAIN_STEPS) -> int:
     warm, state, metrics = timed_run(problem, steps)
     counts = launch_counts()
     launches = counts["K1"]
-    check(counts == {"K1": 2 * steps, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+    check(counts == {"K1": 2 * steps, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0},
           f"launches {counts} in two {steps}-step runs (want K1 = steps)")
     for k, v in {**state, **metrics}.items():
         if v.is_floating_point():
@@ -519,7 +559,7 @@ def phase_scale_main_path(problem, build_s: float, steps: int = SCALE_STEPS):
     cold, state, metrics, warm, state2 = bench_large.run_problem(problem, steps)
     launches = launch_counts()
     iters = bench_large.iterations_per_solve(counters, 2 * steps)
-    check(launches == {"K1": 0, "K2": 2 * steps, "K3": 4 * steps, "K4": 0, "K5": 0},
+    check(launches == {"K1": 0, "K2": 2 * steps, "K3": 4 * steps, "K4": 0, "K5": 0, "K6": 0},
           f"launches {launches} in two {steps}-step runs (want K2 = steps, K3 = 2·steps)")
     for k, v in {**state, **state2, **metrics}.items():
         if v.is_floating_point():
@@ -738,7 +778,7 @@ def phase_k5_main_path(k5_problems: dict, unfused, unfused_numbers: dict,
         cold, state, metrics, warm, state2 = bench_large.run_problem(problem, steps)
         launches = launch_counts()
         iters = bench_large.iterations_per_solve(counters, 2 * steps)
-        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2 * steps // k},
+        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2 * steps // k, "K6": 0},
               f"launches {launches} in two {steps}-step runs at K = {k} (want K5 = steps/K)")
         for key, v in {**state, **state2, **metrics}.items():
             if v.is_floating_point():
@@ -824,7 +864,7 @@ def phase_gridify(dev, steps: int = GRIDIFY_STEPS) -> None:
         rate = steps / (time.perf_counter() - t0)
         launches = launch_counts()
         want = {"K1": 0, "K2": 0 if k else steps, "K3": 0 if k else 2 * steps, "K4": 0,
-                "K5": steps if k else 0}
+                "K5": steps if k else 0, "K6": 0}
         check(launches == want, f"launches {launches} (want {want})")
         phys = bench_large.physics_report(problem, state, metrics, steps, gate="imported")
         u = g.pull(state["u"].double().cpu().numpy())
@@ -933,7 +973,7 @@ def phase_ns_main_path(problem, build_s: float, steps: int = NS_STEPS) -> dict:
     zero_launches()
     row = bench_large.run_ns_problem(problem, steps, counters)
     launches = launch_counts()
-    check(launches == {"K1": 0, "K2": 0, "K3": 2 * steps, "K4": 2 * steps, "K5": 0},
+    check(launches == {"K1": 0, "K2": 0, "K3": 2 * steps, "K4": 2 * steps, "K5": 0, "K6": 0},
           f"launches {launches} in two {steps}-step NS runs (want K4 = K3 = steps)")
     u, p = row.pop("state")
     check(bool(torch.isfinite(u).all() and torch.isfinite(p).all()), "NS state is finite")
@@ -980,6 +1020,268 @@ def phase_ns_dense_parity(dev, steps: int = NS_DENSE_STEPS) -> None:
     check(du <= 1e-10, f"NS dense f64 card vs CPU rel {du}")
 
 
+# ---------------------------------------------------------------------------
+# The space-sharded grid path and K6
+# ---------------------------------------------------------------------------
+
+HALO_SHARDS = (1, 2, 4, 8)
+# the 1,048,576-node strips on 4 shards, and a ragged shape: 1001 values a
+# row is no multiple of 16 bytes in f32 or f64, so K6 takes its scalar path
+HALO_SHAPES = ((256, 1024), (64, 1001))
+SHARDS = 4
+SHARDED_STEPS = 20
+SHARDED_PROFILE_STEPS = 1
+SHARDED_PARITY_MESH = (40, 48)
+SHARDED_PARITY_STEPS = 10
+# tpufem's sharded-solver and dryrun configuration (tests/test_parallel.py)
+SHARDED_PARITY_CONFIG = dict(solver="cg", cg_storage="grid", precision="f64",
+                             cg_precond="twolevel", cg_iters_visc=25, cg_iters_pressure=40,
+                             cg_warm_start=False, transport="none")
+SHARDED_TOL = dict(cg_iters_visc=60, cg_iters_pressure=80, cg_tol_visc=1e-8,
+                   cg_tol_pressure=1e-8)
+
+
+def shard_mesh(devs):
+    """A one-row mesh with one shard on each of ``devs`` (repeats allowed)."""
+    return build_device_mesh(len(devs), data=1, devices=list(devs))
+
+
+def wall_ms(fn, *args, calls: int = TIMED_CALLS) -> float:
+    """Mean ms per call by the host clock, every card synchronised (for
+    work on several cards, which one CUDA graph or stream cannot time)."""
+    for _ in range(10):
+        fn(*args)
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    sync_all()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def halo_dmax(problem) -> int:
+    """The sharded solvers' halo depth: the largest |dy| of both operators."""
+    ns = problem.visc_solver.K.ns
+    offsets = problem.visc_solver.K.offsets + problem.pressure_solver.K.offsets
+    return max([abs(_signed_dy(dy, ns)) for dy, _ in offsets] + [1])
+
+
+def phase_halo_kernel(devs, dmax: int, build_s: float) -> dict:
+    """K6 against its plain version, bit for bit, in every case (shard i on
+    card i mod the cards of ``devs``); returns the numbers at the main
+    path's shape (f32, one strip on each of ``devs``, d = dmax)."""
+    print(f"[23 build] K6 ({rdma.library_path().name}, built in the {build_s:.2f} s parallel "
+          f"build of phase 2): {ptxas_report(rdma.library_path())}")
+    cards = sorted(set(devs), key=lambda v: v.index)
+    rng = np.random.default_rng(23)
+    err = 0.0
+    for h, ns in HALO_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            cases = 0
+            for S in HALO_SHARDS:
+                for d in sorted({1, 3, dmax}):
+                    x = [torch.as_tensor(rng.standard_normal((h, ns)), dtype=dtype,
+                                         device=cards[i % len(cards)]) for i in range(S)]
+                    got, want = rdma.halo_rdma(x, d), rdma.halo_rdma_ref(x, d)
+                    sync_all()
+                    check(all(a.device == b.device and torch.equal(a, b)
+                              for a, b in zip(got, want)),
+                          f"K6 {h}x{ns} {dtype} S={S} d={d}: not bit-equal to torch.cat")
+                    err = max([err] + [float((a - b).abs().max()) for a, b in zip(got, want)])
+                    cases += 1
+            print(f"[23 kernel] K6 ({h}, {ns}) {str(dtype)[6:]}: {cases} cases (S in "
+                  f"{HALO_SHARDS} over {len(cards)} card(s), d in {sorted({1, 3, dmax})}) "
+                  "bit-equal to the plain version")
+    h, ns = HALO_SHAPES[0]
+    x = [torch.as_tensor(rng.standard_normal((h, ns)), dtype=torch.float32, device=v)
+         for v in devs]
+
+    def library(x, d):  # one torch.cat of the three slices a shard
+        return [torch.cat([x[i - 1][-d:].to(x[i].device), x[i],
+                           x[(i + 1) % len(x)][:d].to(x[i].device)]) for i in range(len(x))]
+
+    # one card: device time (CUDA-graph replay); several: the host clock
+    timer, unit = (device_ms, "device") if len(cards) == 1 else (wall_ms, "wall")
+    ms = timer(rdma.halo_rdma, x, dmax)
+    plain_ms = timer(rdma.halo_rdma_ref, x, dmax)
+    library_ms = timer(library, x, dmax)
+    nbytes = len(devs) * (2 * h + 2 * dmax) * ns * 4
+    at_main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 0.0),
+               "library_ms": library_ms}
+    print(f"[23 kernel] K6 at the main path's shape ({len(devs)} x ({h}, {ns}) f32 on "
+          f"{len(cards)} card(s), d = {dmax}): {unit} us a call K6 {ms * 1e3:.3f}, plain "
+          f"{plain_ms * 1e3:.3f}, {len(devs)} torch.cat {library_ms * 1e3:.3f}; "
+          f"{nbytes / 1e6:.2f} MB read and written, bound {at_main['bound_ms'] * 1e3:.3f} us at "
+          "3.35 TB/s")
+    return at_main
+
+
+def sharded_pair(problem, devs):
+    """(ppermute, rdma) sharded grid solvers of ``problem``, one shard on
+    each of ``devs``: [(visc_solve, pressure_solve)] × 2."""
+    return [make_sharded_grid_solvers(shard_mesh(devs), problem, halo=h)
+            for h in ("ppermute", "rdma")]
+
+
+def timed_solve_ms(fn, b, calls: int = 1) -> float:
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(b)
+    sync_all()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def check_sharded_solvers(label: str, problem, devs, bounds, metric: str) -> None:
+    """The sharded solvers (both halos) against the single-device K2/K3 and
+    their plain versions on seeded right-hand sides; ``metric`` "abs" holds
+    the max abs difference to ``bounds``, "rel" the relative L2."""
+    (pv, pp), (rv, rp) = sharded_pair(problem, devs)
+    visc, pres = problem.visc_solver, problem.pressure_solver
+    rng = np.random.default_rng(24)
+    n = problem.mesh.n_nodes
+    for name, fns, single, shape, bnd in (
+            ("viscous", (rv, pv), (visc.solve, dataclasses.replace(visc, plain=True).solve),
+             (n, 2), bounds[0]),
+            ("pressure", (rp, pp), (pres.solve, dataclasses.replace(pres, plain=True).solve),
+             (n,), bounds[1])):
+        b = torch.as_tensor(rng.standard_normal(shape), dtype=problem.dtype, device=devs[0])
+        got = [f(b) for f in fns]
+        want = [f(b) for f in single]
+        sync_all()
+        same = rel(got[0], got[1])
+        check(same <= (1e-13 if problem.dtype == torch.float64 else 1e-6),
+              f"{label} {name}: rdma vs ppermute rel {same}")
+
+        def dist(a, c):
+            return float((a - c).abs().max()) if metric == "abs" else rel(a, c)
+
+        errs = [dist(g, w) for g in got for w in want]
+        ms = [timed_solve_ms(f, b) for f in (*fns, *single)]
+        print(f"[24 sharded solvers] {label} {name}: rdma vs ppermute rel {same:.3e}; "
+              f"{metric} to K2/K3 and plain: rdma {errs[0]:.3e} {errs[1]:.3e}, ppermute "
+              f"{errs[2]:.3e} {errs[3]:.3e} (<= {bnd:g}); ms a solve rdma {ms[0]:.1f}, "
+              f"ppermute {ms[1]:.1f}, single-device kernel {ms[2]:.2f}, plain {ms[3]:.1f}")
+        check(max(errs) <= bnd, f"{label} {name}: {metric} {errs} > {bnd}")
+
+
+def phase_sharded_solvers(devs, big) -> None:
+    mesh = generate_annulus_mesh(*SHARDED_PARITY_MESH, pad_hole=True)
+    small = stokes.StokesProblem.build(mesh, stokes.StokesConfig(**SHARDED_PARITY_CONFIG),
+                                       device=devs[0])
+    check_sharded_solvers(f"n_side={SHARDED_PARITY_MESH[0]} f64 fixed", small, devs,
+                          (1e-12, 1e-9), "abs")
+    tol = stokes.StokesProblem.build(
+        mesh, stokes.StokesConfig(**{**SHARDED_PARITY_CONFIG, **SHARDED_TOL}), device=devs[0])
+    check_sharded_solvers(f"n_side={SHARDED_PARITY_MESH[0]} f64 tol 1e-8", tol, devs,
+                          (1e-6, 1e-5), "abs")
+    check_sharded_solvers(f"{big.mesh.n_nodes} nodes f32", big, devs, (1e-3, 1e-3), "rel")
+
+
+def run_sharded(step, u, steps: int):
+    """``steps`` sharded steps from ``u``: (u, metric series on the device)."""
+    series = {}
+    for i in range(steps):
+        u, m = step(u)
+        for k, v in m.items():
+            series.setdefault(k, torch.empty(steps, dtype=v.dtype, device=v.device))[i] = v
+    return u, series
+
+
+def phase_sharded_main_path(devs, big, steps: int = SHARDED_STEPS) -> int:
+    """The sharded step with K6 through the user's entry point (every count
+    set to 0 just before, read just after); returns K6's launches."""
+    problem, counters = bench_large.with_iteration_counters(big)
+    step = make_sharded_matfree_step(shard_mesh(devs), problem, halo="rdma")
+    u0 = stokes.initial_state(problem)["u"]
+    zero_launches()
+    sync_all()
+    t0 = time.perf_counter()
+    u, series = run_sharded(step, u0, steps)
+    sync_all()
+    rate = steps / (time.perf_counter() - t0)
+    launches = launch_counts()
+    visc_it = int(counters["visc_solver"][0].item())
+    pres_it = int(counters["pressure_solver"][0].item())
+    # one halo a viscous iteration; 3k + 2 a two-level pressure solve of k
+    # iterations, and its two rolls (grid_sharded's docstring); one launch a
+    # halo on each card
+    want_k6 = (visc_it + 3 * pres_it + 4 * 2 * steps) * len(set(devs))
+    check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": want_k6},
+          f"launches {launches} in {steps} sharded steps (want K6 = {want_k6} from "
+          f"{visc_it} viscous and {pres_it} pressure iterations)")
+    phys = bench_large.physics_report(problem, {"u": u}, series, steps)  # raises on a failed gate
+    prof = profile_run(lambda: run_sharded(step, u, SHARDED_PROFILE_STEPS), SHARDED_PROFILE_STEPS,
+                       top=200)
+    k6_ms = sum(t["ms_per_step"] for t in prof["top"] if "halo_push" in t["name"])
+    # the single-device unfused step on the same problem, its solves from zero too
+    single = dataclasses.replace(big, config=dataclasses.replace(big.config, cg_warm_start=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stokes.run(single, steps=steps)
+    torch.cuda.synchronize()
+    single_rate = steps / (time.perf_counter() - t0)
+    sprof = profile_run(lambda: stokes.run(single, steps=SHARDED_PROFILE_STEPS),
+                        SHARDED_PROFILE_STEPS)
+    print(f"[25 sharded main path] {problem.mesh.n_nodes} nodes, {len(devs)} shards on "
+          f"{len(set(devs))} card(s), "
+          f"halo='rdma', {steps} steps from rest: {rate:.2f} steps/s; launches {launches}; "
+          f"iterations a solve viscous {visc_it / (2 * steps):.2f} (a column), pressure "
+          f"{pres_it / (2 * steps):.2f}; device {prof['device_ms_per_step']:.3f} ms and "
+          f"{prof['kernels_per_step']:.0f} kernels a step, K6 {k6_ms:.3f} ms a step "
+          f"({100 * k6_ms / prof['device_ms_per_step']:.2f} %); single-device unfused step from "
+          f"zero: {single_rate:.2f} steps/s, device {sprof['device_ms_per_step']:.3f} ms and "
+          f"{sprof['kernels_per_step']:.0f} kernels a step; {json.dumps(phys)}")
+    return launches["K6"]
+
+
+def phase_sharded_parity(devs, steps: int = SHARDED_PARITY_STEPS) -> None:
+    """f64 at n_side=40: the card's sharded step (K6) against the port's CPU
+    sharded step (plain), both against the single-device step; dist_cg
+    against the single-device CSR viscous solve."""
+    mesh = generate_annulus_mesh(*SHARDED_PARITY_MESH, pad_hole=True)
+    out = {}
+    for name, shards in (("gpu", devs), ("cpu", [CPU] * len(devs))):
+        device = shards[0]
+        problem = stokes.StokesProblem.build(mesh, stokes.StokesConfig(**SHARDED_PARITY_CONFIG),
+                                             device=device)
+        halo = "rdma" if device.type == "cuda" else "ppermute"
+        step = make_sharded_matfree_step(shard_mesh(shards), problem, halo=halo)
+        zero_launches()
+        u, _ = run_sharded(step, stokes.initial_state(problem)["u"], steps)
+        check((rdma.halo_rdma.launches > 0) == (device.type == "cuda"),
+              f"{name}: K6 launched {rdma.halo_rdma.launches} times")
+        single, _ = stokes.run(problem, steps=steps)
+        out[name] = (u.double().cpu(), single["u"].double().cpu())
+    (g, g_single), (c, c_single) = out["gpu"], out["cpu"]
+    d_gc = rel(g, c)
+    d_single = [float((g - g_single).abs().max()), float((c - c_single).abs().max())]
+    print(f"[26 sharded parity] n_side={SHARDED_PARITY_MESH[0]} f64, {len(devs)} shards, {steps} "
+          f"steps: card (K6) vs CPU sharded u rel {d_gc:.3e} (<= 1e-10); sharded vs single-device "
+          f"max abs du card {d_single[0]:.3e}, CPU {d_single[1]:.3e} (<= 1e-8)")
+    check(d_gc <= 1e-10, f"sharded card vs CPU rel {d_gc}")
+    check(max(d_single) <= 1e-8, f"sharded vs single-device max abs {d_single}")
+
+    K = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh))
+    problem = stokes.StokesProblem.build(mesh, stokes.StokesConfig(**SHARDED_PARITY_CONFIG),
+                                         device=devs[0])
+    mask = problem.visc_solver.interior_mask
+    Kd = K.astype(torch.float64, devs[0])
+    b = torch.as_tensor(np.random.default_rng(26).standard_normal((mesh.n_nodes, 2)),
+                        device=devs[0])
+    x = make_sharded_viscous_solver(shard_mesh(devs), Kd, mask.cpu().numpy(), 0.005, iters=80)(b)
+    y = ViscousCG(K=Kd, interior_mask=mask, dt_nu=0.005, iters=80).solve(b)
+    dx = float((x - y).abs().max())
+    print(f"[26 sharded parity] dist_cg viscous CG ({len(devs)} row slabs, 80 iterations) vs the "
+          f"single-device CSR solve on the card: max abs {dx:.3e} (<= 1e-9)")
+    check(dx <= 1e-9, f"dist_cg vs single-device max abs {dx}")
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -995,6 +1297,40 @@ def built(n_side: int, n_circle: int, make):
     problem = make(torch.device("cuda", 0), n_side, n_circle)
     torch.cuda.synchronize()
     return problem, time.perf_counter() - t0
+
+
+def sharded_phases(devs, big, build_s: float):
+    """Phases 23–26 with one shard on each of ``devs``: (K6's numbers at
+    the main path's shape, its launches on the main path)."""
+    k6_main = timed(23, phase_halo_kernel, devs, halo_dmax(big), build_s)
+    timed(24, phase_sharded_solvers, devs, big)
+    k6_launches = timed(25, phase_sharded_main_path, devs, big)
+    timed(26, phase_sharded_parity, devs)
+    return k6_main, k6_launches
+
+
+def main_cards(n: int) -> None:
+    """Phases 1, 2 and 23–26 with one shard on each of ``n`` cards, on phase
+    9's problem (built on card 0): K6's pushes go to the other cards
+    through peer access."""
+    timed(1, phase_device)
+    check(torch.cuda.device_count() >= n, f"{n} cards asked for, "
+          f"{torch.cuda.device_count()} visible")
+    build_s = timed(2, phase_build)
+    big, _ = built(*SCALE_MESH, scale_problem)
+    k6_main, k6_launches = sharded_phases([torch.device("cuda", i) for i in range(n)], big,
+                                          build_s)
+    print(json.dumps({"kernels": [kernel_entry_k6(k6_launches, k6_main)]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+def kernel_entry_k6(launches: int, numbers: dict) -> dict:
+    return {"name": "halo_rdma", "route": "cuda", "source": "tpufem_torch/csrc/halo_rdma.cu",
+            "replaces": "tpufem/parallel/grid_remote_dma.py:64", "launches": launches,
+            **numbers}
 
 
 def main() -> None:
@@ -1021,6 +1357,7 @@ def main() -> None:
     timed(20, phase_k5_parity, dev)
     timed(21, phase_k5_tracers, dev)
     timed(22, phase_gridify, dev)
+    k6_main, k6_launches = sharded_phases([dev] * SHARDS, big, build_s)
     del big, k5_problems, unfused
     torch.cuda.empty_cache()
     timed(12, phase_ns_build, build_s)
@@ -1048,6 +1385,7 @@ def main() -> None:
                     "source": "tpufem_torch/csrc/grid_step.cu",
                     "replaces": "tpufem/solve/pallas_step.py:146", "launches": k5_launches,
                     **k5_main})
+    kernels.append(kernel_entry_k6(k6_launches, k6_main))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1056,5 +1394,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--cards", type=int, default=0,
+                        help="run only phases 1, 2 and 23-26, one shard on each of this many "
+                             "cards (default: every phase on one card)")
+    cards = parser.parse_args().cards
+    if cards:
+        main_cards(cards)
+    else:
+        main()
     sys.stdout.flush()

@@ -3,7 +3,8 @@
 The JAX package ``tpufem`` is the reference; this package mirrors its
 layout and names.  It covers the squirmer Stokes step in its dense and
 scale regimes (on any mesh: ``gridify_mesh`` renumbers one for the grid
-kernels) with tracer and dye transport, and the Navier–Stokes workload;
+kernels) with tracer and dye transport, the Navier–Stokes workload, and
+the space-sharded grid path on a device mesh (``tpufem_torch.parallel``);
 the TPU kernels on those paths are hand-written CUDA kernels (``csrc/``).
 
 Quick start::

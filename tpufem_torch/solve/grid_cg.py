@@ -427,15 +427,20 @@ def coarse_ref(solver: PressureGridCG, T: torch.Tensor) -> torch.Tensor:
     flat = r1[..., 0]
     for j in range(1, blk):  # lane-block sums, float32, in lane order
         flat = flat + r1[..., j]
-    flat = flat.reshape(-1)
-    ai = solver.ac_inv
-    if ai.dtype == torch.bfloat16:
-        zc = ai.float() @ flat.to(torch.bfloat16).float()
-    else:
-        zc = (ai @ flat.to(ai.dtype)).to(torch.float32)
-    Z = zc.to(T.dtype).reshape(nc, nc)
+    Z = coarse_product(solver, flat.reshape(-1)).to(T.dtype).reshape(nc, nc)
     Z = Z.repeat_interleave(blk, 0).repeat_interleave(blk, 1)[:ns, :ns]
     return Z * solver.act_grid
+
+
+def coarse_product(solver: PressureGridCG, flat: torch.Tensor) -> torch.Tensor:
+    """A_c⁻¹·flat for the restricted vector ``flat`` (nc²,), as float32: the
+    product in the coarse inverse's precision, rounded (with a bfloat16
+    inverse, ``flat`` rounded to bfloat16 and the product taken in float32),
+    as tpufem's ``preferred_element_type=float32`` coarse dot."""
+    ai = solver.ac_inv
+    if ai.dtype == torch.bfloat16:
+        return ai.float() @ flat.to(torch.bfloat16).float()
+    return (ai @ flat.to(ai.dtype)).to(torch.float32)
 
 
 def pressure_cg_ref(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
