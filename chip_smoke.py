@@ -19,24 +19,29 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 5. the card against the port's CPU path at f64 over 50 steps, and the f32
    card run against the f64 one;
 6. semi-Lagrangian dye on the fused f32 path for 200 steps;
-7. the K2/K3 build report: seconds, registers and spills per instance;
+7. the K2/K3 build report: seconds, registers and spills per instance, and
+   for each instance its registers, spill stores, shared memory and blocks
+   per SM;
 8. K2 and K3 against their plain versions on the card: f32 and f64 (and a
    bf16 coarse inverse for K3), fixed iterations and ``tol=1e-5`` from a
    warm start, at ``n_side=20`` (ragged 3×3 coarse blocks) and on the
    1,048,576-node operators of phase 9; rel L2, iterations and ms per solve
-   of both, and two launches bit-equal;
+   of both, and two launches bit-equal; then ms an iteration of K2 and K3
+   (f32) against the iteration's byte bound on the card's split of phase
+   9's operators (``GridOperator.dense_split``) and on tpufem's split (26
+   pressure planes), built beside it;
 9. the scale main path: ``bench_large.bench_config`` on
    ``generate_annulus_mesh(1024, 1088, pad_hole=True)`` (1,048,576 nodes,
    f32, two-level, tol 1e-5, bf16 coarse) through ``StokesProblem.build``
    and ``stokes.run``: 200 steps from rest, then 200 steps of steady
    continuation; K2 must run once a step and K3 twice; tpufem's physics
-   gates;
+   gates; the operators' plane and remainder counts;
 10. the grid path at f64 on the card (kernels) against the port's CPU path
     (plain versions) at ``n_side=40`` over 10 steps, fixed iterations and
     then tol 1e-5 with warm starts; f32 on the card against f64;
 11. tracers on the scale path at 78,400 nodes for 200 steps;
 12. the K4 build report (K4 is in ``grid_cg.cu``, built in phase 2):
-    registers and spills of its instances;
+    registers, spills, shared memory and blocks per SM of its instances;
 13. K4 against its plain version on the card: f32 and f64, fixed 30
     iterations from zero and ``tol=1e-5`` from the warm start the step
     uses, at ``n_side=20`` and on the 1,048,576-node operator refilled from
@@ -45,7 +50,8 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
     coarse inverse; ragged 3×3 coarse blocks at ``n_side=20``) at both
     sizes, at the step's f32 and at f64, fixed 120 iterations and
     ``tol=1e-5`` from a warm start; rel L2, iterations and ms per solve of
-    both, two launches bit-equal;
+    both, two launches bit-equal; ms an iteration of K3 on the NS operator
+    (card split and tpufem's) and of K4 against their byte bounds;
 14. the NS main path: ``bench_large.ns_config`` (tpufem's ``run_ns``) at
     1,048,576 nodes through ``NSProblem.build`` and ``navier_stokes.run``:
     200 steps from rest, then 200 continued; K4 and K3 must each run once a
@@ -61,13 +67,15 @@ Phases 17–22, kernel K5 (the whole Stokes step, ``tpufem_torch/csrc/
 grid_step.cu``, built in phase 2), run after phase 11 while phase 9's
 1,048,576-node problem is built:
 
-17. the K5 build report: registers and spills of its instances;
+17. the K5 build report: registers, spills, shared memory and blocks per
+    SM of its instances;
 18. K5 against its plain version on the card: f32 (bf16 coarse inverse)
     and f64, fixed iterations and ``tol=1e-5`` from a warm state, at
     ``n_side=20`` (64 coarse nodes) and on phase 9's problem with K5
     attached (``GridStokesStep.build`` on a copy of its configuration); rel
     L2 of u, u*, p, p2 and the metrics, iterations and ms per call of both;
     two launches bit-equal, and one K = 4 launch bit-equal to four K = 1;
+    ms a pressure iteration of K5 on the card's split and on tpufem's;
 19. the K5 main path: ``bench_large.bench_config`` at 1,048,576 nodes with
     ``grid_steps_per_call`` 1, then 4, through ``stokes.run``: 200 steps
     from rest and 200 continued; K5 must run steps/K times and K2, K3 none;
@@ -77,9 +85,12 @@ grid_step.cu``, built in phase 2), run after phase 11 while phase 9's
     ``n_side=40`` over 10 steps, fixed iterations and tol 1e-5; f32 against
     f64;
 21. tracers on K5 (K = 1) at 78,400 nodes for 200 steps;
-22. the grid path and K5 on ``generate_annulus_mesh(280, 320,
-    pad_hole=False)``, renumbered on the host (``gridify``), under tpufem's
-    "imported" gate.
+22. the unfused grid path and K5 (K = 1) beside each other on
+    ``generate_annulus_mesh(280, 320, pad_hole=False)``, renumbered on the
+    host (``gridify``), under tpufem's "imported" gate, and on the
+    160,000-node ``generate_annulus_mesh(400, 448, pad_hole=True)`` under
+    the scale gates: 200 steps from rest and 200 more, steps/s of both;
+    then K5 against its plain version there (f32 and f64, tol 1e-5).
 
 Phases 23–26, the space-sharded grid path (``tpufem_torch.parallel``) and
 kernel K6 (the ring halo exchange, ``tpufem_torch/csrc/halo_rdma.cu``, built
@@ -133,8 +144,9 @@ import torch
 from tpufem_torch import bench_large
 from tpufem_torch.bench import bench_config, bench_mesh, card, profile_run, timed_run
 from tpufem_torch.mesh import generate_annulus_mesh
-from tpufem_torch.ops import _nvcc, assembly
+from tpufem_torch.ops import _nvcc, assembly, calculus
 from tpufem_torch.ops import fused_matvec as fm
+from tpufem_torch.ops.gridop import STREAMED_NODES, GridDecompositionError, GridOperator
 from tpufem_torch.parallel import (build_device_mesh, make_sharded_grid_solvers,
                                    make_sharded_matfree_step, make_sharded_viscous_solver)
 from tpufem_torch.parallel import grid_remote_dma as rdma
@@ -142,6 +154,7 @@ from tpufem_torch.parallel.grid_sharded import _signed_dy
 from tpufem_torch.solve import grid_cg
 from tpufem_torch.solve import grid_step as gs
 from tpufem_torch.solve.matfree import ViscousCG
+from tpufem_torch.solve.pressure import owner_map
 from tpufem_torch.workloads import navier_stokes, stokes
 
 MAX_U_FACTOR = 1.25  # boundedness gate of tpufem/bench_large.py: max|u| < 1.25·(|B1|+|B2|)
@@ -177,6 +190,8 @@ K5_PER_CALL = (1, 4)
 K5_PROFILE_STEPS = 40
 GRIDIFY_MESH = (280, 320)  # pad_hole=False: 57,448 nodes, renumbered onto 280×280
 GRIDIFY_STEPS = 200
+MID_MESH = (400, 448)  # pad_hole: 160,000 nodes, below tpufem's 360k streaming threshold
+ITER_PROBE = 40  # a kernel's ms an iteration: solves of 40 and 20 fixed iterations, the difference
 CPU = torch.device("cpu")
 # the card's peaks (H100 SXM data sheet, at its 700 W limit): HBM3 rate and
 # float32 outside the tensor cores
@@ -265,6 +280,42 @@ def ptxas_report(path, entry: str = "") -> str:
     regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
     spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
     return f"registers per instance {regs}, spill stores {spills} bytes"
+
+
+def instance_label(mangled: str) -> str:
+    """``pressure_cg f32 bf16`` for pressure_cg_kernel<float, __nv_bfloat16>:
+    the kernel without ``_kernel`` and its template arguments (a second
+    field type equal to the first left out)."""
+    m = re.search(r"\d+([a-z][a-z_]*?)_kernelI(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = []
+    for t in re.finditer(r"\d+__nv_bfloat16|Li(\d+)E|[fd]", m.group(2)):
+        args.append(f"C={t.group(1)}" if t.group(1) else
+                    {"f": "f32", "d": "f64"}.get(t.group(0), "bf16"))
+    if len(args) == 2 and args[1] == args[0]:
+        args = args[:1]
+    return " ".join([m.group(1)] + args)
+
+
+def instance_report(path, blocks: dict, entry: str = "") -> list[str]:
+    """One line for each instance in ``path``'s ptxas report whose name
+    contains ``entry``: registers, spill stores, shared memory and the
+    blocks per SM the cooperative launch runs (``blocks``, by label, as
+    ``grid_cg.blocks_per_sm`` gives them)."""
+    lines = []
+    for part in path.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
+        name = part.split("'")[1]
+        if entry not in name:
+            continue
+        label = instance_label(name)
+        regs = re.search(r"Used (\d+) registers", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", part))
+        lines.append(f"{label}: {regs.group(1) if regs else '?'} registers, {spill} B spill "
+                     f"stores, {smem.group(1) if smem else 0} B smem, "
+                     f"{blocks.get(label, '?')} blocks/SM")
+    return lines
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -408,8 +459,12 @@ def phase_dye(dev: torch.device, mesh, steps: int = DYE_STEPS) -> None:
 
 
 def phase_grid_build(seconds: float) -> None:
+    blocks = grid_cg.blocks_per_sm()
     print(f"[7 build] K2/K3 ({grid_cg.library_path().name}) within the {seconds:.2f} s "
           f"parallel build: {ptxas_report(grid_cg.library_path())}")
+    for entry in ("viscous_cg", "pressure_cg"):
+        for line in instance_report(grid_cg.library_path(), blocks, entry):
+            print(f"[7 build]   {line}")
 
 
 def scale_problem(dev, n_side: int, n_circle: int, **overrides):
@@ -541,13 +596,98 @@ def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
     return bound(nbytes, flops)
 
 
-def phase_grid_kernels(dev, big_problem) -> dict:
+# Vector passes an iteration makes at least: K2 the shared mask and inverse
+# diagonal three times and 11 a column (q = A p; x, r; p), K3 and K5's
+# pressure solve 17 (the fused iteration of csrc/grid_common.cuh), K4 27 a
+# column; each apply reads the operator's planes and remainder once.
+APPLIES = {"K2": 1, "K3": 3, "K4": 2}
+
+
+def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None) -> float:
+    """ms of one iteration's least HBM traffic at the card's peak rate."""
+    n, item = K.n, K.diags.element_size()
+    op = (len(K.offsets) * n + 3 * K.n_rest) * item
+    passes = {"K2": 3 + 11 * cols, "K3": 17, "K4": 27 * cols}[kernel]
+    nbytes = APPLIES[kernel] * op + passes * n * item
+    if ac_inv is not None:
+        nbytes += ac_inv.numel() * ac_inv.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def per_iteration_ms(fn, solver, b, calls: int) -> float:
+    """ms an iteration of a whole-solve kernel ``fn``: fixed-iteration solves
+    from zero of ITER_PROBE and ITER_PROBE/2 iterations, the difference."""
+    x0 = torch.zeros_like(b)
+    half = ITER_PROBE // 2
+    t = [solve_timed_ms(fn, dataclasses.replace(solver, iters=k, tol=0.0), b, x0, calls)
+         for k in (ITER_PROBE, half)]
+    return (t[0] - t[1]) / (ITER_PROBE - half)
+
+
+def iteration_report(phase: int, label: str, kernel: str, fn, cases, b, calls: int = 5) -> None:
+    """ms an iteration against its bound, for each (split name, solver,
+    operator) in ``cases``."""
+    parts = []
+    for name, solver, K in cases:
+        ms = per_iteration_ms(fn, solver, b, calls)
+        ac = solver.ac_inv if kernel == "K3" and solver.use_coarse else None
+        bd = iteration_bound(kernel, K, b.shape[0] if b.ndim == 3 else 1, ac)
+        parts.append(f"{name} ({len(K.offsets)} planes, {K.n_rest} remainder entries) "
+                     f"{ms:.4f} ms an iteration, bound {bd:.4f} ({100 * bd / ms:.1f} %)")
+    print(f"[{phase} iteration] {kernel} {label}: " + "; ".join(parts))
+
+
+def tpufem_split(problem) -> tuple:
+    """A grid-path Stokes problem's viscous, pressure, Gdx and Gdy operators
+    in tpufem's split (its streamed ``rest_target=128`` from 360,000 nodes
+    and its remainder caps): the split the kernels applied before they got
+    the card's (``GridOperator.dense_split``)."""
+    mesh, bnd = problem.mesh, problem.boundary
+    ns, dtype, dev = problem.visc_solver.K.ns, problem.dtype, problem.device
+    ke = assembly.element_stiffness(mesh)
+    owner = owner_map(mesh.n_nodes, bnd.masters, bnd.slaves)
+    merged = dataclasses.replace(mesh, tris=owner[mesh.tris].astype(np.int32))
+
+    def split(csr, streamed):
+        if streamed and mesh.n_nodes >= STREAMED_NODES:
+            try:
+                return GridOperator.build(csr, ns, dtype=dtype, rest_target=128, device=dev)
+            except GridDecompositionError:
+                pass
+        return GridOperator.build(csr, ns, dtype=dtype, device=dev)
+
+    dx, dy = calculus.divergence_csr_operators(mesh)
+    return (split(assembly.assemble_csr(mesh, ke), True),
+            split(assembly.assemble_csr(merged, ke), True), split(dx, False), split(dy, False))
+
+
+def grid_iterations(problem, old_ops, dev) -> None:
+    """Phase 8's ms an iteration of K2 and K3 (f32, bf16 coarse inverse) on
+    ``problem``'s split and on tpufem's (``old_ops``)."""
+    rng = np.random.default_rng(8)
+    ns = problem.visc_solver.K.ns
+    visc, pres = problem.visc_solver, problem.pressure_solver
+    b2 = torch.as_tensor(rng.standard_normal((2, ns, ns)), dtype=torch.float32, device=dev)
+    iteration_report(8, f"f32 at {problem.mesh.n_nodes} nodes", "K2", grid_cg.viscous_cg,
+                     [("card split", visc, visc.K),
+                      ("tpufem split", dataclasses.replace(visc, K=old_ops[0]), old_ops[0])], b2)
+    p1 = k3_cast(pres, torch.float32, pres.ac_inv.dtype)
+    p0 = dataclasses.replace(p1, K=old_ops[1])
+    b = torch.as_tensor(rng.standard_normal((ns, ns)), dtype=torch.float32, device=dev) * p1.act_grid
+    iteration_report(8, f"f32 coarse {str(p1.ac_inv.dtype)[6:]} at {problem.mesh.n_nodes} nodes",
+                     "K3", grid_cg.pressure_cg,
+                     [("card split", p1, p1.K), ("tpufem split", p0, old_ops[1])], b)
+
+
+def phase_grid_kernels(dev, big_problem, old_ops) -> dict:
     small = scale_problem(dev, 20, 24, cg_coarse_nodes=64)
     check(small.pressure_solver.block == 3 and small.pressure_solver.n_blocks == 7,
           "n_side=20 with cg_coarse_nodes=64 gives ragged 3×3 blocks")
     check_grid_kernels("n_side=20", small, dev, calls=20, plain_calls=5)
-    return check_grid_kernels(f"{big_problem.mesh.n_nodes} nodes", big_problem, dev,
-                              calls=5, plain_calls=2)
+    out = check_grid_kernels(f"{big_problem.mesh.n_nodes} nodes", big_problem, dev,
+                             calls=5, plain_calls=2)
+    grid_iterations(big_problem, old_ops, dev)
+    return out
 
 
 def phase_scale_main_path(problem, build_s: float, steps: int = SCALE_STEPS):
@@ -565,9 +705,10 @@ def phase_scale_main_path(problem, build_s: float, steps: int = SCALE_STEPS):
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"{k} is finite")
     phys = bench_large.physics_report(problem, state, metrics, steps)  # raises on a failed gate
-    planes = (len(problem.visc_solver.K.offsets), len(problem.pressure_solver.K.offsets))
-    print(f"[9 scale main path] {problem.mesh.n_nodes} nodes ({planes[0]} viscous and "
-          f"{planes[1]} pressure planes), {steps}+{steps} steps: build {build_s:.1f} s, cold "
+    Kv, Kp = problem.visc_solver.K, problem.pressure_solver.K
+    print(f"[9 scale main path] {problem.mesh.n_nodes} nodes ({len(Kv.offsets)} viscous planes "
+          f"and {Kv.n_rest} remainder entries, {len(Kp.offsets)} pressure planes and "
+          f"{Kp.n_rest}), {steps}+{steps} steps: build {build_s:.1f} s, cold "
           f"{cold:.2f} steps/s, warm {warm:.2f} steps/s; launches {launches}; mean iterations "
           f"per solve {iters}; {json.dumps(phys)}")
     return launches, {"cold": cold, "warm": warm, "state": state2}
@@ -626,6 +767,8 @@ K5_P_RTOL = {(torch.float64, 0.0): 1e-7, (torch.float64, 1e-5): 1e-4,
 def phase_k5_build(seconds: float) -> None:
     print(f"[17 build] K5 ({gs.library_path().name}, built in the {seconds:.2f} s parallel build "
           f"of phase 2): {ptxas_report(gs.library_path())}")
+    for line in instance_report(gs.library_path(), gs.blocks_per_sm()):
+        print(f"[17 build]   {line}")
 
 
 def with_k5(problem, k: int = 1):
@@ -685,7 +828,7 @@ def k5_bound(step, args, iters_v: int, iters_p: int) -> dict:
 
 
 def check_k5_call(label: str, step, args, rtol: float, p_rtol: float, calls: int,
-                  plain_calls: int) -> dict:
+                  plain_calls: int, phase: int = 18) -> dict:
     """One K5 call against its plain version: two launches bit-equal,
     u/u*/metrics within ``rtol`` and p/p2 within ``p_rtol`` (relative L2);
     prints the case and returns its numbers."""
@@ -701,7 +844,7 @@ def check_k5_call(label: str, step, args, rtol: float, p_rtol: float, calls: int
     ms = solve_timed_ms(lambda s, a, _: gs.grid_step(s, *a), step, args, None, calls)
     plain_ms = solve_timed_ms(lambda s, a, _: gs.grid_step_ref(s, *a), step, args, None,
                               plain_calls)
-    print(f"[18 kernel] K5 {label}: rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[{phase} kernel] K5 {label}: rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (<= {rtol:g}, p/p2 <= {p_rtol:g}), iterations viscous/pressure kernel "
           f"{it[0]}/{it[1]} plain {it[2]}/{it[3]}, ms per call kernel {ms:.3f} plain "
           f"{plain_ms:.3f}, repeat bit-equal {same}")
@@ -753,11 +896,46 @@ def check_k5_problem(label: str, problem, warm_steps: int, calls: int, plain_cal
     return out
 
 
-def phase_k5_kernel(dev, big) -> dict:
+def k5_pressure_iteration_ms(step, args, calls: int = 5) -> float:
+    """ms a pressure iteration of K5 (K = 1): calls with 2 viscous and
+    ITER_PROBE, then ITER_PROBE/2, pressure iterations a solve, the
+    difference over the two solves a step."""
+    half = ITER_PROBE // 2
+    s = dataclasses.replace(step, steps_per_call=1,
+                            visc=dataclasses.replace(step.visc, iters=2, tol=0.0))
+    t = [solve_timed_ms(lambda st, a, _: gs.grid_step(st, *a),
+                        dataclasses.replace(s, pressure=dataclasses.replace(
+                            s.pressure, iters=k, tol=0.0)), args, None, calls)
+         for k in (ITER_PROBE, half)]
+    return (t[0] - t[1]) / (2 * (ITER_PROBE - half))
+
+
+def k5_iterations(problem, old_ops) -> None:
+    """Phase 18's ms a pressure iteration of K5 (f32, the problem's coarse
+    inverse) on the card's split and on tpufem's (``old_ops``)."""
+    state, _ = stokes.run(problem, steps=2)
+    step = problem.grid_step
+    args = k5_state(step, state, torch.float32)
+    old = dataclasses.replace(step, visc=dataclasses.replace(step.visc, K=old_ops[0]),
+                              pressure=dataclasses.replace(step.pressure, K=old_ops[1]),
+                              Gdx=old_ops[2], Gdy=old_ops[3])
+    parts = []
+    for name, s in (("card split", step), ("tpufem split", old)):
+        ms = k5_pressure_iteration_ms(s, args)
+        bd = iteration_bound("K3", s.pressure.K, 1, s.pressure.ac_inv)
+        parts.append(f"{name} ({len(s.pressure.K.offsets)} pressure planes, "
+                     f"{s.pressure.K.n_rest} remainder entries; Gdx {len(s.Gdx.offsets)} planes) "
+                     f"{ms:.4f} ms a pressure iteration, bound {bd:.4f} ({100 * bd / ms:.1f} %)")
+    print(f"[18 iteration] K5 f32 at {problem.mesh.n_nodes} nodes: " + "; ".join(parts))
+
+
+def phase_k5_kernel(dev, big, old_ops) -> dict:
     small = with_k5(scale_problem(dev, 20, 24, cg_coarse_nodes=64))
     check(small.pressure_solver.block == 3, "n_side=20 with 64 coarse nodes: ragged 3×3 blocks")
     check_k5_problem("n_side=20", small, 3, calls=20, plain_calls=2)
-    return check_k5_problem(f"{big.mesh.n_nodes} nodes", big, 20, calls=10, plain_calls=1)
+    out = check_k5_problem(f"{big.mesh.n_nodes} nodes", big, 20, calls=10, plain_calls=1)
+    k5_iterations(big, old_ops)
+    return out
 
 
 def phase_k5_main_path(k5_problems: dict, unfused, unfused_numbers: dict,
@@ -844,40 +1022,67 @@ def phase_k5_tracers(dev, steps: int = TRACER_STEPS) -> None:
           f"max|u| {float(metrics['max_u'].max()):.4f}, captured {frac:.4f}")
 
 
-def phase_gridify(dev, steps: int = GRIDIFY_STEPS) -> None:
-    """A compacted (not grid-numbered) mesh through explicit grid storage:
-    renumbered on the host, then the unfused grid path and K5."""
-    mesh = generate_annulus_mesh(*GRIDIFY_MESH, pad_hole=False)
+def k5_beside_unfused(label: str, mesh, steps: int, gate: str) -> None:
+    """``mesh`` through explicit grid storage (renumbered on the host if it
+    is not grid-numbered), the unfused grid path and then K5 (K = 1):
+    ``steps`` cold steps from rest and ``steps`` warm, steps/s of both,
+    tpufem's ``gate``; then K5 against its plain version on the K5 problem."""
+    rates = {}
     for k in (0, 1):
         t0 = time.perf_counter()
         cfg = bench_large.bench_config(n_nodes=mesh.n_nodes, storage="grid", grid_steps_per_call=k)
-        problem = stokes.StokesProblem.build(mesh, cfg, device=dev)
+        problem = stokes.StokesProblem.build(mesh, cfg, device=torch.device("cuda", 0))
         build_s = time.perf_counter() - t0
         g = problem.gridified
-        check(g is not None and problem.mesh.n_nodes == g.ns ** 2, "the mesh was renumbered")
+        check(problem.mesh.n_nodes == (g.ns ** 2 if g is not None else mesh.n_nodes),
+              "the grid storage holds N = ns² nodes")
         check((problem.grid_step is not None) == (k > 0), f"K5 attached iff K = {k} > 0")
         zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = stokes.run(problem, steps=steps)
-        torch.cuda.synchronize()
-        rate = steps / (time.perf_counter() - t0)
+        cold, state, metrics, warm, _ = bench_large.run_problem(problem, steps)
         launches = launch_counts()
-        want = {"K1": 0, "K2": 0 if k else steps, "K3": 0 if k else 2 * steps, "K4": 0,
-                "K5": steps if k else 0, "K6": 0}
+        want = {"K1": 0, "K2": 0 if k else 2 * steps, "K3": 0 if k else 4 * steps, "K4": 0,
+                "K5": 2 * steps if k else 0, "K6": 0}
         check(launches == want, f"launches {launches} (want {want})")
-        phys = bench_large.physics_report(problem, state, metrics, steps, gate="imported")
-        u = g.pull(state["u"].double().cpu().numpy())
-        check(u.shape == (mesh.n_nodes, 2), "pulled back to the input's nodes")
-        planes = (len(problem.visc_solver.K.offsets), len(problem.pressure_solver.K.offsets))
-        print(f"[22 gridify] {mesh.n_nodes} nodes renumbered onto {g.ns}x{g.ns} ({planes[0]} "
-              f"viscous, {planes[1]} pressure planes), K = {k}: build {build_s:.1f} s, {steps} "
-              f"steps from rest at {rate:.2f} steps/s; launches {launches}; {json.dumps(phys)}")
+        phys = bench_large.physics_report(problem, state, metrics, steps, gate=gate)
+        if g is not None:
+            u = g.pull(state["u"].double().cpu().numpy())
+            check(u.shape == (mesh.n_nodes, 2), "pulled back to the input's nodes")
+        Kv, Kp = problem.visc_solver.K, problem.pressure_solver.K
+        rates[k] = warm
+        where = f"renumbered onto {g.ns}x{g.ns}" if g is not None else "grid-numbered"
+        print(f"[22 {label}] {mesh.n_nodes} nodes {where} ({len(Kv.offsets)} viscous planes and "
+              f"{Kv.n_rest} remainder entries, {len(Kp.offsets)} pressure planes and {Kp.n_rest}), "
+              f"{'K5' if k else 'unfused'}: build {build_s:.1f} s, {steps} steps from rest at "
+              f"{cold:.2f} steps/s, {steps} more at {warm:.2f}; launches {launches}; "
+              f"{json.dumps(phys)}")
+    print(f"[22 {label}] warm steps/s K5 {rates[1]:.2f} against unfused {rates[0]:.2f} "
+          f"({rates[1] / rates[0]:.3f}x)")
+    state, _ = stokes.run(problem, steps=3)
+    step = problem.grid_step
+    for dtype in (torch.float32, torch.float64):
+        coarse = step.pressure.ac_inv.dtype if dtype == torch.float32 else torch.float64
+        s = k5_cast(step, dtype, coarse)
+        s = dataclasses.replace(s, visc=dataclasses.replace(s.visc, tol=1e-5),
+                                pressure=dataclasses.replace(s.pressure, tol=1e-5))
+        check_k5_call(f"{str(dtype)[6:]} tol 1e-5 at {label}", s, k5_state(step, state, dtype),
+                      GRID_RTOL[(dtype, 1e-5)], K5_P_RTOL[(dtype, 1e-5)], calls=5, plain_calls=1,
+                      phase=22)
+
+
+def phase_gridify(dev, steps: int = GRIDIFY_STEPS) -> None:
+    """A compacted (not grid-numbered) mesh, renumbered on the host, and a
+    160,000-node pad_hole mesh: K5 beside the unfused grid path."""
+    k5_beside_unfused("gridify", generate_annulus_mesh(*GRIDIFY_MESH, pad_hole=False), steps,
+                      "imported")
+    k5_beside_unfused("160k", generate_annulus_mesh(*MID_MESH, pad_hole=True), steps, "stokes")
 
 
 def phase_ns_build(seconds: float) -> None:
+    blocks = grid_cg.blocks_per_sm()
     print(f"[12 build] K4 ({grid_cg.library_path().name}, built in the {seconds:.2f} s parallel "
           f"build of phase 2): {ptxas_report(grid_cg.library_path(), 'ns_bicgstab')}")
+    for line in instance_report(grid_cg.library_path(), blocks, "ns_bicgstab"):
+        print(f"[12 build]   {line}")
 
 
 def ns_problem(dev, n_side: int, n_circle: int, precision: str = "f32", storage: str = "grid",
@@ -950,6 +1155,29 @@ def check_ns_pressure(label: str, problem, calls: int, plain_calls: int) -> None
                        grid_cg.pressure_cg, grid_cg.pressure_cg_ref, solver, b, calls, plain_calls)
 
 
+def ns_iterations(problem) -> None:
+    """Phase 13's ms an iteration of K3 on the NS pressure operator (the
+    step's f32 instance) in the card's split and in tpufem's, and of K4."""
+    pres = problem.pressure_solver
+    mesh, ns, dev = problem.mesh, pres.K.ns, problem.device
+    kp = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=False))
+    old = GridOperator.build(kp.astype(pres.K.dtype), ns, dtype=pres.K.dtype, device=dev)
+    rng = np.random.default_rng(13)
+    b = torch.as_tensor(rng.standard_normal((ns, ns)), dtype=pres.K.dtype, device=dev)
+    b = b * pres.act_grid
+    iteration_report(13, f"NS pressure at {mesh.n_nodes} nodes", "K3", grid_cg.pressure_cg,
+                     [("card split", pres, pres.K),
+                      ("tpufem split", dataclasses.replace(pres, K=old), old)], b)
+    op, mask, invd, u, _ = ns_operator(problem, torch.float32)
+
+    def k4(s, b, x0, it=None):
+        return grid_cg.ns_bicgstab(s, op, mask, invd, b, x0, it)
+
+    solver = dataclasses.replace(problem.vel_solver_grid, iters_count=None)
+    b2 = torch.as_tensor(rng.standard_normal(tuple(u.shape)), dtype=torch.float32, device=dev)
+    iteration_report(13, f"at {mesh.n_nodes} nodes", "K4", k4, [("refill split", solver, op)], b2)
+
+
 def phase_ns_kernel(dev, big) -> dict:
     # 64 coarse nodes give ragged 3×3 blocks at n_side=20.  With the default
     # 2048 the coarse space is the whole grid (block 1), the preconditioner
@@ -962,7 +1190,9 @@ def phase_ns_kernel(dev, big) -> dict:
     check_ns_kernel("n_side=20", small, calls=20, plain_calls=5)
     check_ns_pressure("n_side=20", small, calls=20, plain_calls=5)
     check_ns_pressure(f"{big.mesh.n_nodes} nodes", big, calls=5, plain_calls=2)
-    return check_ns_kernel(f"{big.mesh.n_nodes} nodes", big, calls=20, plain_calls=2)
+    out = check_ns_kernel(f"{big.mesh.n_nodes} nodes", big, calls=20, plain_calls=2)
+    ns_iterations(big)
+    return out
 
 
 def phase_ns_main_path(problem, build_s: float, steps: int = NS_STEPS) -> dict:
@@ -1343,7 +1573,12 @@ def main() -> None:
     timed(6, phase_dye, dev, bench_mesh("mesh.1", fallback=(20, 24)))
     timed(7, phase_grid_build, build_s)
     big, big_build_s = built(*SCALE_MESH, scale_problem)
-    grid_main = timed(8, phase_grid_kernels, dev, big)
+    t0 = time.perf_counter()
+    old_ops = tpufem_split(big)
+    print(f"[8 split] {big.mesh.n_nodes} nodes, tpufem's split built in "
+          f"{time.perf_counter() - t0:.1f} s: viscous, pressure, Gdx, Gdy planes "
+          f"{[len(K.offsets) for K in old_ops]}, remainder entries {[K.n_rest for K in old_ops]}")
+    grid_main = timed(8, phase_grid_kernels, dev, big, old_ops)
     grid_launches, unfused = timed(9, phase_scale_main_path, big, big_build_s)
     timed(10, phase_scale_parity, dev)
     timed(11, phase_scale_tracers, dev)
@@ -1352,13 +1587,13 @@ def main() -> None:
     k5_problems[4] = dataclasses.replace(
         k5_problems[1], config=dataclasses.replace(k5_problems[1].config, grid_steps_per_call=4),
         grid_step=dataclasses.replace(k5_problems[1].grid_step, steps_per_call=4))
-    k5_main = timed(18, phase_k5_kernel, dev, k5_problems[1])
+    k5_main = timed(18, phase_k5_kernel, dev, k5_problems[1], old_ops)
     k5_launches = timed(19, phase_k5_main_path, k5_problems, big, unfused)
     timed(20, phase_k5_parity, dev)
     timed(21, phase_k5_tracers, dev)
     timed(22, phase_gridify, dev)
     k6_main, k6_launches = sharded_phases([dev] * SHARDS, big, build_s)
-    del big, k5_problems, unfused
+    del big, k5_problems, unfused, old_ops
     torch.cuda.empty_cache()
     timed(12, phase_ns_build, build_s)
     ns_big, ns_build_s = built(*SCALE_MESH, ns_problem)

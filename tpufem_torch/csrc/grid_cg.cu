@@ -35,24 +35,37 @@
 // non-uniform exit would deadlock them).  Partials alternate between two
 // slots, so no block overwrites a slot another block may still read.
 //
-// What bounds it on an H100 (3.35 TB/s HBM, 50 MB L2): the operator planes,
-// n_off·N·4 B in f32 per K-apply, plus the CG vectors' passes.  K2 applies K
-// once per iteration (both columns share one read of the planes), K3 three
-// times (one in CG, two in the preconditioner).  At N = 1,048,576 the split
-// has 20 viscous and 26 pressure planes (84 and 109 MB, beyond L2), so an
-// iteration moves ~190 MB in K2 and ~480 MB in K3: 56 and 142 µs at the HBM
-// peak.  Below ~10⁵ nodes the planes sit in L2 and the grid syncs dominate:
-// K2 has 3 and K3 11 per iteration, a few µs each.  K4 applies A twice per
-// iteration, both columns sharing each read of the planes, and makes five
-// vector passes (p̂; v and r̂·v; s, x and ŝ; t, t·t and t·s; x, r, r·r and
-// r̂·r) with one grid sync each: 2·n_off operator planes plus 54 vector planes
-// (two columns, mask and D⁻¹ counted per pass) an iteration, all HBM traffic
-// at 1,048,576 nodes.  There GridRefill picks 13 planes (560 remainder
-// entries; it passes no rest_target, so not the Stokes split): 80 planes of
-// 4.19 MB, 335.5 MB an iteration, 0.100 ms at 3.35 TB/s.  This first version is simple and correct: it reads each
-// plane once per apply with coalesced loads and keeps the CG vectors in
-// device memory; no TMA, no L2 residency control, no fused phases.
-//
+// What bounds it on an H100 (3.35 TB/s HBM, 50 MB L2): the bytes an
+// iteration moves.  Each apply streams the operator's planes once (n_off·N·4
+// B in f32, evict-first) plus its remainder (12 B an entry).  The operators
+// take the card's split (GridOperator.dense_split): at N = 1,048,576 the
+// viscous and pressure operators keep their 5 dense planes (the diagonal and
+// the four nearest neighbours, ~80 % filled); the other offsets, under 2 %
+// full (tpufem's split carried 20 and 26 planes there, for its TPU's one-hot
+// remainder), are ~8k remainder entries a lane search finds
+// (grid_common.cuh).
+//   K2 applies K once an iteration, both columns sharing each plane read, and
+//   makes 25 vector passes: 21 + 105 MB, 0.038 ms at the HBM peak (tpufem's
+//   20 planes: 189 MB, 0.056 ms).  Three grid syncs an iteration.
+//   K3 applies K three times an iteration (once in CG, twice in the
+//   preconditioner) in the fused iteration of grid_common.cuh: 4 grid syncs
+//   (11 unfused) and 17 vector passes (35 unfused): 3 × 21 MB of planes,
+//   71 MB of vectors and the 2 MB bf16 coarse inverse, 137 MB and 0.041 ms
+//   an iteration (tpufem's 26 planes: 400 MB, 0.119 ms fused; 480 MB and
+//   0.142 ms unfused).
+//   K4 applies A twice an iteration, both columns sharing each read of the
+//   planes, and makes five vector passes (p̂; v and r̂·v; s, x and ŝ; t, t·t
+//   and t·s; x, r, r·r and r̂·r) with one grid sync each: 2·n_off operator
+//   planes plus 54 vector planes (two columns, mask and D⁻¹ counted per pass)
+//   an iteration, all HBM traffic at 1,048,576 nodes.  There GridRefill picks
+//   13 planes (560 remainder entries; it passes no rest_target): 80 planes of
+//   4.19 MB, 335.5 MB an iteration, 0.100 ms at 3.35 TB/s.
+// Below ~10⁵ nodes the planes sit in L2 and the grid syncs dominate, a few µs
+// each.  K2 and K4 are first versions: each plane read once per apply with
+// coalesced loads, the vectors in device memory, no fused phases.  At f64 an
+// entry on the remainder is applied with tpufem's float32 rounding (below),
+// so the card's split rounds the couplings tpufem's split kept on planes.
+
 // Both kernels round to float where tpufem's do (preferred_element_type=
 // float32), at every field precision: each remainder source value and each
 // target's remainder sum (pallas_cg.py:388-392), and in K3 the row-block
@@ -88,8 +101,13 @@ struct ViscousArgs {
   int* iters_out;
 };
 
+// K2 and K4 were not redesigned.  Their register budgets are pinned to the
+// blocks per SM their first version ran (48 registers a thread for one
+// column; 64 for two, K4's float two-column form 128), so that a change in
+// the shared apply does not change their launch shape, and with it the order
+// of every grid-wide sum.
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) viscous_cg_kernel(ViscousArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, C == 1 ? 5 : 4) viscous_cg_kernel(ViscousArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   const int ns = a.op.ns, n = ns * ns;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -206,8 +224,17 @@ __global__ void __launch_bounds__(kThreads) viscous_cg_kernel(ViscousArgs<T> a) 
   if (tid == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
 }
 
+// Blocks per SM that K3's register budget is set for (__launch_bounds__):
+// 64 registers a thread in f32, 128 in f64.  The solve is latency-bound, so
+// warps in flight buy more than registers: at 1,048,576 nodes on an H100 an
+// f32 iteration took 0.180 ms at 2 blocks per SM (118 registers, no spills),
+// 0.148 at 3 (80) and 0.131 at 4 (64, a few spill stores).
+template <typename T>
+constexpr int kPressureMinBlocks = sizeof(T) == 4 ? 4 : 2;
+
 template <typename T, typename A>
-__global__ void __launch_bounds__(kThreads) pressure_cg_kernel(PressureArgs<T, A> a) {
+__global__ void __launch_bounds__(kThreads, kPressureMinBlocks<T>)
+    pressure_cg_kernel(const __grid_constant__ PressureArgs<T, A> a) {
   cg::grid_group grid = cg::this_grid();
   int slot = 0;
   pressure_solve(a, grid, slot);
@@ -242,7 +269,8 @@ struct NSArgs {
 };
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) ns_bicgstab_kernel(NSArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, C == 1 ? 5 : (sizeof(T) == 4 ? 2 : 4))
+    ns_bicgstab_kernel(NSArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   const int ns = a.op.ns, n = ns * ns;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -399,11 +427,11 @@ __global__ void __launch_bounds__(kThreads) ns_bicgstab_kernel(NSArgs<T> a) {
 
 template <typename T>
 int viscous_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns, const int* rowptr,
-               const int* lane, const int* src, const T* val, const T* mask, const T* invd,
-               const T* b, const T* x0, T* x, T* work, int C, double dt_nu, int iters, double tol,
-               int* iters_out, void* stream) {
+               const int* lane, const int* src, const T* val, int round_rest, const T* mask,
+               const T* invd, const T* b, const T* x0, T* x, T* work, int C, double dt_nu,
+               int iters, double tol, int* iters_out, void* stream) {
   ViscousArgs<T> a;
-  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val);
+  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val, round_rest);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)ns * ns;
   a.mask = mask;
@@ -427,14 +455,14 @@ int viscous_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns, 
 
 template <typename T, typename A>
 int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
-                const int* rowptr, const int* lane, const int* src, const T* val, const T* act,
-                const T* invd, const A* ac_inv, int blk, int nc, int use_coarse, const T* b,
-                const T* x0, T* x, T* work, float* fwork, double omega, int iters, double tol,
-                int* iters_out, void* stream) {
+                const int* rowptr, const int* lane, const int* src, const T* val, int round_rest,
+                const T* act, const T* invd, const A* ac_inv, int blk, int nc, int use_coarse,
+                const T* b, const T* x0, T* x, T* work, float* fwork, double omega, int iters,
+                double tol, int* iters_out, void* stream) {
   PressureArgs<T, A> a;
-  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val);
+  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val, round_rest);
   if (err != cudaSuccess) return (int)err;
-  if (blk < 1 || nc < 1 || (size_t)nc * blk < (size_t)ns) return (int)cudaErrorInvalidValue;
+  if (!coarse_ok(blk, nc, ns)) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)ns * ns;
   a.act = act;
   a.invd = invd;
@@ -442,16 +470,15 @@ int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
   a.b = b;
   a.x0 = x0;
   a.x = x;
-  a.r = work;
-  a.p = work + n;
-  a.q = work + 2 * n;
-  a.z1 = work + 3 * n;
-  a.z = work + 4 * n;
-  a.t = work + 5 * n;
+  a.r[0] = work;
+  a.r[1] = work + n;
+  a.p[0] = work + 2 * n;
+  a.p[1] = work + 3 * n;
+  a.q = work + 4 * n;
+  a.z = work + 5 * n;
   a.partials = work + 6 * n;
-  a.r1 = fwork;
-  a.rc = fwork + (size_t)nc * ns;
-  a.zc = fwork + (size_t)nc * ns + (size_t)nc * nc;
+  a.rc = fwork;
+  a.zc = fwork + (size_t)nc * nc;
   a.omega = (T)omega;
   a.tol = (T)tol;
   a.blk = blk;
@@ -464,11 +491,11 @@ int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
 
 template <typename T>
 int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns, const int* rowptr,
-                const int* lane, const int* src, const T* val, const T* mask, const T* invd,
-                const T* b, const T* x0, T* x, T* work, int C, int iters, double tol,
-                int* iters_out, void* stream) {
+                const int* lane, const int* src, const T* val, int round_rest, const T* mask,
+                const T* invd, const T* b, const T* x0, T* x, T* work, int C, int iters,
+                double tol, int* iters_out, void* stream) {
   NSArgs<T> a;
-  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val);
+  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val, round_rest);
   if (err != cudaSuccess) return (int)err;
   const size_t cn = (size_t)C * ns * ns;
   a.mask = mask;
@@ -496,34 +523,36 @@ int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns,
 
 }  // namespace
 
+// The operator as the C interface takes it: planes, shift tables, the
+// remainder and whether its sources and sums round to float.
+#define OP_PARAMS(T)                                                                    \
+  const T *diags, const int *rs, const int *ls, int n_off, int ns, const int *rowptr, \
+      const int *lane, const int *src, const T *val, int round_rest
+#define OP_ARGS diags, rs, ls, n_off, ns, rowptr, lane, src, val, round_rest
+
 #define VISCOUS_ENTRY(NAME, T)                                                                  \
-  extern "C" int NAME(const T* diags, const int* rs, const int* ls, int n_off, int ns,          \
-                      const int* rowptr, const int* lane, const int* src, const T* val,         \
-                      const T* mask, const T* invd, const T* b, const T* x0, T* x, T* work,     \
-                      int C, double dt_nu, int iters, double tol, int* iters_out,               \
-                      void* stream) {                                                           \
-    return viscous_cg<T>(diags, rs, ls, n_off, ns, rowptr, lane, src, val, mask, invd, b, x0,   \
-                         x, work, C, dt_nu, iters, tol, iters_out, stream);                     \
+  extern "C" int NAME(OP_PARAMS(T), const T* mask, const T* invd, const T* b, const T* x0,      \
+                      T* x, T* work, int C, double dt_nu, int iters, double tol,                \
+                      int* iters_out, void* stream) {                                           \
+    return viscous_cg<T>(OP_ARGS, mask, invd, b, x0, x, work, C, dt_nu, iters, tol, iters_out, \
+                         stream);                                                               \
   }
 
 #define PRESSURE_ENTRY(NAME, T, A)                                                              \
-  extern "C" int NAME(const T* diags, const int* rs, const int* ls, int n_off, int ns,          \
-                      const int* rowptr, const int* lane, const int* src, const T* val,         \
-                      const T* act, const T* invd, const A* ac_inv, int blk, int nc,            \
-                      int use_coarse, const T* b, const T* x0, T* x, T* work, float* fwork,     \
-                      double omega, int iters, double tol, int* iters_out, void* stream) {      \
-    return pressure_cg<T, A>(diags, rs, ls, n_off, ns, rowptr, lane, src, val, act, invd,       \
-                             ac_inv, blk, nc, use_coarse, b, x0, x, work, fwork, omega, iters,  \
-                             tol, iters_out, stream);                                           \
+  extern "C" int NAME(OP_PARAMS(T), const T* act, const T* invd, const A* ac_inv, int blk,      \
+                      int nc, int use_coarse, const T* b, const T* x0, T* x, T* work,           \
+                      float* fwork, double omega, int iters, double tol, int* iters_out,        \
+                      void* stream) {                                                           \
+    return pressure_cg<T, A>(OP_ARGS, act, invd, ac_inv, blk, nc, use_coarse, b, x0, x, work,  \
+                             fwork, omega, iters, tol, iters_out, stream);                      \
   }
 
 #define NS_ENTRY(NAME, T)                                                                       \
-  extern "C" int NAME(const T* diags, const int* rs, const int* ls, int n_off, int ns,          \
-                      const int* rowptr, const int* lane, const int* src, const T* val,         \
-                      const T* mask, const T* invd, const T* b, const T* x0, T* x, T* work,     \
-                      int C, int iters, double tol, int* iters_out, void* stream) {             \
-    return ns_bicgstab<T>(diags, rs, ls, n_off, ns, rowptr, lane, src, val, mask, invd, b, x0,  \
-                          x, work, C, iters, tol, iters_out, stream);                           \
+  extern "C" int NAME(OP_PARAMS(T), const T* mask, const T* invd, const T* b, const T* x0,      \
+                      T* x, T* work, int C, int iters, double tol, int* iters_out,              \
+                      void* stream) {                                                           \
+    return ns_bicgstab<T>(OP_ARGS, mask, invd, b, x0, x, work, C, iters, tol, iters_out,        \
+                          stream);                                                              \
   }
 
 VISCOUS_ENTRY(viscous_cg_f32, float)
@@ -534,3 +563,24 @@ PRESSURE_ENTRY(pressure_cg_f64, double, double)
 PRESSURE_ENTRY(pressure_cg_f64_bf16, double, __nv_bfloat16)
 NS_ENTRY(ns_bicgstab_f32, float)
 NS_ENTRY(ns_bicgstab_f64, double)
+
+// Blocks per SM of each instance, in the order viscous f32 C=1, C=2, f64
+// C=1, C=2; pressure f32, f32 with a bf16 coarse inverse, f64, f64 bf16;
+// BiCGStab f32 C=1, C=2, f64 C=1, C=2: writes `cap` of them, returns the count.
+extern "C" int grid_cg_blocks_per_sm(int* out, int cap) {
+  int v[12] = {0};
+  blocks_per_sm(viscous_cg_kernel<float, 1>, &v[0]);
+  blocks_per_sm(viscous_cg_kernel<float, 2>, &v[1]);
+  blocks_per_sm(viscous_cg_kernel<double, 1>, &v[2]);
+  blocks_per_sm(viscous_cg_kernel<double, 2>, &v[3]);
+  blocks_per_sm(pressure_cg_kernel<float, float>, &v[4]);
+  blocks_per_sm(pressure_cg_kernel<float, __nv_bfloat16>, &v[5]);
+  blocks_per_sm(pressure_cg_kernel<double, double>, &v[6]);
+  blocks_per_sm(pressure_cg_kernel<double, __nv_bfloat16>, &v[7]);
+  blocks_per_sm(ns_bicgstab_kernel<float, 1>, &v[8]);
+  blocks_per_sm(ns_bicgstab_kernel<float, 2>, &v[9]);
+  blocks_per_sm(ns_bicgstab_kernel<double, 1>, &v[10]);
+  blocks_per_sm(ns_bicgstab_kernel<double, 2>, &v[11]);
+  for (int i = 0; i < 12 && i < cap; ++i) out[i] = v[i];
+  return 12;
+}

@@ -3,6 +3,43 @@
 // apply, the deterministic grid-wide reductions, K3's pressure solve and its
 // two-level preconditioner, and the cooperative launch.  Each source that
 // includes it gets its own copy (anonymous namespace).
+//
+// The operator apply streams the offset planes with evict-first loads
+// (__ldcs), so that the vectors the gathers reuse stay in L2, and finds a
+// point's remainder entries by a binary search for its lane in its target
+// row (the COO list is sorted by target, stably, so a row's lanes ascend and
+// one target's entries sit together in input order): the same entries in
+// the same order as a scan of the whole row, so every sum is bit-equal to
+// the scan's, at a cost of log2(row length) loads instead of the row length.
+//
+// K3's pressure iteration (pressure_solve) is fused for this card: four grid
+// syncs an iteration instead of eleven, and 17 vector passes instead of 35
+// (z1, t, z2 and the projected q, z and p are computed where they are read,
+// never stored):
+//
+//   A  q = K p with p = (z − coef·act) + β·p_old computed at each source;
+//      p and q written; sums act·q, p·q, p·act                     [reduce]
+//   B  r = r_old − α(q − cq·act) and z1 = ω D⁻¹ r computed at each source;
+//      t = r − K z1 into a shared-memory tile of whole coarse aggregates
+//      and restricted there (row-block sums in row order, rounded to float;
+//      lane-block sums in float, lane order); r and x += α p written [sync]
+//   C  zc = A_c⁻¹ rc, one warp a coarse row                         [sync]
+//   D  z = z2 + ω D⁻¹ (r − K z2) with z2 = z1 + zc[agg]·act computed at
+//      each source; z written; sums act·z, r·z, r·act, r·r        [reduce]
+//
+// A, B and D walk the same tiles, units of whole coarse aggregates (a band
+// of blk rows and up to kLanes lanes), a slab of rows at a time; a source
+// value is computed at each source from device memory (its neighbours'
+// loads hit L1 and L2).  Staging each slab's sources and their halo in
+// shared memory once was measured and bought nothing: at 1,048,576 nodes on
+// an H100 an f32 iteration took 0.129 ms staged against 0.121 unstaged, at
+// 4 blocks per SM, whose register budget the staged form overran.  r and p
+// are double-buffered: a phase reads the old copy at its neighbours while it
+// writes the new one at its own points.  Per point every value is the same
+// floating-point expression as in the unfused form (and the plain version);
+// the dot products differ in order and in two places in form:
+// p·(q − cq·act) = p·q − cq·(p·act) and r·(z − coef·act) = r·z − coef·(r·act)
+// (p and r are projected, so p·act and r·act are roundoff).
 
 #pragma once
 
@@ -17,8 +54,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxOffsets = 64;
+constexpr int kUnrolled = 8;      // offsets whose loads K3's apply starts together
 constexpr int kMaxBlocks = 4096;  // partial-sum slots per reduction (the wrapper allocates them)
 constexpr int kSlots = 8;         // values reduced per phase, at most
+constexpr int kTile = 1024;       // K3's tiles: points a slab and lanes a unit, at most
+constexpr int kLanes = 256;       // K3's tiles: lanes a unit where blk ≤ kLanes
 
 struct Shifts {
   int rs[kMaxOffsets];  // source row offset, (dy mod ns)
@@ -29,11 +69,12 @@ template <typename T>
 struct GridOp {
   const T* __restrict__ diags;  // (n_off, ns, ns)
   const int* __restrict__ rowptr;  // (ns+1) remainder entries per target row
-  const int* __restrict__ lane;    // (m) target lane
+  const int* __restrict__ lane;    // (m) target lane, ascending within a row
   const int* __restrict__ src;     // (m) flat source index
   const T* __restrict__ val;       // (m)
   int n_off;
   int ns;
+  int round_rest;  // round each remainder source and sum to float (tpufem's kernels)
   Shifts sh;
 };
 
@@ -41,32 +82,69 @@ __device__ __forceinline__ float tsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double tsqrt(double v) { return sqrt(v); }
 template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
-// tpufem's kernels round the remainder products to float at every precision
+// tpufem's kernels round the remainder products to float at every precision;
+// the operators that mirror its split do too (GridOp::round_rest)
 __device__ __forceinline__ float round_f(float v) { return v; }
 __device__ __forceinline__ double round_f(double v) { return (double)(float)v; }
 
-// K·X at one point; src(j) gives the source value at flat index j.
+// y += the remainder's sum at (iy, ix), if the row has entries (each source
+// value and the sum rounded to float where op.round_rest); src(j, jy, jx)
+// gives the source value at flat index j.
 template <typename T, typename F>
-__device__ __forceinline__ T apply_at(const GridOp<T>& op, int iy, int ix, F src) {
+__device__ __forceinline__ void add_rest(const GridOp<T>& op, int iy, int ix, F src, T& y) {
+  const int k0 = op.rowptr[iy], k1 = op.rowptr[iy + 1];
+  if (k0 < k1) {
+    // the first entry of the row whose lane is not below ix
+    int lo = k0, hi = k1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (op.lane[mid] < ix) lo = mid + 1;
+      else hi = mid;
+    }
+    T rest = T(0);
+    for (int k = lo; k < k1 && op.lane[k] == ix; ++k) {
+      const int j = op.src[k];
+      const int jy = j / op.ns;
+      const T v = src(j, jy, j - jy * op.ns);
+      rest += op.val[k] * (op.round_rest ? round_f(v) : v);
+    }
+    y += op.round_rest ? round_f(rest) : rest;
+  }
+}
+
+// K·X at one point; src(j, jy, jx) gives the source value at flat index
+// j = jy·ns + jx.  Planes in offset order, then the point's remainder sum.
+// Unroll: start the loads of the first kUnrolled offsets together (K3's
+// phases; K2, K4 and K5's other phases keep the plain loop).
+template <bool Unroll, typename T, typename F>
+__device__ __forceinline__ T apply_yx(const GridOp<T>& op, int iy, int ix, F src) {
   const int ns = op.ns;
   const long long n = (long long)ns * ns;
   const int i = iy * ns + ix;
   T y = T(0);
-  for (int g = 0; g < op.n_off; ++g) {
+  auto plane = [&](int g) {
     int sy = iy + op.sh.rs[g];
     sy -= (sy >= ns) ? ns : 0;
     int sx = ix + op.sh.ls[g];
     sx -= (sx >= ns) ? ns : 0;
-    y += op.diags[g * n + i] * src(sy * ns + sx);
+    y += __ldcs(op.diags + g * n + i) * src(sy * ns + sx, sy, sx);
+  };
+  if constexpr (Unroll) {
+#pragma unroll
+    for (int g = 0; g < kUnrolled; ++g)
+      if (g < op.n_off) plane(g);
+    for (int g = kUnrolled; g < op.n_off; ++g) plane(g);
+  } else {
+    for (int g = 0; g < op.n_off; ++g) plane(g);
   }
-  const int k0 = op.rowptr[iy], k1 = op.rowptr[iy + 1];
-  if (k0 < k1) {
-    T rest = T(0);
-    for (int k = k0; k < k1; ++k)
-      if (op.lane[k] == ix) rest += op.val[k] * round_f(src(op.src[k]));
-    y += round_f(rest);
-  }
+  add_rest(op, iy, ix, src, y);
   return y;
+}
+
+// K·X at one point; src(j) gives the source value at flat index j.
+template <typename T, typename F>
+__device__ __forceinline__ T apply_at(const GridOp<T>& op, int iy, int ix, F src) {
+  return apply_yx<false>(op, iy, ix, [&](int j, int, int) { return src(j); });
 }
 
 template <typename T>
@@ -129,7 +207,6 @@ __device__ __forceinline__ void reduce_grid(cg::grid_group& grid, T (&v)[NV], T*
 
 // ---------------------------------------------------------------------------
 // K3: pressure solve (also run inside K5)
-// K3
 // ---------------------------------------------------------------------------
 
 template <typename A> struct CoarseAcc { using type = float; };
@@ -145,6 +222,15 @@ template <> __device__ __forceinline__ float coarse_rhs<__nv_bfloat16>(float v) 
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// ⌊v / d⌋ for 0 ≤ v < 2²² and d ≥ 1, from the float reciprocal inv ≈ 1/d,
+// corrected to the exact quotient.
+__device__ __forceinline__ int div_by(int v, int d, float inv) {
+  int q = __float2int_rz((float)v * inv);
+  q += ((q + 1) * d <= v) ? 1 : 0;
+  q -= (q * d > v) ? 1 : 0;
+  return q;
+}
+
 template <typename T, typename A>
 struct PressureArgs {
   GridOp<T> op;
@@ -156,13 +242,10 @@ struct PressureArgs {
   const T* b;  // the prepared rhs
   const T* x0;
   T* x;
-  T* r;
-  T* p;
+  T* r[2];  // double-buffered: a phase reads one at its neighbours, writes the other
+  T* p[2];
   T* q;
-  T* z1;
   T* z;
-  T* t;
-  float* r1;  // (nc, ns) row-block sums
   float* rc;  // (nc²) restricted vector
   float* zc;  // (nc²) coarse correction
   T* partials;
@@ -175,92 +258,231 @@ struct PressureArgs {
   int* iters_out;
 };
 
-// z ← project(precond(r)); returns r·z and r·r (grid syncs inside).
+// v[k] of a two-copy buffer, k ∈ {0, 1}, without indexing the argument struct
+template <typename P>
+__device__ __forceinline__ P pick(P const (&v)[2], int k) { return k ? v[1] : v[0]; }
+
+// Where the solve stands between phases: the scalars every block derived
+// from the same reductions, and which copy of r and p is current.
+template <typename T>
+struct PressureState {
+  T ww;           // act·act
+  T alpha, cq;    // r ← r − α(q − cq·act)  (init: r ← r − cr·act, cr in cq)
+  T coef, beta;   // p ← (z − coef·act) + β·p
+  T rz, rr;
+  int cur_r, cur_p;
+  bool first;     // no p yet: p = z − coef·act
+};
+
+// The block's shared memory for K3's restriction.
+template <typename T>
+struct Scratch {
+  T* slab;    // (kTile) a slab's t = r − K z1, then its row-block sums as float
+  T* colacc;  // (kTile) the unit's row-block sums so far
+};
+
+// K3's tiles: units of `per` whole coarse aggregates along the lanes (at
+// most kLanes lanes where blk ≤ kLanes) by one band of blk rows, walked a
+// slab of slab_rows rows (at most kTile points) at a time.
+struct Units {
+  int blk, nc, per, chunks, slab_rows, count;
+};
+
+__device__ __forceinline__ Units make_units(int blk, int nc) {
+  Units u;
+  u.blk = blk;
+  u.nc = nc;
+  u.per = max(1, min(kLanes / blk, kTile / (blk * blk)));
+  u.chunks = (nc + u.per - 1) / u.per;
+  u.slab_rows = max(1, kTile / (u.per * blk));
+  u.count = nc * u.chunks;
+  return u;
+}
+
+// For each point of unit k: body(pt, iy, ix, (K·S)(iy, ix), S(iy, ix)), pt
+// its index in the slab; after each slab, done(W, rows) (block-uniform,
+// between two block barriers).  S(j, jy, jx) is the source function.
+template <typename T, typename S, typename B, typename E>
+__device__ void apply_unit(const GridOp<T>& op, const Units& u, int k, S src, B body, E done) {
+  const int ns = op.ns;
+  const int cr = k / u.chunks, cl0 = (k - cr * u.chunks) * u.per;
+  const int y0 = cr * u.blk, y1 = min(ns, y0 + u.blk);
+  const int x0 = cl0 * u.blk, W = min(ns, min(u.nc, cl0 + u.per) * u.blk) - x0;
+  for (int ys = y0; ys < y1; ys += u.slab_rows) {
+    const int rows = min(u.slab_rows, y1 - ys);
+    for (int pt = threadIdx.x; pt < rows * W; pt += kThreads) {
+      const int dy = pt / W;
+      const int iy = ys + dy, ix = x0 + (pt - dy * W);
+      body(pt, iy, ix, apply_yx<true>(op, iy, ix, src), src(iy * ns + ix, iy, ix));
+    }
+    __syncthreads();
+    done(W, rows);
+    __syncthreads();
+  }
+}
+
+// Phase A: p = (z − coef·act) + β·p_old (into the other copy), q = K p;
+// sums act·q, p·q, p·act.
 template <typename T, typename A>
-__device__ void precond_project(const PressureArgs<T, A>& a, cg::grid_group& grid, int& slot,
-                                T ww, T& rz, T& rr) {
-  const int ns = a.op.ns, n = ns * ns;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  const T omega = a.omega;
-  T s[1] = {T(0)};
+__device__ void phase_a(const PressureArgs<T, A>& a, const PressureState<T>& s, const Units& u,
+                        T (&sums)[3]) {
+  const int ns = a.op.ns;
+  const T* __restrict__ act = a.act;
+  const T* z = a.z;
+  const T* pold = pick(a.p, s.cur_p);
+  T* pnew = pick(a.p, s.cur_p ^ 1);
+  const T coef = s.coef, beta = s.beta;
+  const bool first = s.first;
+  auto p_at = [&](int j, int, int) -> T {
+    const T zp = z[j] - coef * act[j];
+    return first ? zp : zp + beta * pold[j];
+  };
+  for (int k = blockIdx.x; k < u.count; k += gridDim.x)
+    apply_unit(a.op, u, k, p_at, [&](int, int iy, int ix, T qv, T pv) {
+      const int i = iy * ns + ix;
+      pnew[i] = pv;
+      a.q[i] = qv;
+      sums[0] += act[i] * qv;
+      sums[1] += pv * qv;
+      sums[2] += pv * act[i];
+    }, [](int, int) {});
+}
+
+// Phase B (two-level) or the Jacobi phase: r ← r − α(q − cq·act) (read r_old
+// at r[s.cur_r], written to the other copy), x += α·p unless `init`.
+// Two-level: t = r − K z1 restricted into rc.  Jacobi: z = D⁻¹ r and the sums
+// act·z, r·z, r·act, r·r into `sums`.
+template <typename T, typename A>
+__device__ void update_r(const PressureArgs<T, A>& a, const PressureState<T>& s, const Units& u,
+                         const Scratch<T>& sm, bool init, T (&sums)[4]) {
+  const int ns = a.op.ns;
+  const T* __restrict__ act = a.act;
+  const T* __restrict__ invd = a.invd;
+  const T* rold = pick(a.r, s.cur_r);
+  T* rnew = pick(a.r, s.cur_r ^ 1);
+  const T* q = a.q;
+  const T* pn = pick(a.p, s.cur_p);
+  const T alpha = s.alpha, cq = s.cq, omega = a.omega;
+  // init: r = r_tmp − cr·act (q unused); else r − α(q − cq·act)
+  auto r_at = [&](int j) -> T {
+    return init ? rold[j] - cq * act[j] : rold[j] - alpha * (q[j] - cq * act[j]);
+  };
   if (!a.use_coarse) {
-    for (int i = tid; i < n; i += stride) {
-      const T zv = a.invd[i] * a.r[i];
+    const int n = ns * ns;
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int i = tid; i < n; i += gridDim.x * blockDim.x) {
+      const T rv = r_at(i);
+      rnew[i] = rv;
+      if (!init) a.x[i] = a.x[i] + alpha * pn[i];
+      const T zv = invd[i] * rv;
       a.z[i] = zv;
-      s[0] += a.act[i] * zv;
+      sums[0] += act[i] * zv;
+      sums[1] += rv * zv;
+      sums[2] += rv * act[i];
+      sums[3] += rv * rv;
     }
-  } else {
-    const int blk = a.blk, nc = a.nc;
-    for (int i = tid; i < n; i += stride) a.z1[i] = omega * (a.invd[i] * a.r[i]);
-    grid.sync();
-    // t = r − K z1
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
-      const T* z1 = a.z1;
-      a.t[i] = a.r[i] - apply_at(a.op, iy, ix, [&](int j) { return z1[j]; });
-    }
-    grid.sync();
-    // restriction, rows then lanes, each rounded to float
-    for (int it = tid; it < nc * ns; it += stride) {
-      const int cr = it / ns, ix = it - cr * ns;
-      const int y1 = min(ns, (cr + 1) * blk);
-      T acc = T(0);
-      for (int y = cr * blk; y < y1; ++y) acc += a.t[y * ns + ix];
-      a.r1[it] = (float)acc;
-    }
-    grid.sync();
-    for (int it = tid; it < nc * nc; it += stride) {
-      const int cr = it / nc, cl = it - cr * nc;
-      const int x1 = min(ns, (cl + 1) * blk);
-      float acc = 0.f;  // float operands, float accumulation, lane order
-      for (int xx = cl * blk; xx < x1; ++xx) acc += a.r1[cr * ns + xx];
-      a.rc[it] = acc;
-    }
-    grid.sync();
-    // coarse product, one warp per row of ac_inv
-    {
-      using Acc = typename CoarseAcc<A>::type;
-      const int m = nc * nc;
-      const int lane = threadIdx.x & 31;
-      for (int row = tid >> 5; row < m; row += stride >> 5) {
-        Acc acc = Acc(0);
-        for (int j = lane; j < m; j += 32)
-          acc += coarse_val(a.ac_inv[(size_t)row * m + j]) * coarse_rhs<A>(a.rc[j]);
-        acc = warp_sum(acc);
-        if (lane == 0) a.zc[row] = (float)acc;
+    return;
+  }
+  const int blk = u.blk, nc = u.nc;
+  auto z1 = [&](int j, int, int) -> T { return omega * (invd[j] * r_at(j)); };
+  for (int k = blockIdx.x; k < u.count; k += gridDim.x) {
+    const int cr = k / u.chunks, cl0 = (k - cr * u.chunks) * u.per;
+    const int n_agg = min(nc, cl0 + u.per) - cl0;
+    for (int c = threadIdx.x; c < kTile; c += kThreads) sm.colacc[c] = T(0);
+    __syncthreads();
+    int width = 0;
+    apply_unit(a.op, u, k, z1, [&](int pt, int iy, int ix, T kz, T) {
+      const int i = iy * ns + ix;
+      const T rv = r_at(i);
+      rnew[i] = rv;
+      if (!init) a.x[i] = a.x[i] + alpha * pn[i];
+      sm.slab[pt] = rv - kz;
+    }, [&](int W, int rows) {
+      width = W;
+      for (int c = threadIdx.x; c < W; c += kThreads) {
+        T acc = sm.colacc[c];  // row order, in the field's precision
+        for (int r = 0; r < rows; ++r) acc += sm.slab[r * W + c];
+        sm.colacc[c] = acc;
       }
+    });
+    float* r1 = reinterpret_cast<float*>(sm.slab);  // the slab is free now
+    for (int c = threadIdx.x; c < width; c += kThreads) r1[c] = (float)sm.colacc[c];
+    __syncthreads();
+    for (int g = threadIdx.x; g < n_agg; g += kThreads) {
+      const int xa = g * blk, xb = min(width, xa + blk);
+      float acc = 0.f;  // float operands, float accumulation, lane order
+      for (int xx = xa; xx < xb; ++xx) acc += r1[xx];
+      a.rc[cr * nc + cl0 + g] = acc;
     }
-    grid.sync();
-    // z2 = z1 + P zc ⊙ act, into t (whose restriction is done)
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
-      a.t[i] = a.z1[i] + (T)a.zc[(iy / blk) * nc + ix / blk] * a.act[i];
-    }
-    grid.sync();
-    // z = z2 + ω D⁻¹ (r − K z2)
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
-      const T* z2 = a.t;
-      const T kz = apply_at(a.op, iy, ix, [&](int j) { return z2[j]; });
-      const T zv = z2[i] + omega * (a.invd[i] * (a.r[i] - kz));
+    __syncthreads();
+  }
+}
+
+// Phase C: zc = A_c⁻¹ rc, one warp a row of ac_inv.
+template <typename T, typename A>
+__device__ void coarse_solve(const PressureArgs<T, A>& a) {
+  using Acc = typename CoarseAcc<A>::type;
+  const int m = a.nc * a.nc;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (int row = tid >> 5; row < m; row += (gridDim.x * blockDim.x) >> 5) {
+    Acc acc = Acc(0);
+    for (int j = lane; j < m; j += 32)
+      acc += coarse_val(a.ac_inv[(size_t)row * m + j]) * coarse_rhs<A>(a.rc[j]);
+    acc = warp_sum(acc);
+    if (lane == 0) a.zc[row] = (float)acc;
+  }
+}
+
+// Phase D: z = z2 + ω D⁻¹ (r − K z2), z2 = ω D⁻¹ r + zc[agg]·act at each
+// source, r the current copy; sums act·z, r·z, r·act, r·r.
+template <typename T, typename A>
+__device__ void smooth_z(const PressureArgs<T, A>& a, const PressureState<T>& s, const Units& u,
+                         T (&sums)[4]) {
+  const int ns = a.op.ns;
+  const T* __restrict__ act = a.act;
+  const T* __restrict__ invd = a.invd;
+  const T* r = pick(a.r, s.cur_r);
+  const float* zc = a.zc;
+  const T omega = a.omega;
+  const int blk = u.blk, nc = u.nc;
+  const float inv_blk = 1.f / (float)blk;
+  auto z2 = [&](int j, int jy, int jx) -> T {
+    const T z1 = omega * (invd[j] * r[j]);
+    return z1 + (T)zc[div_by(jy, blk, inv_blk) * nc + div_by(jx, blk, inv_blk)] * act[j];
+  };
+  for (int k = blockIdx.x; k < u.count; k += gridDim.x)
+    apply_unit(a.op, u, k, z2, [&](int, int iy, int ix, T kz, T z2i) {
+      const int i = iy * ns + ix;
+      const T rv = r[i];
+      const T zv = z2i + omega * (invd[i] * (rv - kz));
       a.z[i] = zv;
-      s[0] += a.act[i] * zv;
-    }
+      sums[0] += act[i] * zv;
+      sums[1] += rv * zv;
+      sums[2] += rv * act[i];
+      sums[3] += rv * rv;
+    }, [](int, int) {});
+}
+
+// z ← precond(r) after r's update (phases B–D, or the Jacobi phase); then
+// coef, the new r·z' and r·r, where z' = z − coef·act.
+template <typename T, typename A>
+__device__ void precond_update(const PressureArgs<T, A>& a, cg::grid_group& grid, int& slot,
+                               PressureState<T>& s, const Units& u, const Scratch<T>& sm,
+                               bool init) {
+  T sums[4] = {T(0), T(0), T(0), T(0)};
+  update_r(a, s, u, sm, init, sums);
+  s.cur_r ^= 1;
+  if (a.use_coarse) {
+    grid.sync();
+    coarse_solve(a);
+    grid.sync();
+    smooth_z(a, s, u, sums);
   }
-  reduce_grid(grid, s, a.partials, slot);
-  const T coef = s[0] / ww;
-  T s2[2] = {T(0), T(0)};
-  for (int i = tid; i < n; i += stride) {
-    const T zv = a.z[i] - coef * a.act[i];
-    a.z[i] = zv;
-    const T rv = a.r[i];
-    s2[0] += rv * zv;
-    s2[1] += rv * rv;
-  }
-  reduce_grid(grid, s2, a.partials, slot);
-  rz = s2[0];
-  rr = s2[1];
+  reduce_grid(grid, sums, a.partials, slot);
+  s.coef = sums[0] / s.ww;
+  s.rz = sums[1] - s.coef * sums[2];
+  s.rr = sums[3];
 }
 
 // K3's whole solve: b is the prepared rhs, x0 the masked warm start; the
@@ -271,80 +493,71 @@ __device__ __forceinline__ void pressure_solve(const PressureArgs<T, A>& a, cg::
   const int ns = a.op.ns, n = ns * ns;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
+  const T* __restrict__ act = a.act;
+  __shared__ T slab[kTile];
+  __shared__ T colacc[kTile];
+  const Scratch<T> sm{slab, colacc};
+  const Units u = make_units(a.blk, a.nc);
+  PressureState<T> s;
 
   // act·act and act·b; x = x0
   T s0[2] = {T(0), T(0)};
   for (int i = tid; i < n; i += stride) {
-    const T ai = a.act[i];
+    const T ai = act[i];
     s0[0] += ai * ai;
     s0[1] += ai * a.b[i];
     a.x[i] = a.x0[i];
   }
   reduce_grid(grid, s0, a.partials, slot);
-  const T ww = s0[0];
-  const T cb = s0[1] / ww;
+  s.ww = s0[0];
+  const T cb = s0[1] / s.ww;
 
-  // b' = project(b); r = b' − K x0; sums b'·b', act·r
+  // b' = project(b); r = b' − K x0 (into r[0]); sums b'·b', act·r
   T s1[2] = {T(0), T(0)};
   for (int i = tid; i < n; i += stride) {
     const int iy = i / ns, ix = i - iy * ns;
-    const T bp = a.b[i] - cb * a.act[i];
+    const T bp = a.b[i] - cb * act[i];
     const T* x0 = a.x0;
     const T rv = bp - apply_at(a.op, iy, ix, [&](int j) { return x0[j]; });
-    a.r[i] = rv;
+    a.r[0][i] = rv;
     s1[0] += bp * bp;
-    s1[1] += a.act[i] * rv;
+    s1[1] += act[i] * rv;
   }
   reduce_grid(grid, s1, a.partials, slot);
   const T tl = a.tol * tmax(tsqrt(s1[0]), T(1e-30));
   const T atol2 = tl * tl;
-  const T cr = s1[1] / ww;
-  for (int i = tid; i < n; i += stride) a.r[i] = a.r[i] - cr * a.act[i];
-  T rz, rr;
-  precond_project(a, grid, slot, ww, rz, rr);
-  for (int i = tid; i < n; i += stride) a.p[i] = a.z[i];
-  grid.sync();
+  s.cur_r = 0;
+  s.cur_p = 0;
+  s.alpha = T(1);
+  s.cq = s1[1] / s.ww;  // r = r − cr·act, then z = precond(r)
+  precond_update(a, grid, slot, s, u, sm, true);
+  s.first = true;
+  s.beta = T(0);
 
   int k = 0;
-  while (k < a.iters && (a.tol <= T(0) || rr > atol2)) {
-    // q = project(K p); p·q
-    T s2[1] = {T(0)};
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
-      const T* p = a.p;
-      const T qv = apply_at(a.op, iy, ix, [&](int j) { return p[j]; });
-      a.q[i] = qv;
-      s2[0] += a.act[i] * qv;
-    }
+  while (k < a.iters && (a.tol <= T(0) || s.rr > atol2)) {
+    // A: p = (z − coef·act) + β·p_old, q = K p; cq and α
+    T s2[3] = {T(0), T(0), T(0)};
+    phase_a(a, s, u, s2);
     reduce_grid(grid, s2, a.partials, slot);
-    const T cq = s2[0] / ww;
-    T s3[1] = {T(0)};
-    for (int i = tid; i < n; i += stride) {
-      const T qv = a.q[i] - cq * a.act[i];
-      a.q[i] = qv;
-      s3[0] += a.p[i] * qv;
-    }
-    reduce_grid(grid, s3, a.partials, slot);
-    const T alpha = s3[0] != T(0) ? rz / s3[0] : T(0);
-    for (int i = tid; i < n; i += stride) {
-      a.x[i] = a.x[i] + alpha * a.p[i];
-      a.r[i] = a.r[i] - alpha * a.q[i];
-    }
-    T rz_new;
-    precond_project(a, grid, slot, ww, rz_new, rr);
-    const T beta = rz != T(0) ? rz_new / rz : T(0);
-    rz = rz_new;
-    for (int i = tid; i < n; i += stride) a.p[i] = a.z[i] + beta * a.p[i];
-    grid.sync();
+    s.cur_p ^= 1;
+    s.first = false;
+    s.cq = s2[0] / s.ww;
+    const T pq = s2[1] - s.cq * s2[2];  // p·(q − cq·act)
+    s.alpha = pq != T(0) ? s.rz / pq : T(0);
+    // B–D: r −= α(q − cq·act), x += α p, z = precond(r); coef, r·z', r·r
+    const T rz = s.rz;
+    precond_update(a, grid, slot, s, u, sm, false);
+    s.beta = rz != T(0) ? s.rz / rz : T(0);
     ++k;
   }
 
   // x = project(x)
   T s4[1] = {T(0)};
-  for (int i = tid; i < n; i += stride) s4[0] += a.act[i] * a.x[i];
+  for (int i = tid; i < n; i += stride) s4[0] += act[i] * a.x[i];
   reduce_grid(grid, s4, a.partials, slot);
-  const T cx = s4[0] / ww;
-  for (int i = tid; i < n; i += stride) a.x[i] = a.x[i] - cx * a.act[i];
+  const T cx = s4[0] / s.ww;
+  for (int i = tid; i < n; i += stride) a.x[i] = a.x[i] - cx * act[i];
   if (tid == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
 }
 
@@ -354,7 +567,8 @@ __device__ __forceinline__ void pressure_solve(const PressureArgs<T, A>& a, cg::
 
 template <typename T>
 cudaError_t make_op(GridOp<T>& op, const T* diags, const int* rs, const int* ls, int n_off,
-                    int ns, const int* rowptr, const int* lane, const int* src, const T* val) {
+                    int ns, const int* rowptr, const int* lane, const int* src, const T* val,
+                    int round_rest) {
   if (n_off < 1 || n_off > kMaxOffsets || ns < 1) return cudaErrorInvalidValue;
   op.diags = diags;
   op.rowptr = rowptr;
@@ -363,11 +577,23 @@ cudaError_t make_op(GridOp<T>& op, const T* diags, const int* rs, const int* ls,
   op.val = val;
   op.n_off = n_off;
   op.ns = ns;
+  op.round_rest = round_rest;
   for (int g = 0; g < n_off; ++g) {
     op.sh.rs[g] = rs[g];
     op.sh.ls[g] = ls[g];
   }
   return cudaSuccess;
+}
+
+// The coarse aggregation K3's tiles take: blocks of at most kTile lanes,
+// covering the grid.
+inline bool coarse_ok(int blk, int nc, int ns) {
+  return blk >= 1 && blk <= kTile && nc >= 1 && (size_t)nc * blk >= (size_t)ns;
+}
+
+template <typename Args>
+cudaError_t blocks_per_sm(void (*kernel)(Args), int* per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, 0);
 }
 
 // Launch `kernel` cooperatively on as many blocks as fit on the card at
@@ -382,8 +608,7 @@ cudaError_t launch_coop(void (*kernel)(Args), Args& args, int n, cudaStream_t st
   if (!coop) return cudaErrorNotSupported;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
+  if ((err = blocks_per_sm(kernel, &per_sm)) != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
   int blocks = per_sm * sms;
   blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;

@@ -40,11 +40,18 @@
 // early exits are uniform.  The arguments live in the kernel's parameter
 // space (__grid_constant__), so the operators' shift tables are read there.
 //
-// What bounds it on an H100 (3.35 TB/s HBM, 50 MB L2): the operator planes,
-// streamed once per apply: a viscous iteration reads the viscous planes once
-// for both columns, a pressure iteration the pressure planes three times (as
-// K3), a div or grad the Gdx/Gdy planes.  This first version is simple and
-// correct: no phase fusion beyond the column pass, vectors in device memory.
+// What bounds it on an H100 (3.35 TB/s HBM, 50 MB L2): the bytes each
+// phase moves, the operator planes streamed once per apply (evict-first).
+// The pressure solves run K3's fused iteration (grid_common.cuh: 4 grid
+// syncs and 17 vector passes an iteration, 137 MB and 0.041 ms at 1,048,576
+// nodes on the card's 5-plane split, against 480 MB and 0.142 ms unfused on
+// tpufem's 26 planes).  A viscous iteration reads the viscous planes once for
+// both columns (as K2), a div or grad the Gdx/Gdy planes; those phases are
+// not fused beyond the column pass.  All four operators take the card's
+// split (GridOperator.dense_split), so the remainders are small everywhere
+// and the lane search finds each point's entries (below 360k nodes and on
+// renumbered meshes tpufem's split left ~560 entries on each periodic row,
+// which the first version's row scan made every point read).
 
 #include "grid_common.cuh"
 
@@ -292,8 +299,14 @@ __device__ void viscous_solve(const StepArgs<T, A>& a, cg::grid_group& grid, int
   if (tid == 0 && a.iters_v_out) *a.iters_v_out += k[0] > k[1] ? k[0] : k[1];
 }
 
+// Blocks per SM that K5's register budget is set for (__launch_bounds__),
+// as K3's: 64 registers a thread in f32 (warm steps at 1,048,576 nodes on an
+// H100: 506 steps/s at 2 blocks per SM, 565 at 3, 653 at 4), 128 in f64.
+template <typename T>
+constexpr int kStepMinBlocks = sizeof(T) == 4 ? 4 : 2;
+
 template <typename T, typename A>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kStepMinBlocks<T>)
     grid_step_kernel(const __grid_constant__ StepArgs<T, A> a) {
   cg::grid_group grid = cg::this_grid();
   const int ns = a.visc.ns, n = ns * ns;
@@ -412,8 +425,10 @@ __global__ void __launch_bounds__(kThreads)
 
 #define OP_PARAMS(T, P)                                                            \
   const T *P##diags, const int *P##rs, const int *P##ls, int P##noff, int P##ns, \
-      const int *P##rowptr, const int *P##lane, const int *P##src, const T *P##val
-#define OP_ARGS(P) P##diags, P##rs, P##ls, P##noff, P##ns, P##rowptr, P##lane, P##src, P##val
+      const int *P##rowptr, const int *P##lane, const int *P##src, const T *P##val, \
+      int P##round
+#define OP_ARGS(P) \
+  P##diags, P##rs, P##ls, P##noff, P##ns, P##rowptr, P##lane, P##src, P##val, P##round
 
 template <typename T, typename A>
 int grid_step(OP_PARAMS(T, v_), OP_PARAMS(T, p_), OP_PARAMS(T, dx_), OP_PARAMS(T, dy_),
@@ -435,7 +450,7 @@ int grid_step(OP_PARAMS(T, v_), OP_PARAMS(T, p_), OP_PARAMS(T, dx_), OP_PARAMS(T
   if (p_ns != ns || dx_ns != ns || dy_ns != ns || n_steps < 1 || (pair_axis & ~1)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (use_coarse && (blk < 1 || nc < 1 || (size_t)nc * blk < (size_t)ns)) {
+  if (!coarse_ok(blk, nc, ns)) {  // K3's tiles are its aggregates, with or without the coarse level
     return (int)cudaErrorInvalidValue;
   }
   const size_t n = (size_t)ns * ns;
@@ -443,12 +458,12 @@ int grid_step(OP_PARAMS(T, v_), OP_PARAMS(T, p_), OP_PARAMS(T, dx_), OP_PARAMS(T
   pr.act = act;
   pr.invd = pinvd;
   pr.ac_inv = ac_inv;
-  pr.r = work;
-  pr.p = work + n;
-  pr.q = work + 2 * n;
-  pr.z1 = work + 3 * n;
-  pr.z = work + 4 * n;
-  pr.t = work + 5 * n;
+  pr.r[0] = work;
+  pr.r[1] = work + n;
+  pr.p[0] = work + 2 * n;
+  pr.p[1] = work + 3 * n;
+  pr.q = work + 4 * n;
+  pr.z = work + 5 * n;
   a.rhs = work + 6 * n;
   a.px0 = work + 7 * n;
   a.px = work + 8 * n;
@@ -461,9 +476,8 @@ int grid_step(OP_PARAMS(T, v_), OP_PARAMS(T, p_), OP_PARAMS(T, dx_), OP_PARAMS(T
   a.stage = work + 15 * n;
   a.d = work + 17 * n;
   pr.partials = work + 18 * n;
-  pr.r1 = fwork;
-  pr.rc = fwork + (size_t)nc * ns;
-  pr.zc = fwork + (size_t)nc * ns + (size_t)nc * nc;
+  pr.rc = fwork;
+  pr.zc = fwork + (size_t)nc * nc;
   pr.omega = (T)omega;
   pr.tol = (T)tol_p;
   pr.blk = blk;
@@ -530,3 +544,15 @@ STEP_ENTRY(grid_step_f32, float, float)
 STEP_ENTRY(grid_step_f32_bf16, float, __nv_bfloat16)
 STEP_ENTRY(grid_step_f64, double, double)
 STEP_ENTRY(grid_step_f64_bf16, double, __nv_bfloat16)
+
+// Blocks per SM of each instance, in the order f32, f32 with a bf16 coarse
+// inverse, f64, f64 bf16: writes `cap` of them, returns the count.
+extern "C" int grid_step_blocks_per_sm(int* out, int cap) {
+  int v[4] = {0};
+  blocks_per_sm(grid_step_kernel<float, float>, &v[0]);
+  blocks_per_sm(grid_step_kernel<float, __nv_bfloat16>, &v[1]);
+  blocks_per_sm(grid_step_kernel<double, double>, &v[2]);
+  blocks_per_sm(grid_step_kernel<double, __nv_bfloat16>, &v[3]);
+  for (int i = 0; i < 4 && i < cap; ++i) out[i] = v[i];
+  return 4;
+}

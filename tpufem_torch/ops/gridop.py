@@ -18,10 +18,14 @@ coupling).  The offset selection is tpufem's, argument for argument, so
 offsets, planes and coverage are array-equal to it.
 
 The remainder is a COO list sorted by target (row, lane) with CSR-style
-row pointers over the target rows: the kernels (``csrc/grid_cg.cu``) sum
-each target's entries in that order, with no atomics.  tpufem's one-hot
-remainder matrices exist because Mosaic cannot scatter scalars; the port
-has no use for them.
+row pointers over the target rows: the kernels (``csrc/grid_common.cuh``)
+find a point's entries by a binary search for its lane in its row and sum
+them in that order, with no atomics.  tpufem's one-hot remainder matrices
+exist because Mosaic cannot scatter scalars; the port has no use for them.
+
+:meth:`GridOperator.build` selects offsets as tpufem does, TPU memory caps
+included; :meth:`GridOperator.dense_split` is the split the card kernels
+apply, with those caps lifted.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+# tpufem streams its grid solvers from this many nodes (``stream_diags``),
+# taking its plane split from its TPU budgets; below it, its split is the
+# parity reference of the port's grid path
+STREAMED_NODES = 360_000
 
 
 class GridDecompositionError(ValueError):
@@ -50,6 +60,9 @@ class GridOperator:
     rest_src: torch.Tensor  # (m,) int32 flat source index jy·ns + jx
     rest_vals: torch.Tensor  # (m,)
     coverage: float  # share of the stored entries on the dense planes
+    # round32 applies to the remainder (tpufem's kernels round its sources and
+    # sums to float32); False for the card split from STREAMED_NODES up
+    rest_round32: bool = True
 
     @property
     def n(self) -> int:
@@ -69,7 +82,7 @@ class GridOperator:
 
     @classmethod
     def from_parts(cls, ns: int, offsets, diags, tgt, src, vals, coverage: float,
-                   dtype=None, device=None) -> "GridOperator":
+                   dtype=None, device=None, rest_round32: bool = True) -> "GridOperator":
         """From planes and a remainder given as flat (target, source, value)
         host arrays in any order; entries are sorted stably by target."""
         tgt = np.asarray(tgt, dtype=np.int64)
@@ -96,12 +109,14 @@ class GridOperator:
             rest_src=it(src, torch.int32),
             rest_vals=it(vals, diags.dtype),
             coverage=float(coverage),
+            rest_round32=rest_round32,
         )
 
     @classmethod
     def build(cls, op, ns: int, dtype=torch.float32, max_offsets: int = 24,
               min_fill: float = 0.02, rest_target: int | None = None,
-              rest_budget_bytes: int = 16 << 20, device=None) -> "GridOperator":
+              rest_budget_bytes: int | None = 16 << 20, nonzero: bool = False,
+              device=None) -> "GridOperator":
         """Decompose a CSR operator on an ns×ns grid numbering (host side).
 
         Offsets are taken in descending fill while above ``min_fill``·N,
@@ -110,19 +125,26 @@ class GridOperator:
         ``rest_target`` (tpufem passes 128 in its streamed regimes) keeps
         taking offsets, up to 64 planes, until the remainder is at most
         that.  The caps are tpufem's, including its TPU memory budgets, so
-        that both packages pick the same split."""
+        that both packages pick the same split; ``rest_budget_bytes=None``
+        lifts the remainder cap and ``nonzero=True`` drops the operator's
+        stored zeros before anything is counted and applies the remainder
+        in the field's precision (:meth:`dense_split`)."""
         n = op.shape[0]
         if n != ns * ns:
             raise GridDecompositionError(f"{n} nodes is not a {ns}×{ns} grid")
         rows = np.asarray(op.row_ids, dtype=np.int64)
         cols = np.asarray(op.indices, dtype=np.int64)
         data = op.data.detach().cpu().to(torch.float64).numpy()
+        if nonzero:
+            keep = data != 0
+            rows, cols, data = rows[keep], cols[keep], data[keep]
         iy, ix = np.divmod(rows, ns)
         jy, jx = np.divmod(cols, ns)
         key = (jy - iy) * ns + (jx - ix) % ns  # unique per (dy, s)
         uniq, counts = np.unique(key, return_counts=True)
         order = np.argsort(-counts)
-        rest_cap = min(max(4096, n // 8), max(512, int(rest_budget_bytes / (20 * ns))))
+        rest_cap = (float("inf") if rest_budget_bytes is None else
+                    min(max(4096, n // 8), max(512, int(rest_budget_bytes / (20 * ns)))))
         if rest_target is not None:
             rest_cap = min(rest_cap, int(rest_target))
             hard_max = 64
@@ -166,7 +188,39 @@ class GridOperator:
         return cls.from_parts(
             ns, offsets, np.stack(planes), rows[rest], cols[rest], data[rest],
             coverage=float(in_dense.mean()) if len(rows) else 1.0, dtype=dtype, device=device,
+            rest_round32=not nonzero,
         )
+
+    @classmethod
+    def dense_split(cls, op, ns: int, dtype=torch.float32, device=None) -> "GridOperator":
+        """The split the card kernels apply (K2, K3, K5): planes for the
+        offsets whose fill is ≥ 2 % of N (at most 24) and the diagonal,
+        everything else on the remainder.
+
+        tpufem's streamed ``rest_target=128`` and its remainder cap (20 B
+        an entry and row of a 16 MB VMEM budget) buy planes to shrink a
+        remainder that its TPU kernels hold as one-hot matrices; on the card
+        a remainder entry costs 12 bytes and a lane search, a plane 4·N
+        bytes, so neither applies.
+
+        From :data:`STREAMED_NODES` up it counts an offset's fill by its
+        nonzero entries and drops the stored zeros (``build``'s ``nonzero``):
+        the P1 stiffness stores a zero for each edge whose two opposite
+        angles are right angles, which fills the (±1, ±1) offsets of a
+        pad_hole mesh's raster, so counting entries makes four near-empty
+        planes.  Below that size tpufem's split is the parity reference,
+        and the split is tpufem's wherever its caps do not bind.
+
+        At f64, where this split moves an entry from a plane onto the
+        remainder below STREAMED_NODES (where tpufem's caps would have
+        bought a plane for it), the entry is applied with tpufem's float32
+        rounding of remainder sources and sums; from STREAMED_NODES up the
+        remainder is applied in the field's precision (``rest_round32``
+        False): tpufem's f64 runs CSR there, and rounding thousands of
+        entries to float32 would make an f64 grid solve an f32-accurate
+        one."""
+        return cls.build(op, ns, dtype=dtype, rest_budget_bytes=None,
+                         nonzero=op.shape[0] >= STREAMED_NODES, device=device)
 
     def astype(self, dtype) -> "GridOperator":
         return dataclasses.replace(self, diags=self.diags.to(dtype),
@@ -178,7 +232,9 @@ class GridOperator:
         ``round32``: round each source value and each target's sum to
         float32, as tpufem's whole-solve kernels do at every precision
         (their remainder products take ``preferred_element_type=float32``,
-        ``pallas_cg.py:388-392``); the solvers' plain versions use it."""
+        ``pallas_cg.py:388-392``), where the operator has ``rest_round32``;
+        the solvers' plain versions use it."""
+        round32 = round32 and self.rest_round32
         flat = X.reshape(*X.shape[:-2], -1)
         xs = flat[..., self.rest_src]
         if round32:

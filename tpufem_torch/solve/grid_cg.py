@@ -32,7 +32,9 @@ For each kernel there are three functions:
 The solves round to float32 where tpufem's kernels do, at every field
 precision: the TPU kernels take ``preferred_element_type=float32`` in the
 operator's remainder products (``pallas_cg.py:388-392``, so each remainder
-source value and each target's remainder sum is a float32 value) and in
+source value and each target's remainder sum is a float32 value; an
+operator without ``rest_round32``, the card split from 360,000 nodes where
+tpufem's f64 runs CSR, keeps its remainder in the field's precision) and in
 the two-level restriction and coarse products (``pallas_cg.py:1362``;
 there the lane-block stage takes float32 operands and accumulates in
 float32).  With a bfloat16 coarse inverse the restricted vector is rounded
@@ -71,10 +73,13 @@ _PRESSURE = {
 }
 _NS = {torch.float32: "ns_bicgstab_f32", torch.float64: "ns_bicgstab_f64"}
 _NS_PLANES = 7  # K4's work planes per column: r, r̂, p, v, p̂, ŝ, t
+_PRESSURE_PLANES = 6  # K3's work planes: r and p twice (read one, write the other), q, z
+_MAX_BLOCK = 1024  # K3's widest aggregation block (kTile in the source)
 _lib: ctypes.CDLL | None = None
 
 _vp, _int, _dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_OP_ARGS = [_vp, _vp, _vp, _int, _int, _vp, _vp, _vp, _vp]  # planes, shifts, remainder
+# planes, shift tables, remainder, its rounding to float32
+_OP_ARGS = [_vp, _vp, _vp, _int, _int, _vp, _vp, _vp, _vp, _int]
 _VISCOUS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _dbl, _int, _dbl, _vp, _vp]
 _PRESSURE_ARGTYPES = _OP_ARGS + [_vp] * 3 + [_int] * 3 + [_vp] * 5 + [_dbl, _int, _dbl, _vp, _vp]
 _NS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _int, _dbl, _vp, _vp]
@@ -101,6 +106,18 @@ def build() -> ctypes.CDLL:
 
 def library_path():
     return _nvcc.library_path(SOURCE)
+
+
+def blocks_per_sm() -> dict[str, int]:
+    """Blocks per SM of each kernel instance in the library, as the
+    cooperative launch finds them on the current card."""
+    names = [f"{k} {t}" for k, types in (
+        ("viscous_cg", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2")),
+        ("pressure_cg", ("f32", "f32 bf16", "f64", "f64 bf16")),
+        ("ns_bicgstab", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2"))) for t in types]
+    out = (ctypes.c_int * len(names))()
+    build().grid_cg_blocks_per_sm(out, len(names))
+    return dict(zip(names, out))
 
 
 def _dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -199,11 +216,13 @@ def viscous_cg_ref(solver: ViscousGridCG, b: torch.Tensor, x0: torch.Tensor,
 
 def _kernel_operator_args(K: GridOperator):
     """The operator as the C interface takes it: planes, host shift tables
-    (source row and lane offsets mod ns) and the remainder."""
+    (source row and lane offsets mod ns), the remainder and whether it
+    rounds to float32."""
     rs = (ctypes.c_int * len(K.offsets))(*[dy % K.ns for dy, _ in K.offsets])
     ls = (ctypes.c_int * len(K.offsets))(*[s % K.ns for _, s in K.offsets])
     return [K.diags.data_ptr(), rs, ls, len(K.offsets), K.ns, K.rest_rowptr.data_ptr(),
-            K.rest_lane.data_ptr(), K.rest_src.data_ptr(), K.rest_vals.data_ptr()]
+            K.rest_lane.data_ptr(), K.rest_src.data_ptr(), K.rest_vals.data_ptr(),
+            int(K.rest_round32)]
 
 
 def _check_planes(K: GridOperator, *planes: torch.Tensor) -> None:
@@ -485,6 +504,12 @@ def pressure_cg_ref(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
     return project(x)
 
 
+def _check_block(solver: PressureGridCG) -> None:
+    if solver.block > _MAX_BLOCK:
+        raise ValueError(f"K3 tiles the grid by aggregation blocks of at most {_MAX_BLOCK} lanes, "
+                         f"not {solver.block}: ask for more coarse nodes")
+
+
 def pressure_cg(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
                 iters_out: torch.Tensor | None = None) -> torch.Tensor:
     """K3 on (ns, ns) planes: the kernel on CUDA tensors, the plain version
@@ -500,12 +525,13 @@ def pressure_cg(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
     key = (b.dtype, solver.ac_inv.dtype)
     if key not in _PRESSURE:
         raise TypeError(f"K3 has no instance for fields {key[0]} with a {key[1]} coarse inverse")
+    _check_block(solver)
     lib = _lib or build()
     n, nc = K.n, solver.n_blocks
     b, x0 = b.contiguous(), x0.contiguous()
     x = torch.empty_like(b)
-    work = torch.empty(6 * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
-    fwork = torch.empty(nc * K.ns + 2 * nc * nc, dtype=torch.float32, device=b.device)
+    work = torch.empty(_PRESSURE_PLANES * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
+    fwork = torch.empty(2 * nc * nc, dtype=torch.float32, device=b.device)  # rc, zc
     _launch(getattr(lib, _PRESSURE[key]), b.device, *_kernel_operator_args(K),
             solver.act_grid.data_ptr(), solver.inv_diag_grid.data_ptr(),
             solver.ac_inv.contiguous().data_ptr(), solver.block, nc, int(solver.use_coarse),

@@ -82,6 +82,15 @@ def library_path():
     return _nvcc.library_path(SOURCE)
 
 
+def blocks_per_sm() -> dict[str, int]:
+    """Blocks per SM of each K5 instance, as the cooperative launch finds
+    them on the current card."""
+    names = ["grid_step f32", "grid_step f32 bf16", "grid_step f64", "grid_step f64 bf16"]
+    out = (ctypes.c_int * len(names))()
+    build().grid_step_blocks_per_sm(out, len(names))
+    return dict(zip(names, out))
+
+
 def steps_per_call(config) -> int:
     """K, the physics steps one K5 launch advances, from the configuration:
     0 (K5 off, the default), else ``grid_steps_per_call``, forced to 1 under
@@ -146,8 +155,8 @@ class GridStokesStep:
         return cls(
             visc=problem.visc_solver,
             pressure=problem.pressure_solver,
-            Gdx=GridOperator.build(dx_csr, ns, dtype=dtype, device=dev),
-            Gdy=GridOperator.build(dy_csr, ns, dtype=dtype, device=dev),
+            Gdx=GridOperator.dense_split(dx_csr, ns, dtype=dtype, device=dev),
+            Gdy=GridOperator.dense_split(dy_csr, ns, dtype=dtype, device=dev),
             wall_mask=nodes(b.walls),
             inner_mask=nodes(b.inner),
             inner_vals=nodes(b.inner, problem.inner_values.cpu().double().numpy(), (n, 2)),
@@ -295,13 +304,14 @@ def grid_step(step: GridStokesStep, u: torch.Tensor, us0: torch.Tensor, p0: torc
         raise TypeError(f"K5 has no instance for fields {key[0]} with a {key[1]} coarse inverse")
     for op in (pres.K, step.Gdx, step.Gdy):
         grid_cg._check_planes(op, u)
+    grid_cg._check_block(pres)
     lib = _lib or build()
     n, nc, pl = K.n, pres.n_blocks, step.planes
     u, us0, p0, p20 = (t.contiguous() for t in (u, us0, p0, p20))
     outs = [torch.empty_like(u), torch.empty_like(u), torch.empty_like(p0), torch.empty_like(p0),
             torch.empty((step.steps_per_call, 3), dtype=u.dtype, device=u.device)]
     work = torch.empty(_WORK_PLANES * n + grid_cg._PARTIAL_VALUES, dtype=u.dtype, device=u.device)
-    fwork = torch.empty(nc * K.ns + 2 * nc * nc, dtype=torch.float32, device=u.device)
+    fwork = torch.empty(2 * nc * nc, dtype=torch.float32, device=u.device)
     _launch(getattr(lib, _ENTRY[key]), u.device,
             *_kernel_operator_args(K), *_kernel_operator_args(pres.K),
             *_kernel_operator_args(step.Gdx), *_kernel_operator_args(step.Gdy),

@@ -364,8 +364,8 @@ def _grid_fields(mesh, config, refill, K_p, m_l, deg, dtype, dev) -> dict:
     kp = K_p.astype(dtype)  # the coarse operator from the run-precision values, as tpufem
     empty = np.zeros(0, dtype=np.int64)
     pressure = PressureGridCG.build(
-        kp, GridOperator.build(kp, refill.template.ns, dtype=dtype, device=dev), m_l, empty, empty,
-        (deg > 0).astype(np.float64), iters=config.cg_iters_pressure, tol=config.cg_tol,
+        kp, GridOperator.dense_split(kp, refill.template.ns, dtype=dtype, device=dev), m_l,
+        empty, empty, (deg > 0).astype(np.float64), iters=config.cg_iters_pressure, tol=config.cg_tol,
         target_coarse=config.cg_coarse_nodes, use_coarse=config.cg_precond == "twolevel",
         plain=plain,
     )

@@ -393,8 +393,10 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     ``"grid"`` runs the kernels at f32 and f64; ``"grid_interpret"`` takes
     the grid storage with the kernels' plain versions on every device (the
     mesh is grid-numbered by then: ``StokesProblem.build`` renumbers it).
-    The plane split follows tpufem's ``stream`` decision, so both packages
-    build the same operators at every size."""
+    The operators take the card kernels' split
+    (:meth:`~tpufem_torch.ops.gridop.GridOperator.dense_split`) on every
+    device, so the kernels and their plain versions apply one split; it is
+    tpufem's wherever tpufem's TPU caps on the remainder do not bind."""
     from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
     from tpufem_torch.solve.pressure import owner_map
 
@@ -427,14 +429,7 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
                           stream_chunk=config.cg_stream_chunk)
 
         def build_gridop(csr):
-            # tpufem's streamed regimes spend more planes to shrink the
-            # remainder to ≤128 entries; mirror the split, not the streaming
-            if stream:
-                try:
-                    return GridOperator.build(csr, ns, dtype=dtype, rest_target=128, device=dev)
-                except GridDecompositionError:
-                    pass
-            return GridOperator.build(csr, ns, dtype=dtype, device=dev)
+            return GridOperator.dense_split(csr, ns, dtype=dtype, device=dev)
 
         try:
             Gv = build_gridop(K_csr)
