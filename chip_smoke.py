@@ -44,14 +44,17 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
     registers, spills, shared memory and blocks per SM of its instances;
 13. K4 against its plain version on the card: f32 and f64, fixed 30
     iterations from zero and ``tol=1e-5`` from the warm start the step
-    uses, at ``n_side=20`` and on the 1,048,576-node operator refilled from
-    a seeded u; and K3 against its plain version on the NS step's own
-    pressure operator (active mask deg > 0, no periodic pairs, float32
-    coarse inverse; ragged 3×3 coarse blocks at ``n_side=20``) at both
-    sizes, at the step's f32 and at f64, fixed 120 iterations and
-    ``tol=1e-5`` from a warm start; rel L2, iterations and ms per solve of
-    both, two launches bit-equal; ms an iteration of K3 on the NS operator
-    (card split and tpufem's) and of K4 against their byte bounds;
+    uses, on the operator refilled from a seeded u at ``n_side=20`` (on its
+    template and on a remainder-heavy five-plane layout) and at 1,048,576
+    nodes (on its template, the card's split, and on tpufem's 13-plane
+    split), the warm solve's ms beside its bound; and K3 against its plain
+    version on the NS step's own pressure operator (active mask deg > 0, no
+    periodic pairs, float32 coarse inverse; ragged 3×3 coarse blocks at
+    ``n_side=20``) at both sizes, at the step's f32 and at f64, fixed 120
+    iterations and ``tol=1e-5`` from a warm start; rel L2, iterations and
+    ms per solve of both, two launches bit-equal; ms an iteration of K3 on
+    the NS operator and of K4, each on the card's split and on tpufem's,
+    against their byte bounds;
 14. the NS main path: ``bench_large.ns_config`` (tpufem's ``run_ns``) at
     1,048,576 nodes through ``NSProblem.build`` and ``navier_stokes.run``:
     200 steps from rest, then 200 continued; K4 and K3 must each run once a
@@ -146,7 +149,8 @@ from tpufem_torch.bench import bench_config, bench_mesh, card, profile_run, time
 from tpufem_torch.mesh import generate_annulus_mesh
 from tpufem_torch.ops import _nvcc, assembly, calculus
 from tpufem_torch.ops import fused_matvec as fm
-from tpufem_torch.ops.gridop import STREAMED_NODES, GridDecompositionError, GridOperator
+from tpufem_torch.ops.gridop import (STREAMED_NODES, GridDecompositionError, GridOperator,
+                                     GridRefill, _PatternCSR)
 from tpufem_torch.parallel import (build_device_mesh, make_sharded_grid_solvers,
                                    make_sharded_matfree_step, make_sharded_viscous_solver)
 from tpufem_torch.parallel import grid_remote_dma as rdma
@@ -598,16 +602,24 @@ def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
 
 # Vector passes an iteration makes at least: K2 the shared mask and inverse
 # diagonal three times and 11 a column (q = A p; x, r; p), K3 and K5's
-# pressure solve 17 (the fused iteration of csrc/grid_common.cuh), K4 27 a
-# column; each apply reads the operator's planes and remainder once.
+# pressure solve 17 (the fused iteration of csrc/grid_common.cuh), K4 17 a
+# column and 5 shared (its three fused phases, csrc/grid_cg.cu: P reads r,
+# p_old, v_old and r̂ and writes p and v, 6 a column, plus the mask and D⁻¹;
+# S reads r and v and writes t, 3, plus the mask and D⁻¹; X reads x, p, r,
+# v, t and r̂ and writes x and r, 8, plus D⁻¹); each apply reads the
+# operator's planes and remainder once.  (K4's five-phase first version
+# made 27 a column.)
 APPLIES = {"K2": 1, "K3": 3, "K4": 2}
 
 
-def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None) -> float:
-    """ms of one iteration's least HBM traffic at the card's peak rate."""
+def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None,
+                    passes: int | None = None) -> float:
+    """ms of one iteration's least HBM traffic at the card's peak rate
+    (``passes``: the vector passes, if not the kernel's own count)."""
     n, item = K.n, K.diags.element_size()
     op = (len(K.offsets) * n + 3 * K.n_rest) * item
-    passes = {"K2": 3 + 11 * cols, "K3": 17, "K4": 27 * cols}[kernel]
+    if passes is None:
+        passes = {"K2": 3 + 11 * cols, "K3": 17, "K4": 17 * cols + 5}[kernel]
     nbytes = APPLIES[kernel] * op + passes * n * item
     if ac_inv is not None:
         nbytes += ac_inv.numel() * ac_inv.element_size()
@@ -1092,17 +1104,21 @@ def ns_problem(dev, n_side: int, n_circle: int, precision: str = "f32", storage:
         mesh, bench_large.ns_config(precision, storage=storage, **overrides), device=dev)
 
 
-def ns_operator(problem, dtype, seed: int = 3):
-    """A = Δt·C(u) + νΔt·K of ``problem`` refilled from a seeded u = 0.1·N(0, 1),
-    cast to ``dtype``, with the step's mask and inverse diagonal: (op, mask,
-    inverse diagonal, u planes, rhs planes u + Δt·f)."""
-    cfg, ns = problem.config, problem.grid_refill.template.ns
-    dev = problem.device
-    u = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal((problem.mesh.n_nodes, 2)),
+def ns_operator(problem, dtype, refill=None, seed: int = 3):
+    """A = Δt·C(u) + νΔt·K of ``problem`` refilled from a seeded u = 0.1·N(0, 1)
+    into ``refill``'s layout (default: the problem's own), in ``dtype``,
+    with the step's mask and inverse diagonal: (op, mask, inverse diagonal,
+    u planes, rhs planes u + Δt·f)."""
+    cfg, mesh, dev = problem.config, problem.mesh, problem.device
+    refill = refill or problem.grid_refill
+    ns = refill.template.ns
+    u = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal((mesh.n_nodes, 2)),
                         dtype=dtype, device=dev)
-    C = problem.grid_refill.refill_flat(assembly.element_convection_flat(problem.mesh, u, "opsplit"))
-    op = dataclasses.replace(C, diags=cfg.dt * C.diags + problem.Kg_diags.to(dtype),
-                             rest_vals=cfg.dt * C.rest_vals + problem.Kg_rest.to(dtype))
+    C = refill.refill_flat(assembly.element_convection_flat(mesh, u, "opsplit"))
+    K = refill.refill(assembly.element_stiffness(mesh, signed=True).to(dtype=dtype, device=dev))
+    nudt = cfg.nu * cfg.dt
+    op = dataclasses.replace(C, diags=cfg.dt * C.diags + nudt * K.diags,
+                             rest_vals=cfg.dt * C.rest_vals + nudt * K.rest_vals)
 
     def planes(v):
         return v.T.reshape(-1, ns, ns).contiguous()
@@ -1112,14 +1128,39 @@ def ns_operator(problem, dtype, seed: int = 3):
             planes(u + cfg.dt * problem.body_force.to(dtype)))
 
 
-def check_ns_kernel(label: str, problem, calls: int, plain_calls: int) -> dict:
-    """K4 against its plain version on ``problem``'s operator at f32 and f64,
-    fixed 30 iterations from zero and tol 1e-5 from the step's warm start;
-    returns the numbers of the f32 tol 1e-5 case."""
+def ns_other_layout(problem):
+    """(label, GridRefill) of a second layout of ``problem``'s velocity
+    operator: below 360,000 nodes a remainder-heavy one (five planes, the
+    rest on the remainder), from there up tpufem's split of the mesh
+    pattern (its TPU caps; 13 planes at 1,048,576 nodes), the template K4
+    applied before it took the card's."""
+    mesh, ns = problem.mesh, problem.grid_refill.template.ns
+    pattern = assembly._csr_pattern(mesh)
+    csr = _PatternCSR(pattern, mesh.n_nodes)
+    dtype, dev = problem.dtype, problem.device
+    if mesh.n_nodes >= STREAMED_NODES:
+        label, template = "tpufem split", GridOperator.build(csr, ns, dtype=dtype, device=dev)
+    else:
+        label, template = "five planes", GridOperator.build(csr, ns, dtype=dtype, max_offsets=5,
+                                                             rest_budget_bytes=None, device=dev)
+    return label, GridRefill.from_template(mesh, template, pattern)
+
+
+def ns_solver(problem, op, **changes):
+    """The problem's K4 solver on ``op``'s layout, without its counter."""
+    return dataclasses.replace(problem.vel_solver_grid, offsets=op.offsets, n_rest=op.n_rest,
+                               iters_count=None, **changes)
+
+
+def check_ns_kernel(label: str, problem, calls: int, plain_calls: int, refill=None) -> dict:
+    """K4 against its plain version on ``problem``'s operator in ``refill``'s
+    layout (default: the problem's) at f32 and f64, fixed 30 iterations from
+    zero and tol 1e-5 from the step's warm start; returns the numbers of the
+    f32 tol 1e-5 case."""
     dev = problem.device
     at_main = {}
     for dtype in (torch.float32, torch.float64):
-        op, mask, invd, u, b_step = ns_operator(problem, dtype)
+        op, mask, invd, u, b_step = ns_operator(problem, dtype, refill)
         b_rand = torch.as_tensor(np.random.default_rng(8).standard_normal(tuple(u.shape)),
                                  dtype=dtype, device=dev)
 
@@ -1130,13 +1171,17 @@ def check_ns_kernel(label: str, problem, calls: int, plain_calls: int) -> dict:
             return grid_cg.ns_bicgstab_ref(s, op, mask, invd, b, x0, it)
 
         for iters, tol, b, x0 in ((30, 0.0, b_rand, torch.zeros_like(u)), (30, 1e-5, b_step, u)):
-            s = dataclasses.replace(problem.vel_solver_grid, iters=iters, tol=tol, iters_count=None)
-            case = f"K4 {str(dtype)[6:]} {'tol 1e-5 warm' if tol else 'fixed 30'} at {label}"
+            s = ns_solver(problem, op, iters=iters, tol=tol)
+            case = (f"K4 {str(dtype)[6:]} {'tol 1e-5 warm' if tol else 'fixed 30'} at {label} "
+                    f"({len(op.offsets)} planes, {op.n_rest} remainder entries)")
             numbers = check_solve(13, case, kernel, plain, s, b, x0, GRID_RTOL[(dtype, tol)],
                                   calls, plain_calls)
             if dtype == torch.float32 and tol:
                 iters = numbers.pop("iters")
                 at_main = {**numbers, **solve_bound("K4", op, 2, iters), "library_ms": None}
+                print(f"[13 kernel] K4 warm solve at {label}: {numbers['ms']:.4f} ms ({iters} "
+                      f"iteration(s)), bound {at_main['bound_ms']:.4g} ms "
+                      f"({100 * at_main['bound_ms'] / numbers['ms']:.3g} %)")
     return at_main
 
 
@@ -1155,9 +1200,10 @@ def check_ns_pressure(label: str, problem, calls: int, plain_calls: int) -> None
                        grid_cg.pressure_cg, grid_cg.pressure_cg_ref, solver, b, calls, plain_calls)
 
 
-def ns_iterations(problem) -> None:
+def ns_iterations(problem, other) -> None:
     """Phase 13's ms an iteration of K3 on the NS pressure operator (the
-    step's f32 instance) in the card's split and in tpufem's, and of K4."""
+    step's f32 instance) in the card's split and in tpufem's, and of K4
+    (f32) on the problem's template and on ``other``, (label, GridRefill)."""
     pres = problem.pressure_solver
     mesh, ns, dev = problem.mesh, pres.K.ns, problem.device
     kp = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=False))
@@ -1168,14 +1214,15 @@ def ns_iterations(problem) -> None:
     iteration_report(13, f"NS pressure at {mesh.n_nodes} nodes", "K3", grid_cg.pressure_cg,
                      [("card split", pres, pres.K),
                       ("tpufem split", dataclasses.replace(pres, K=old), old)], b)
-    op, mask, invd, u, _ = ns_operator(problem, torch.float32)
+    b2 = torch.as_tensor(rng.standard_normal((2, ns, ns)), dtype=torch.float32, device=dev)
+    for name, refill in (("card split", None), other):
+        op, mask, invd, _, _ = ns_operator(problem, torch.float32, refill)
 
-    def k4(s, b, x0, it=None):
-        return grid_cg.ns_bicgstab(s, op, mask, invd, b, x0, it)
+        def k4(s, b, x0, it=None, op=op, mask=mask, invd=invd):
+            return grid_cg.ns_bicgstab(s, op, mask, invd, b, x0, it)
 
-    solver = dataclasses.replace(problem.vel_solver_grid, iters_count=None)
-    b2 = torch.as_tensor(rng.standard_normal(tuple(u.shape)), dtype=torch.float32, device=dev)
-    iteration_report(13, f"at {mesh.n_nodes} nodes", "K4", k4, [("refill split", solver, op)], b2)
+        iteration_report(13, f"at {mesh.n_nodes} nodes", "K4", k4,
+                         [(name, ns_solver(problem, op), op)], b2)
 
 
 def phase_ns_kernel(dev, big) -> dict:
@@ -1188,10 +1235,15 @@ def phase_ns_kernel(dev, big) -> dict:
     check(small.pressure_solver.block == 3 and small.pressure_solver.n_blocks == 7,
           "n_side=20 with cg_coarse_nodes=64 gives ragged 3×3 blocks")
     check_ns_kernel("n_side=20", small, calls=20, plain_calls=5)
+    name, refill = ns_other_layout(small)
+    check_ns_kernel(f"n_side=20, {name}", small, calls=20, plain_calls=5, refill=refill)
     check_ns_pressure("n_side=20", small, calls=20, plain_calls=5)
     check_ns_pressure(f"{big.mesh.n_nodes} nodes", big, calls=5, plain_calls=2)
     out = check_ns_kernel(f"{big.mesh.n_nodes} nodes", big, calls=20, plain_calls=2)
-    ns_iterations(big)
+    other = ns_other_layout(big)
+    check_ns_kernel(f"{big.mesh.n_nodes} nodes, {other[0]}", big, calls=20, plain_calls=2,
+                    refill=other[1])
+    ns_iterations(big, other)
     return out
 
 

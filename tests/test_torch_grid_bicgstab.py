@@ -21,7 +21,7 @@ from tpufem_torch.ops import assembly as tassembly
 from tpufem_torch.ops import calculus as tcalculus
 from tpufem_torch.solve import grid_cg
 
-from tests._torch_parity import ns_refill_pair, rel
+from tests._torch_parity import meshes, ns_refill_pair, rel
 
 torch.set_num_threads(2)
 
@@ -115,6 +115,67 @@ def test_plain_k4_matches_tpufem_kernel_tol_warm():
                        torch.as_tensor(o["b"]), torch.as_tensor(o["u"]))
     assert rel(got.numpy(), np.asarray(want)) <= 1e-10
     assert 0 < int(count.item()) < 60
+
+
+@pytest.mark.parametrize("n_side", [20, 40])
+def test_template_is_the_card_split_and_tpufems_here(n_side):
+    """The refill template is ``GridOperator.dense_split`` of the mesh
+    pattern, the split K4 applies; at these sizes tpufem's caps do not bind,
+    so it is tpufem's template too (offsets, remainder entries, order)."""
+    from tpufem.ops.gridop import GridRefill as JGridRefill
+    from tpufem_torch.ops import assembly
+    from tpufem_torch.ops.gridop import GridOperator, GridRefill, _PatternCSR
+
+    jm, tm = meshes(n_side, n_side + 4, pad_hole=True)
+    refill = GridRefill.build(tm, n_side, dtype=torch.float64, device="cpu")
+    t = refill.template
+    want = GridOperator.dense_split(_PatternCSR(assembly._csr_pattern(tm), tm.n_nodes), n_side,
+                                    dtype=torch.float64)
+    assert t.offsets == want.offsets and t.rest_round32 == want.rest_round32
+    for name in ("rest_rowptr", "rest_tgt", "rest_src"):
+        assert torch.equal(getattr(t, name), getattr(want, name)), name
+    jt = JGridRefill.build(jm, n_side, dtype=jnp.float64).template
+    assert t.offsets == jt.offsets and t.n_rest == jt.n_rest
+    assert len(t.offsets) == 9
+
+
+def _remainder_heavy(refill):
+    """The same mesh's refill onto five planes (the rest on the remainder)."""
+    from tpufem_torch.ops import assembly
+    from tpufem_torch.ops.gridop import GridOperator, GridRefill, _PatternCSR
+
+    mesh = ns_refill_pair()[2].mesh
+    pattern = assembly._csr_pattern(mesh)
+    template = GridOperator.build(_PatternCSR(pattern, mesh.n_nodes), refill.template.ns,
+                                  dtype=torch.float64, max_offsets=5, rest_budget_bytes=None)
+    return GridRefill.from_template(mesh, template, pattern)
+
+
+@pytest.mark.parametrize("iters,tol", [(30, 0.0), (60, 1e-8)], ids=["fixed30", "tol1e-8-warm"])
+def test_plain_k4_agrees_on_a_remainder_heavy_layout(iters, tol):
+    """One refilled operator on two layouts, the template's (9 planes) and
+    five planes with the rest on the remainder: K4's plain version gives the
+    same x at f64, fixed 30 iterations from zero and tol 1e-8 from the
+    warm start."""
+    jm, _, tp, u = ns_refill_pair()
+    o = _operators()
+    heavy = _remainder_heavy(tp.grid_refill)
+    assert len(heavy.template.offsets) == 5 and heavy.template.n_rest > 10 * o["tA"].n_rest
+    tm = tp.mesh
+    C = heavy.refill_flat(tassembly.element_convection_flat(tm, torch.as_tensor(u), "opsplit"))
+    K = heavy.refill(tassembly.element_stiffness(tm, signed=True))
+    A = dataclasses.replace(C, diags=DT * C.diags + NU * DT * K.diags,
+                            rest_vals=DT * C.rest_vals + NU * DT * K.rest_vals)
+    np.testing.assert_allclose(A.diag().numpy(), o["tA"].diag().numpy(), rtol=0, atol=1e-15)
+    n = o["b"].shape[0]
+    b = torch.as_tensor(o["b"])
+    x0 = torch.as_tensor(o["u"]) if tol else torch.zeros_like(b)
+    xs = []
+    for op in (o["tA"], A):
+        solver = grid_cg.NSGridBiCGStab(ns=op.ns, offsets=op.offsets, n_rest=op.n_rest,
+                                        iters=iters, tol=tol, interpret=True)
+        xs.append(solver.solve(op, torch.ones(n, dtype=torch.float64), o["tinvd"], b, x0).numpy())
+    assert rel(xs[1], xs[0]) <= 1e-12
 
 
 def test_wrapper_plain_on_cpu_and_raises_elsewhere():

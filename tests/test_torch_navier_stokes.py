@@ -124,6 +124,28 @@ def test_csr_path_matches_tpufem(mass_consistent):
     assert rel(u.numpy(), want) <= 1e-9
 
 
+@pytest.mark.parametrize("kind,changes,limit", [
+    ("dense", dict(double_projection=True), 1e-12),
+    ("dense", dict(mass_consistent=True), 1e-12),
+    ("dense", dict(rho=2.0), 1e-12),
+    ("csr", dict(double_projection=True), 1e-10),
+    ("csr", dict(cg_precond="jacobi"), 1e-10),
+    ("csr", dict(cg_tol=0.0), 1e-10),
+], ids=["dense-double_projection", "dense-mass_consistent", "dense-rho2", "csr-double_projection",
+        "csr-jacobi", "csr-tol0"])
+def test_configuration_branches_match_tpufem(kind, changes, limit):
+    """f64, 10 steps from rest on (12, 16): the configuration branches the
+    two tests above leave out (on the dense path the first two are no-ops
+    in both packages), within 1e-12 relative in u on the dense path and
+    1e-10 on CSR (the CSR pressure solves stop on a tolerance; the
+    re-anchor probe read ≤ 1.4e-12 on all six)."""
+    kw = {**(dict(dt=1e-4) if kind == "dense" else CSR), **changes}
+    _, want = jax_run(kind, 10, **kw)
+    tp = tns.NSProblem.build(meshes(*MESH)[1], tns.NSConfig(**kw), device=CPU)
+    u, _ = tns.run(tp, steps=10)
+    assert rel(u.numpy(), want) <= limit
+
+
 @pytest.mark.parametrize("source", ["build", "interop"])
 def test_grid_path_matches_tpufem_grid_interpret(source):
     jp, want = jax_run("grid", 3)

@@ -44,24 +44,32 @@
 // full (tpufem's split carried 20 and 26 planes there, for its TPU's one-hot
 // remainder), are ~8k remainder entries a lane search finds
 // (grid_common.cuh).
-//   K2 applies K once an iteration, both columns sharing each plane read, and
-//   makes 25 vector passes: 21 + 105 MB, 0.038 ms at the HBM peak (tpufem's
-//   20 planes: 189 MB, 0.056 ms).  Three grid syncs an iteration.
+//   K2 applies K once an iteration to each column and makes 25 vector
+//   passes: 21 + 105 MB, 0.038 ms at the HBM peak (tpufem's 20 planes: 189
+//   MB, 0.056 ms).  Three grid syncs an iteration.
 //   K3 applies K three times an iteration (once in CG, twice in the
 //   preconditioner) in the fused iteration of grid_common.cuh: 4 grid syncs
 //   (11 unfused) and 17 vector passes (35 unfused): 3 × 21 MB of planes,
 //   71 MB of vectors and the 2 MB bf16 coarse inverse, 137 MB and 0.041 ms
 //   an iteration (tpufem's 26 planes: 400 MB, 0.119 ms fused; 480 MB and
 //   0.142 ms unfused).
-//   K4 applies A twice an iteration, both columns sharing each read of the
-//   planes, and makes five vector passes (p̂; v and r̂·v; s, x and ŝ; t, t·t
-//   and t·s; x, r, r·r and r̂·r) with one grid sync each: 2·n_off operator
-//   planes plus 54 vector planes (two columns, mask and D⁻¹ counted per pass)
-//   an iteration, all HBM traffic at 1,048,576 nodes.  There GridRefill picks
-//   13 planes (560 remainder entries; it passes no rest_target): 80 planes of
-//   4.19 MB, 335.5 MB an iteration, 0.100 ms at 3.35 TB/s.
+//   K4 applies A twice an iteration, both columns at once (apply_cols: each
+//   plane entry and remainder value loaded once for both, one lane search),
+//   in three fused phases with one grid sync each (below): 17·C + 5 vector
+//   passes (39 for two columns; the mask and D⁻¹ counted in each phase that
+//   reads them).  Its template is the
+//   card's split of the mesh pattern (GridRefill): at 1,048,576 nodes 9
+//   planes (the diagonal, the four neighbours and the four (±1, ±1)
+//   offsets, which carry C(u) across the raster's diagonals) and 1,848
+//   remainder entries, so 2·9 + 39 = 57 planes of 4.19 MB, 239 MB and
+//   0.071 ms an iteration at 3.35 TB/s (tpufem's 13 planes: 273 MB, 0.081
+//   ms); an iteration took 0.129 ms there on an H100 (55 %), latency-bound
+//   like K3 (4 blocks per SM, not 2: 0.129 against 0.183 ms).  The start
+//   writes r̂ alone and the first iteration skips the zero p and v: a
+//   warm-started NS solve takes one iteration, so the start is a large
+//   share of it.
 // Below ~10⁵ nodes the planes sit in L2 and the grid syncs dominate, a few µs
-// each.  K2 and K4 are first versions: each plane read once per apply with
+// each.  K2 is a first version: each plane read once per apply with
 // coalesced loads, the vectors in device memory, no fused phases.  At f64 an
 // entry on the remainder is applied with tpufem's float32 rounding (below),
 // so the card's split rounds the couplings tpufem's split kept on planes.
@@ -101,11 +109,10 @@ struct ViscousArgs {
   int* iters_out;
 };
 
-// K2 and K4 were not redesigned.  Their register budgets are pinned to the
-// blocks per SM their first version ran (48 registers a thread for one
-// column; 64 for two, K4's float two-column form 128), so that a change in
-// the shared apply does not change their launch shape, and with it the order
-// of every grid-wide sum.
+// K2 was not redesigned.  Its register budget is pinned to the blocks per SM
+// its first version ran (48 registers a thread for one column, 64 for two),
+// so that a change in the shared apply does not change its launch shape, and
+// with it the order of every grid-wide sum.
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads, C == 1 ? 5 : 4) viscous_cg_kernel(ViscousArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
@@ -224,16 +231,17 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? 5 : 4) viscous_cg_kernel(Vi
   if (tid == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
 }
 
-// Blocks per SM that K3's register budget is set for (__launch_bounds__):
-// 64 registers a thread in f32, 128 in f64.  The solve is latency-bound, so
-// warps in flight buy more than registers: at 1,048,576 nodes on an H100 an
-// f32 iteration took 0.180 ms at 2 blocks per SM (118 registers, no spills),
-// 0.148 at 3 (80) and 0.131 at 4 (64, a few spill stores).
+// Blocks per SM that K3's and K4's register budgets are set for
+// (__launch_bounds__): 64 registers a thread in f32, 128 in f64.  Both are
+// latency-bound, so warps in flight buy more than registers: at 1,048,576
+// nodes on an H100 a K3 f32 iteration took 0.180 ms at 2 blocks per SM (118
+// registers, no spills), 0.148 at 3 (80) and 0.131 at 4 (64, a few spill
+// stores).
 template <typename T>
-constexpr int kPressureMinBlocks = sizeof(T) == 4 ? 4 : 2;
+constexpr int kFusedMinBlocks = sizeof(T) == 4 ? 4 : 2;
 
 template <typename T, typename A>
-__global__ void __launch_bounds__(kThreads, kPressureMinBlocks<T>)
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
     pressure_cg_kernel(const __grid_constant__ PressureArgs<T, A> a) {
   cg::grid_group grid = cg::this_grid();
   int slot = 0;
@@ -255,12 +263,10 @@ struct NSArgs {
   const T* __restrict__ b;   // (C, N)
   const T* __restrict__ x0;  // (C, N)
   T* x;                      // (C, N) the solution
-  T* r;                      // holds s between phases C and E
-  T* rhat;
-  T* p;
-  T* v;
-  T* phat;
-  T* shat;
+  T* rhat;                   // r̂ = r0 = b − A x0, the first iteration's r
+  T* r;                      // r from the first X phase on, updated in place
+  T* p[2];  // double-buffered: phase P reads one at its sources, writes the other
+  T* v[2];
   T* t;
   T* partials;
   T tol;
@@ -268,44 +274,82 @@ struct NSArgs {
   int* iters_out;
 };
 
+// K4's phases walk the points in a grid-stride loop.  One contiguous run of
+// the raster a block instead (so that the rows above and below a point are
+// read by the same block) was slower: 0.138–0.141 against 0.128–0.129 ms an
+// iteration on an H100 at 1,048,576 nodes (f32, 4 blocks per SM;
+// ab_grid_kernels.py, variant "contiguous runs").
+template <typename B>
+__device__ __forceinline__ void for_points(int n, B body) {
+  const int stride = (int)gridDim.x * kThreads;
+  for (int i = (int)blockIdx.x * kThreads + (int)threadIdx.x; i < n; i += stride) body(i);
+}
+
+// tpufem's _bicgstab_core_cols, three phases and three grid syncs an
+// iteration (the sources of each apply computed where they are read):
+//   P  p = r + β(p_old − ω v_old) and p̂ = D⁻¹p at each source, v = A p̂;
+//      p and v written (double-buffered); sums r̂·v                [reduce]
+//   S  s = r − αv and ŝ = D⁻¹s at each source, t = A ŝ; t written;
+//      sums t·t, t·s                                               [reduce]
+//   X  x = (x + α p̂) + ω ŝ, r = s − ω t (in place); sums r·r (the stop
+//      test) and r̂·r (the next ρ)                                 [reduce]
+// Per point every value is the plain version's expression.  The start
+// writes r̂ alone: the first iteration reads it as r, skips p_old and v_old
+// (zero: β·(0 − ω·0) = 0) and reads x0 as x.
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads, C == 1 ? 5 : (sizeof(T) == 4 ? 2 : 4))
-    ns_bicgstab_kernel(NSArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
+    ns_bicgstab_kernel(const __grid_constant__ NSArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   const int ns = a.op.ns, n = ns * ns;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+  const T* __restrict__ mask = a.mask;
+  const T* __restrict__ invd = a.invd;
   int slot = 0;
 
-  // m·(X + A(m·X)) + (1−m)·X at point i of plane X
-  auto mv = [&](const T* X, int i, int iy, int ix) -> T {
-    const T* m = a.mask;
-    const T ax = apply_at(a.op, iy, ix, [&](int j) { return m[j] * X[j]; });
-    const T mi = m[i], xi = X[i];
-    return mi * (xi + ax) + (T(1) - mi) * xi;
+  // out = m_i·(X_i + A(m·X)_i) + (1 − m_i)·X_i for each column at point i:
+  // xval(j, v) writes the C values of X at flat index j, xi holds those at i
+  auto mv = [&](int i, auto xval, const T (&xi)[C], T (&out)[C]) {
+    const int iy = i / ns, ix = i - iy * ns;
+    T ax[C];
+    apply_cols<C>(a.op, iy, ix, [&](int j, T (&v)[C]) {
+      xval(j, v);
+      const T mj = mask[j];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = mj * v[c];
+    }, ax);
+    const T mi = mask[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = mi * (xi[c] + ax[c]) + (T(1) - mi) * xi[c];
+  };
+  // X at each source, scaled by D⁻¹
+  auto scaled = [&](auto xval) {
+    return [=](int j, T (&v)[C]) {
+      xval(j, v);
+      const T dj = invd[j];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = dj * v[c];
+    };
   };
 
-  // x = x0, r = r̂ = b − A x0, p = v = 0; sums b·b and r·r (= r̂·r) per column
-  T s0[2 * C];
+  // r̂ = r0 = b − A x0; sums b·b and r0·r0 (= r̂·r0) per column
+  auto x0_at = [&](int j, T (&v)[C]) {
 #pragma unroll
-  for (int j = 0; j < 2 * C; ++j) s0[j] = T(0);
-  for (int i = tid; i < n; i += stride) {
-    const int iy = i / ns, ix = i - iy * ns;
+    for (int c = 0; c < C; ++c) v[c] = a.x0[c * n + j];
+  };
+  T s0[2 * C] = {};
+  for_points(n, [&](int i) {
+    T xi[C], ax[C];
+    x0_at(i, xi);
+    mv(i, x0_at, xi, ax);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int e = c * n + i;
-      const T* x0 = a.x0 + c * n;
       const T bv = a.b[e];
-      a.x[e] = x0[i];
-      const T rv = bv - mv(x0, i, iy, ix);
-      a.r[e] = rv;
+      const T rv = bv - ax[c];
       a.rhat[e] = rv;
-      a.p[e] = T(0);
-      a.v[e] = T(0);
       s0[c] += bv * bv;
       s0[C + c] += rv * rv;
     }
-  }
+  });
   reduce_grid(grid, s0, a.partials, slot);
   T atol2[C], rr[C], rho_new[C], rho[C], alpha[C], omega[C];
 #pragma unroll
@@ -318,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? 5 : (sizeof(T) == 4 ? 2 : 4
   }
 
   int k = 0;
-  for (;;) {
+  for (;; ++k) {
     bool live = k < a.iters;
     if (live && a.tol > T(0)) {
       bool any = false;
@@ -327,91 +371,93 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? 5 : (sizeof(T) == 4 ? 2 : 4
       live = any;
     }
     if (!live) break;
+    const bool first = k == 0;
+    const T* r = first ? a.rhat : a.r;
+    const T* pold = pick(a.p, (k & 1) ^ 1);
+    const T* vold = pick(a.v, (k & 1) ^ 1);
+    T* pnew = pick(a.p, k & 1);
+    T* vnew = pick(a.v, k & 1);
 
-    // p = r + β(p − ωv), p̂ = D⁻¹p
+    // P: v = A p̂; sums r̂·v
     T beta[C];
 #pragma unroll
     for (int c = 0; c < C; ++c)
       beta[c] = finite_or_zero((rho[c] != T(0) && omega[c] != T(0))
                                    ? (rho_new[c] / rho[c]) * (alpha[c] / omega[c])
                                    : T(0));
-    for (int i = tid; i < n; i += stride) {
-      const T di = a.invd[i];
+    auto p_at = [&](int j, T (&pv)[C]) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int e = c * n + j;
+        pv[c] = first ? r[e] : r[e] + beta[c] * (pold[e] - omega[c] * vold[e]);
+      }
+    };
+    T s1[C] = {};
+    for_points(n, [&](int i) {
+      T pv[C], ph[C], vv[C];
+      p_at(i, pv);
+      const T di = invd[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) ph[c] = di * pv[c];
+      mv(i, scaled(p_at), ph, vv);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int e = c * n + i;
-        const T pv = a.r[e] + beta[c] * (a.p[e] - omega[c] * a.v[e]);
-        a.p[e] = pv;
-        a.phat[e] = di * pv;
+        pnew[e] = pv[c];
+        vnew[e] = vv[c];
+        s1[c] += a.rhat[e] * vv[c];
       }
-    }
-    grid.sync();
-
-    // v = A p̂; sums r̂·v
-    T s1[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) s1[c] = T(0);
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const T vv = mv(a.phat + c * n, i, iy, ix);
-        a.v[c * n + i] = vv;
-        s1[c] += a.rhat[c * n + i] * vv;
-      }
-    }
+    });
     reduce_grid(grid, s1, a.partials, slot);
 #pragma unroll
     for (int c = 0; c < C; ++c) alpha[c] = finite_or_zero(s1[c] != T(0) ? rho_new[c] / s1[c] : T(0));
 
-    // s = r − αv (into r), x += α p̂, ŝ = D⁻¹s
-    for (int i = tid; i < n; i += stride) {
-      const T di = a.invd[i];
+    // S: t = A ŝ; sums t·t, t·s
+    auto s_at = [&](int j, T (&sv)[C]) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const int e = c * n + i;
-        const T sv = a.r[e] - alpha[c] * a.v[e];
-        a.r[e] = sv;
-        a.x[e] = a.x[e] + alpha[c] * a.phat[e];
-        a.shat[e] = di * sv;
+        const int e = c * n + j;
+        sv[c] = r[e] - alpha[c] * vnew[e];
       }
-    }
-    grid.sync();
-
-    // t = A ŝ; sums t·t, t·s
-    T s2[2 * C];
+    };
+    T s2[2 * C] = {};
+    for_points(n, [&](int i) {
+      T sv[C], sh[C], tv[C];
+      s_at(i, sv);
+      const T di = invd[i];
 #pragma unroll
-    for (int j = 0; j < 2 * C; ++j) s2[j] = T(0);
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
+      for (int c = 0; c < C; ++c) sh[c] = di * sv[c];
+      mv(i, scaled(s_at), sh, tv);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const T tv = mv(a.shat + c * n, i, iy, ix);
-        a.t[c * n + i] = tv;
-        s2[c] += tv * tv;
-        s2[C + c] += tv * a.r[c * n + i];
+        a.t[c * n + i] = tv[c];
+        s2[c] += tv[c] * tv[c];
+        s2[C + c] += tv[c] * sv[c];
       }
-    }
+    });
     reduce_grid(grid, s2, a.partials, slot);
 #pragma unroll
     for (int c = 0; c < C; ++c)
       omega[c] = finite_or_zero(s2[c] != T(0) ? s2[C + c] / s2[c] : T(0));
 
-    // x += ω ŝ, r = s − ωt; sums r·r (the stop test) and r̂·r (the next ρ)
-    T s3[2 * C];
-#pragma unroll
-    for (int j = 0; j < 2 * C; ++j) s3[j] = T(0);
-    for (int i = tid; i < n; i += stride) {
+    // X: x = (x + α p̂) + ω ŝ, r = s − ω t; sums r·r and r̂·r
+    const T* xold = first ? a.x0 : a.x;
+    T s3[2 * C] = {};
+    for_points(n, [&](int i) {
+      const T di = invd[i];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int e = c * n + i;
-        a.x[e] = a.x[e] + omega[c] * a.shat[e];
-        const T rv = a.r[e] - omega[c] * a.t[e];
+        const T ph = di * pnew[e];
+        const T sv = r[e] - alpha[c] * vnew[e];
+        const T sh = di * sv;
+        a.x[e] = xold[e] + alpha[c] * ph + omega[c] * sh;
+        const T rv = sv - omega[c] * a.t[e];
         a.r[e] = rv;
         s3[c] += rv * rv;
         s3[C + c] += a.rhat[e] * rv;
       }
-    }
+    });
     reduce_grid(grid, s3, a.partials, slot);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -419,9 +465,14 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? 5 : (sizeof(T) == 4 ? 2 : 4
       rr[c] = s3[c];
       rho_new[c] = s3[C + c];
     }
-    ++k;
   }
-  if (tid == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
+  if (k == 0) {  // no iteration ran: x = x0
+    for_points(n, [&](int i) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) a.x[c * n + i] = a.x0[c * n + i];
+    });
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
 }
 
 
@@ -503,12 +554,12 @@ int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns,
   a.b = b;
   a.x0 = x0;
   a.x = x;
-  a.r = work;
-  a.rhat = work + cn;
-  a.p = work + 2 * cn;
-  a.v = work + 3 * cn;
-  a.phat = work + 4 * cn;
-  a.shat = work + 5 * cn;
+  a.rhat = work;
+  a.r = work + cn;
+  a.p[0] = work + 2 * cn;
+  a.p[1] = work + 3 * cn;
+  a.v[0] = work + 4 * cn;
+  a.v[1] = work + 5 * cn;
   a.t = work + 6 * cn;
   a.partials = work + 7 * cn;
   a.tol = (T)tol;

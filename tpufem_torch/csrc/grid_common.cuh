@@ -1,8 +1,9 @@
 // Device helpers shared by the whole-solve kernels (grid_cg.cu: K2, K3, K4)
 // and the whole-step kernel (grid_step.cu: K5): the grid-offset operator
-// apply, the deterministic grid-wide reductions, K3's pressure solve and its
-// two-level preconditioner, and the cooperative launch.  Each source that
-// includes it gets its own copy (anonymous namespace).
+// apply (one column; several at once in K4's apply_cols), the deterministic
+// grid-wide reductions, K3's pressure solve and its two-level
+// preconditioner, and the cooperative launch.  Each source that includes it
+// gets its own copy (anonymous namespace).
 //
 // The operator apply streams the offset planes with evict-first loads
 // (__ldcs), so that the vectors the gathers reuse stay in L2, and finds a
@@ -87,6 +88,19 @@ __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 __device__ __forceinline__ float round_f(float v) { return v; }
 __device__ __forceinline__ double round_f(double v) { return (double)(float)v; }
 
+// The first remainder entry in [k0, k1) (one target row) whose lane is not
+// below ix.
+template <typename T>
+__device__ __forceinline__ int lane_search(const GridOp<T>& op, int k0, int k1, int ix) {
+  int lo = k0, hi = k1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (op.lane[mid] < ix) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
 // y += the remainder's sum at (iy, ix), if the row has entries (each source
 // value and the sum rounded to float where op.round_rest); src(j, jy, jx)
 // gives the source value at flat index j.
@@ -94,13 +108,7 @@ template <typename T, typename F>
 __device__ __forceinline__ void add_rest(const GridOp<T>& op, int iy, int ix, F src, T& y) {
   const int k0 = op.rowptr[iy], k1 = op.rowptr[iy + 1];
   if (k0 < k1) {
-    // the first entry of the row whose lane is not below ix
-    int lo = k0, hi = k1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (op.lane[mid] < ix) lo = mid + 1;
-      else hi = mid;
-    }
+    const int lo = lane_search(op, k0, k1, ix);
     T rest = T(0);
     for (int k = lo; k < k1 && op.lane[k] == ix; ++k) {
       const int j = op.src[k];
@@ -145,6 +153,46 @@ __device__ __forceinline__ T apply_yx(const GridOp<T>& op, int iy, int ix, F src
 template <typename T, typename F>
 __device__ __forceinline__ T apply_at(const GridOp<T>& op, int iy, int ix, F src) {
   return apply_yx<false>(op, iy, ix, [&](int j, int, int) { return src(j); });
+}
+
+// K·X for C columns at one point (K4): each plane entry and each remainder
+// value is loaded once and feeds every column, and the lane search runs
+// once; src(j, v) writes the C columns' source values at flat index j into
+// v.  Per column the same products in the same order as apply_at's.
+template <int C, typename T, typename F>
+__device__ __forceinline__ void apply_cols(const GridOp<T>& op, int iy, int ix, F src,
+                                           T (&y)[C]) {
+  const int ns = op.ns;
+  const long long n = (long long)ns * ns;
+  const int i = iy * ns + ix;
+#pragma unroll
+  for (int c = 0; c < C; ++c) y[c] = T(0);
+  for (int g = 0; g < op.n_off; ++g) {
+    int sy = iy + op.sh.rs[g];
+    sy -= (sy >= ns) ? ns : 0;
+    int sx = ix + op.sh.ls[g];
+    sx -= (sx >= ns) ? ns : 0;
+    const T d = __ldcs(op.diags + g * n + i);
+    T v[C];
+    src(sy * ns + sx, v);
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[c] += d * v[c];
+  }
+  const int k0 = op.rowptr[iy], k1 = op.rowptr[iy + 1];
+  if (k0 < k1) {
+    T rest[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) rest[c] = T(0);
+    for (int k = lane_search(op, k0, k1, ix); k < k1 && op.lane[k] == ix; ++k) {
+      const T w = op.val[k];
+      T v[C];
+      src(op.src[k], v);
+#pragma unroll
+      for (int c = 0; c < C; ++c) rest[c] += w * (op.round_rest ? round_f(v[c]) : v[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[c] += op.round_rest ? round_f(rest[c]) : rest[c];
+  }
 }
 
 template <typename T>

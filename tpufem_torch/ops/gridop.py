@@ -193,9 +193,10 @@ class GridOperator:
 
     @classmethod
     def dense_split(cls, op, ns: int, dtype=torch.float32, device=None) -> "GridOperator":
-        """The split the card kernels apply (K2, K3, K5): planes for the
-        offsets whose fill is ≥ 2 % of N (at most 24) and the diagonal,
-        everything else on the remainder.
+        """The split the card kernels apply (K2–K5; K4's through the
+        :class:`GridRefill` template): planes for the offsets whose fill is
+        ≥ 2 % of N (at most 24) and the diagonal, everything else on the
+        remainder.
 
         tpufem's streamed ``rest_target=128`` and its remainder cap (20 B
         an entry and row of a 16 MB VMEM budget) buy planes to shrink a
@@ -295,8 +296,9 @@ class GridRefill:
     Built on the host from the mesh's CSR pattern: each element entry's
     flat slot is ``g·N + row`` on plane g and ``n_off·N + k`` for remainder
     entry k, in the template's remainder order (sorted stably by target,
-    which keeps the CSR order; ``build`` asserts it).  On CUDA the sum uses
-    atomics, so two refills of one state are not bit-equal there."""
+    which keeps the CSR order; :meth:`from_template` asserts it).  On CUDA
+    the sum uses atomics, so two refills of one state are not bit-equal
+    there."""
 
     template: GridOperator  # pattern donor; its values are not used
     dest: torch.Tensor  # (E,) int64: ordered element entry → flat slot
@@ -305,16 +307,33 @@ class GridRefill:
     n_flat: int  # n_off·N + n_rest
 
     @classmethod
-    def build(cls, mesh, ns: int, dtype=torch.float32, rest_target: int | None = None,
-              device=None) -> "GridRefill":
+    def build(cls, mesh, ns: int, dtype=torch.float32, device=None) -> "GridRefill":
+        """The refill on the card's split of the mesh pattern
+        (:meth:`GridOperator.dense_split`), the split K4 applies.  Below
+        :data:`STREAMED_NODES` it is tpufem's wherever tpufem's caps do not
+        bind (the pad_hole meshes up to 160,000 nodes); at 1,048,576 nodes
+        it keeps 9 planes (the diagonal, the four neighbours and the four
+        (±1, ±1) offsets, which carry C(u) across the raster's diagonals)
+        where tpufem's caps buy 13."""
         from tpufem_torch.ops import assembly
 
         pattern = assembly._csr_pattern(mesh)
-        n = mesh.n_nodes
+        template = GridOperator.dense_split(_PatternCSR(pattern, mesh.n_nodes), ns, dtype=dtype,
+                                            device=device)
+        return cls.from_template(mesh, template, pattern)
+
+    @classmethod
+    def from_template(cls, mesh, template: GridOperator, pattern: dict | None = None) -> "GridRefill":
+        """The refill of ``mesh``'s element entries onto the planes and
+        remainder of ``template``, a split of the mesh's CSR pattern (e.g.
+        tpufem's, ``GridOperator.build(_PatternCSR(pattern, n), ns)``)."""
+        from tpufem_torch.ops import assembly
+
+        if pattern is None:
+            pattern = assembly._csr_pattern(mesh)
+        n, ns = mesh.n_nodes, template.ns
         if n != ns * ns:
             raise GridDecompositionError(f"{n} nodes is not a {ns}×{ns} grid")
-        template = GridOperator.build(_PatternCSR(pattern, n), ns, dtype=dtype,
-                                      rest_target=rest_target, device=device)
         rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(pattern["indptr"]).astype(np.int64))
         cols = pattern["indices"].astype(np.int64)
         iy, ix = np.divmod(rows, ns)

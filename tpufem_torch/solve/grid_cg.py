@@ -72,7 +72,7 @@ _PRESSURE = {
     (torch.float64, torch.bfloat16): "pressure_cg_f64_bf16",
 }
 _NS = {torch.float32: "ns_bicgstab_f32", torch.float64: "ns_bicgstab_f64"}
-_NS_PLANES = 7  # K4's work planes per column: r, r̂, p, v, p̂, ŝ, t
+_NS_PLANES = 7  # K4's work planes a column: r̂, r, t, and p and v twice (read one, write one)
 _PRESSURE_PLANES = 6  # K3's work planes: r and p twice (read one, write the other), q, z
 _MAX_BLOCK = 1024  # K3's widest aggregation block (kTile in the source)
 _lib: ctypes.CDLL | None = None
@@ -85,38 +85,42 @@ _PRESSURE_ARGTYPES = _OP_ARGS + [_vp] * 3 + [_int] * 3 + [_vp] * 5 + [_dbl, _int
 _NS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _int, _dbl, _vp, _vp]
 
 
-def build() -> ctypes.CDLL:
-    """Compile (unless cached) and load the K2/K3 library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = _nvcc.build(SOURCE)
-    for name in _VISCOUS.values():
-        getattr(lib, name).argtypes = _VISCOUS_ARGTYPES
-        getattr(lib, name).restype = ctypes.c_int
-    for name in _PRESSURE.values():
-        getattr(lib, name).argtypes = _PRESSURE_ARGTYPES
-        getattr(lib, name).restype = ctypes.c_int
-    for name in _NS.values():
-        getattr(lib, name).argtypes = _NS_ARGTYPES
-        getattr(lib, name).restype = ctypes.c_int
-    _lib = lib
+def load(source=SOURCE) -> ctypes.CDLL:
+    """Compile ``source`` (unless cached) and load it with the entry points'
+    argument types set: the tree's K2/K3/K4 by default, or another copy of
+    the source (a parent's, a variant) to time beside it."""
+    lib = _nvcc.build(source)
+    for names, argtypes in ((_VISCOUS, _VISCOUS_ARGTYPES), (_PRESSURE, _PRESSURE_ARGTYPES),
+                            (_NS, _NS_ARGTYPES)):
+        for name in names.values():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (unless cached) and load the K2/K3/K4 library the wrappers
+    launch (``_lib``)."""
+    global _lib
+    if _lib is None:
+        _lib = load()
+    return _lib
 
 
 def library_path():
     return _nvcc.library_path(SOURCE)
 
 
-def blocks_per_sm() -> dict[str, int]:
-    """Blocks per SM of each kernel instance in the library, as the
-    cooperative launch finds them on the current card."""
+def blocks_per_sm(lib: ctypes.CDLL | None = None) -> dict[str, int]:
+    """Blocks per SM of each kernel instance in ``lib`` (default: the
+    wrappers' library), as the cooperative launch finds them on the
+    current card."""
     names = [f"{k} {t}" for k, types in (
         ("viscous_cg", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2")),
         ("pressure_cg", ("f32", "f32 bf16", "f64", "f64 bf16")),
         ("ns_bicgstab", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2"))) for t in types]
     out = (ctypes.c_int * len(names))()
-    build().grid_cg_blocks_per_sm(out, len(names))
+    (lib or build()).grid_cg_blocks_per_sm(out, len(names))
     return dict(zip(names, out))
 
 
@@ -554,7 +558,10 @@ pressure_cg.launches = 0
 class NSGridBiCGStab:
     """``(m·(I + A)·m + (1−m)I) x = b`` with A = Δt·C(u) + νΔt·K refilled
     every step: right-preconditioned Jacobi-BiCGStab, both velocity columns
-    in lockstep, the whole solve in one launch of K4.
+    in lockstep, the whole solve in one launch of K4 (three fused phases
+    and three grid syncs an iteration; each plane entry of A read once for
+    both columns).  A's layout is the :class:`~tpufem_torch.ops.gridop.
+    GridRefill` template's: the card's split of the mesh pattern.
 
     Only the static configuration lives here (tpufem's fields); the
     operator, mask and inverse diagonal are arguments of :meth:`solve`.

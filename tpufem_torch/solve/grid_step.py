@@ -65,17 +65,22 @@ _ARGTYPES = (grid_cg._OP_ARGS * 4 + [_vp] * 8 + [_int] * 3 + [_vp] * 16 + [_dbl]
 _lib: ctypes.CDLL | None = None
 
 
-def build() -> ctypes.CDLL:
-    """Compile (unless cached) and load the K5 library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = _nvcc.build(SOURCE)
+def load(source=SOURCE) -> ctypes.CDLL:
+    """Compile ``source`` (unless cached) and load it with the entry points'
+    argument types set (another copy of the source: to time beside it)."""
+    lib = _nvcc.build(source)
     for name in _ENTRY.values():
         getattr(lib, name).argtypes = _ARGTYPES
         getattr(lib, name).restype = ctypes.c_int
-    _lib = lib
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (unless cached) and load the K5 library the wrapper launches."""
+    global _lib
+    if _lib is None:
+        _lib = load()
+    return _lib
 
 
 def library_path():
