@@ -119,6 +119,34 @@ all shards on the one card:
     single-device step; the distributed CSR viscous CG against the
     single-device CSR solve.
 
+Phases 27–30, the rest of the Stokes workload (no new kernel), run last:
+
+27. the gait campaign: ``sweep.food_capture_sweep`` on
+    ``generate_annulus_mesh(33, 48)`` (3 gaits × 6000 steps, f32 fused on
+    K1, 488 tracers), cold then warm: wall seconds of each gait and of the
+    campaign, eaten counts and fractions (recorded, not gated); K1 must run
+    6000 times a gait and no other kernel; then the f32 campaign on the card
+    against the f64 one (LU, penalty) on the CPU at 300 steps, fractions
+    within 0.05;
+28. Eulerian dye at scale: ``bench_large.bench_config(transport=
+    "eulerian_dye")`` on phase 9's 1,048,576-node mesh, grid storage,
+    through ``StokesProblem.build`` and ``stokes.run``: 100 steps from rest
+    and 100 continued; K2 once and K3 twice a step; tpufem's scale gates,
+    c in [0, 1], mixing progress > 0; build seconds, steps/s, device ms a
+    step by kernel and the dye solve's share;
+29. Eulerian dye at f64, card against CPU: the dense penalty path on
+    ``generate_annulus_mesh(12, 16)`` (20 steps; u to 1e-8 relative, c to
+    5e-3 relative, as far as the penalty holds it), the grid path at
+    ``n_side=40`` (10 steps, kernels against plain versions, max abs
+    1e-6), and f32 merge against f64 on the bench mesh (200 steps, c within
+    5e-3 relative);
+30. the report variant (tpufem's CLI configuration: rotating, dt 1e-5, ramp
+    200, smoothing 0.01, one projection, LU penalty) on the bench mesh, f64
+    card against CPU over 50 steps (1e-8), then 1000 steps timed twice on
+    the card; the same configuration on CSR (Jacobi) at ``n_side=40`` over
+    10 steps (1e-9); griddata dye and ``dense_ops=False`` over 20 steps
+    (1e-10).
+
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
 the other cards through peer access, and its times there are taken by the
@@ -159,7 +187,7 @@ from tpufem_torch.solve import grid_cg
 from tpufem_torch.solve import grid_step as gs
 from tpufem_torch.solve.matfree import ViscousCG
 from tpufem_torch.solve.pressure import owner_map
-from tpufem_torch.workloads import navier_stokes, stokes
+from tpufem_torch.workloads import navier_stokes, stokes, sweep
 
 MAX_U_FACTOR = 1.25  # boundedness gate of tpufem/bench_large.py: max|u| < 1.25·(|B1|+|B2|)
 KERNEL_SHAPES = (1704, 700, 6200)  # 2N of the bench mesh, an off-tile size, 2N at 3,100 nodes
@@ -1564,6 +1592,192 @@ def phase_sharded_parity(devs, steps: int = SHARDED_PARITY_STEPS) -> None:
     check(dx <= 1e-9, f"dist_cg vs single-device max abs {dx}")
 
 
+# ---------------------------------------------------------------------------
+# The rest of the Stokes workload: the gait campaign, Eulerian, griddata and
+# report runs
+# ---------------------------------------------------------------------------
+
+SWEEP_MESH = (33, 48)  # 852 nodes, tracer_density 25: 488 tracers
+SWEEP_PARITY_STEPS = 300
+EUL_STEPS = 100
+EUL_PROFILE_STEPS = 10
+EUL_DENSE_MESH = (12, 16)
+EUL_DENSE_STEPS = 20
+EUL_F32_STEPS = 200
+REPORT_STEPS = 50
+REPORT_TIMED_STEPS = 1000
+VARIANT_STEPS = 20
+# The f64 dense dye solve carries the ±1e10 penalty on a mass-scaled matrix
+# (cond 3.4e13 on (12, 16)): eliminating the penalty rows rounds away
+# ~ε·1e10 ≈ 1e-6 of rows whose scale is ~1e-3, so the scheme itself holds c
+# to ~1e-3.  The card's LAPACK and the CPU's land 2.5e-3 apart in relative L2
+# over 20 steps (8.2e-3 max abs; measured), as far as the f64 penalty and
+# the exact f32 merge do: c is held in relative L2 at 5e-3 there, u (which
+# the dye does not feed) at 1e-8.
+EUL_PENALTY_C_RTOL = 5e-3
+
+
+def phase_sweep(dev) -> None:
+    """The port's gait campaign twice (cold, warm), K1 on every step of
+    every gait; then its f32 fractions on the card against the f64 ones on
+    the CPU at SWEEP_PARITY_STEPS."""
+    mesh = generate_annulus_mesh(*SWEEP_MESH)
+    cfg = sweep.SweepConfig()
+    for run in ("cold", "warm"):
+        zero_launches()
+        t0 = time.perf_counter()
+        res = sweep.food_capture_sweep(mesh, cfg, device=dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        want = len(cfg.b2_values) * cfg.steps
+        check(counts == {"K1": want, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0},
+              f"launches {counts} in a {len(cfg.b2_values)}-gait campaign (want K1 = {want})")
+        gaits = "; ".join(f"B2={b2:g}: {r['seconds']:.2f} s, eaten {r['eaten']} of "
+                          f"{r['tracers']}, fraction {r['consumed_fraction']:.4f}"
+                          for b2, r in res.items())
+        for b2, r in res.items():
+            check(0.0 <= r["consumed_fraction"] <= 1.0, f"B2={b2} fraction in [0, 1]")
+        print(f"[27 sweep] {run}: {len(cfg.b2_values)} gaits x {cfg.steps} steps on {mesh.n_nodes} "
+              f"nodes, f32 fused on K1: campaign {wall:.2f} s; K1 launches {counts['K1']}; {gaits}")
+    short = dataclasses.replace(cfg, steps=SWEEP_PARITY_STEPS)
+    gpu = sweep.food_capture_sweep(mesh, short, device=dev)
+    host = sweep.food_capture_sweep(mesh, dataclasses.replace(short, precision="f64"), device=CPU)
+    diffs = {b2: abs(gpu[b2]["consumed_fraction"] - host[b2]["consumed_fraction"]) for b2 in gpu}
+    print(f"[27 sweep] {SWEEP_PARITY_STEPS} steps, f32 card vs f64 CPU fractions: " + "; ".join(
+        f"B2={b2:g} {gpu[b2]['consumed_fraction']:.4f} vs {host[b2]['consumed_fraction']:.4f}"
+        for b2 in gpu) + " (within 0.05)")
+    for b2, d in diffs.items():
+        check(d <= 0.05, f"B2={b2}: f32 card fraction {d} from the f64 CPU one")
+
+
+def phase_eulerian_scale(mesh, steps: int = EUL_STEPS) -> None:
+    """Eulerian dye on the grid path at phase 9's size through the user's
+    entry points: K2 once and K3 twice a step, the dye solve (BiCGStab over
+    matrix-free applies) between them; tpufem's scale gates."""
+    t0 = time.perf_counter()
+    cfg = bench_large.bench_config(n_nodes=mesh.n_nodes, transport="eulerian_dye", storage="grid")
+    problem = stokes.StokesProblem.build(mesh, cfg, device=torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(isinstance(problem.visc_solver, grid_cg.ViscousGridCG) and problem.grid_step is None,
+          "Eulerian dye at scale takes the grid path, unfused")
+    zero_launches()
+    cold, state, metrics, warm, state2 = bench_large.run_problem(problem, steps)
+    counts = launch_counts()
+    check(counts == {"K1": 0, "K2": 2 * steps, "K3": 4 * steps, "K4": 0, "K5": 0, "K6": 0},
+          f"launches {counts} in two {steps}-step runs (want K2 = steps, K3 = 2·steps)")
+    phys = bench_large.physics_report(problem, state, metrics, steps)  # raises on a failed gate
+    c = state2["c"]
+    lo, hi = float(c.min()), float(c.max())
+    check(bool(torch.isfinite(c).all()) and lo >= 0.0 and hi <= 1.0, f"c in [0, 1]: [{lo}, {hi}]")
+    prog = float(metrics["mixing_progress"][-1])
+    check(prog > 0.0, f"mixing progress {prog} > 0")
+    prof = profile_run(lambda: stokes.run(problem, steps=EUL_PROFILE_STEPS, state=state2),
+                       EUL_PROFILE_STEPS, top=10)
+    u = state2["u"]
+    dye = profile_run(lambda: [stokes.eulerian_dye_step(problem, c, u)
+                               for _ in range(EUL_PROFILE_STEPS)], EUL_PROFILE_STEPS, top=6)
+    share = dye["device_ms_per_step"] / prof["device_ms_per_step"]
+    print(f"[28 Eulerian scale] {mesh.n_nodes} nodes, {steps}+{steps} steps: build {build_s:.1f} s "
+          f"(locator included), cold {cold:.2f} steps/s, warm {warm:.2f} steps/s; launches "
+          f"{counts}; c in [{lo:.3e}, {hi:.6f}], mixing progress {prog:.4f}; {json.dumps(phys)}")
+    print(f"[28 Eulerian scale] device a warm step: {json.dumps(prof)}")
+    print(f"[28 Eulerian scale] the dye step alone: {dye['device_ms_per_step']:.3f} of "
+          f"{prof['device_ms_per_step']:.3f} device ms a step ({100 * share:.1f} %), "
+          f"{dye['kernels_per_step']:.0f} of {prof['kernels_per_step']:.0f} kernels; "
+          f"{json.dumps(dye['top'])}")
+
+
+def card_and_cpu(mesh, steps: int, dev, **kw):
+    """``stokes.run`` of one configuration from rest on the card and on the
+    CPU: (card state, CPU state), both as float64 on the CPU."""
+    out = []
+    for device in (dev, CPU):
+        problem = stokes.StokesProblem.build(mesh, stokes.StokesConfig(**kw), device=device)
+        state, _ = stokes.run(problem, steps=steps)
+        out.append({k: v.double().cpu() for k, v in state.items() if v.is_floating_point()})
+    return out
+
+
+def phase_eulerian_parity(dev) -> None:
+    """Eulerian dye at f64, card against CPU: the dense penalty path, the
+    grid path (kernels against plain versions); then f32 merge on the card
+    against its f64 run."""
+    mesh = generate_annulus_mesh(*EUL_DENSE_MESH)
+    g, c = card_and_cpu(mesh, EUL_DENSE_STEPS, dev, dt=0.01, nu=1.0, transport="eulerian_dye")
+    du, dc = rel(g["u"], c["u"]), rel(g["c"], c["c"])
+    print(f"[29 Eulerian parity] dense penalty, {mesh.n_nodes} nodes, {EUL_DENSE_STEPS} steps, f64 "
+          f"card vs CPU: u rel {du:.3e} (<= 1e-8), c rel {dc:.3e} (<= {EUL_PENALTY_C_RTOL:g}), "
+          f"max abs {float((g['c'] - c['c']).abs().max()):.3e}")
+    check(du <= 1e-8, f"dense Eulerian u card vs CPU rel {du}")
+    check(dc <= EUL_PENALTY_C_RTOL, f"dense Eulerian c card vs CPU rel {dc}")
+
+    n_side, n_circle = SCALE_PARITY_MESH
+    runs = {}
+    for name, device in (("gpu", dev), ("cpu", CPU)):
+        problem = scale_problem(device, n_side, n_circle, precision="f64",
+                                transport="eulerian_dye")
+        zero_launches()
+        state, _ = stokes.run(problem, steps=SCALE_PARITY_STEPS)
+        runs[name] = (state, launch_counts())
+    (g, kg), (c, kc) = runs["gpu"], runs["cpu"]
+    du = float((g["u"].cpu() - c["u"]).abs().max())
+    dc = float((g["c"].cpu() - c["c"]).abs().max())
+    print(f"[29 Eulerian parity] grid path n_side={n_side}, {SCALE_PARITY_STEPS} steps, f64 card "
+          f"(K2 {kg['K2']}, K3 {kg['K3']} launches) vs CPU (plain, {kc['K2'] + kc['K3']}): max abs "
+          f"du {du:.3e}, dc {dc:.3e} (<= 1e-6)")
+    check(kg["K2"] == SCALE_PARITY_STEPS and kg["K3"] == 2 * SCALE_PARITY_STEPS
+          and kc["K2"] + kc["K3"] == 0, f"grid Eulerian launches card {kg}, CPU {kc}")
+    check(du <= 1e-6 and dc <= 1e-6, f"grid Eulerian card vs CPU max abs du {du}, dc {dc}")
+
+    mesh = bench_mesh()
+    kw = dict(transport="eulerian_dye", solver="inverse", pressure_mode="merge")
+    runs = {}
+    for precision in ("f64", "f32"):
+        problem = stokes.StokesProblem.build(mesh, stokes.StokesConfig(precision=precision, **kw),
+                                             device=dev)
+        runs[precision], _ = stokes.run(problem, steps=EUL_F32_STEPS)
+    dc = rel(runs["f32"]["c"], runs["f64"]["c"])
+    print(f"[29 Eulerian parity] dense merge f32 vs f64 (penalty dye solve) on the card, "
+          f"{mesh.n_nodes} nodes, {EUL_F32_STEPS} steps: c rel {dc:.3e} (<= 5e-3), u rel "
+          f"{rel(runs['f32']['u'], runs['f64']['u']):.3e}")
+    check(dc <= 5e-3, f"f32 Eulerian c vs f64 rel {dc}")
+
+
+def phase_variants(dev) -> None:
+    """The report variant (dense LU penalty, then CSR), griddata dye and
+    dense_ops=False, f64 card against CPU; the report path's steps/s."""
+    mesh = bench_mesh()
+    report = dict(variant="report", bc_kind="rotating", dt=1e-5, ramp_steps=200,
+                  pressure_smoothing=0.01, double_projection=False)
+    g, c = card_and_cpu(mesh, REPORT_STEPS, dev, **report)
+    du = rel(g["u"], c["u"])
+    problem = stokes.StokesProblem.build(mesh, stokes.StokesConfig(**report), device=dev)
+    sps, state, metrics = timed_run(problem, REPORT_TIMED_STEPS)
+    sps2, _, _ = timed_run(problem, REPORT_TIMED_STEPS)
+    check(bool(torch.isfinite(state["u"]).all()), "report u is finite")
+    print(f"[30 variants] report (tpufem's CLI configuration), {mesh.n_nodes} nodes, "
+          f"{REPORT_STEPS} steps f64 card vs CPU: u rel {du:.3e} (<= 1e-8); {REPORT_TIMED_STEPS} "
+          f"steps on the card: {sps:.1f} then {sps2:.1f} steps/s, max|u| "
+          f"{float(metrics['max_u'][-1]):.4f}, final div {float(metrics['final_div_max'][-1]):.3e}")
+    check(du <= 1e-8, f"report u card vs CPU rel {du}")
+
+    small = generate_annulus_mesh(*SCALE_PARITY_MESH)
+    g, c = card_and_cpu(small, SCALE_PARITY_STEPS, dev, solver="cg", cg_storage="csr", **report)
+    checks = {"report CSR": (rel(g["u"], c["u"]), 1e-9)}
+    for name, kw in (("griddata", dict(transport="dye_griddata")),
+                     ("dense_ops=False", dict(dense_ops=False, transport="dye"))):
+        g, c = card_and_cpu(mesh, VARIANT_STEPS, dev, dt=0.01, nu=1.0, solver="inverse",
+                            pressure_mode="merge", **kw)
+        checks[name] = (max(rel(g["u"], c["u"]), float((g["c"] - c["c"]).abs().max())), 1e-10)
+    print(f"[30 variants] f64 card vs CPU: report on CSR (Jacobi) at {small.n_nodes} nodes, "
+          f"{SCALE_PARITY_STEPS} steps; griddata and dense_ops=False at {mesh.n_nodes} nodes, "
+          f"{VARIANT_STEPS} steps (u rel, c max abs): " + "; ".join(
+              f"{k} {v:.3e} (<= {lim:g})" for k, (v, lim) in checks.items()))
+    for k, (v, lim) in checks.items():
+        check(v <= lim, f"{k} card vs CPU {v} > {lim}")
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -1645,6 +1859,7 @@ def main() -> None:
     timed(21, phase_k5_tracers, dev)
     timed(22, phase_gridify, dev)
     k6_main, k6_launches = sharded_phases([dev] * SHARDS, big, build_s)
+    scale_mesh = big.mesh
     del big, k5_problems, unfused, old_ops
     torch.cuda.empty_cache()
     timed(12, phase_ns_build, build_s)
@@ -1653,6 +1868,12 @@ def main() -> None:
     ns_launches = timed(14, phase_ns_main_path, ns_big, ns_build_s)
     timed(15, phase_ns_grid_parity, dev)
     timed(16, phase_ns_dense_parity, dev)
+    del ns_big
+    torch.cuda.empty_cache()
+    timed(27, phase_sweep, dev)
+    timed(28, phase_eulerian_scale, scale_mesh)
+    timed(29, phase_eulerian_parity, dev)
+    timed(30, phase_variants, dev)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",

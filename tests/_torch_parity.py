@@ -44,6 +44,7 @@ def jax_problem_arrays(problem) -> dict[str, np.ndarray]:
     for f in dataclasses.fields(problem.boundary):
         arrays[f"boundary.{f.name}"] = np.asarray(getattr(problem.boundary, f.name))
     arrays["inner_values"] = np.asarray(problem.inner_values)
+    arrays["pressure_pin"] = np.asarray(problem.pressure_pin)
     loc = problem.locator
     if loc is not None:
         arrays.update({

@@ -88,6 +88,11 @@ def test_bc_matrix_surgery_and_values():
         jbc.periodic_penalty(jnp.asarray(K), b.masters, b.slaves),
     )
     np.testing.assert_array_equal(
+        tbc.periodic_penalty_device(torch.tensor(K), torch.as_tensor(b.masters, dtype=torch.int64),
+                                    torch.as_tensor(b.slaves, dtype=torch.int64)).numpy(),
+        jbc.periodic_penalty(jnp.asarray(K), b.masters, b.slaves),
+    )
+    np.testing.assert_array_equal(
         tbc.squirmer_values(tm.coords, b.inner, B1=-2.0, B2=3.0),
         jbc.squirmer_values(jm.coords, b.inner, B1=-2.0, B2=3.0),
     )

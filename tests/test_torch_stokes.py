@@ -136,11 +136,11 @@ def test_f32_port_tracks_tpufem_f64():
     "kw,error",
     [
         (dict(solver="cg", cg_storage="stencil"), NotImplementedError),
-        (dict(variant="report"), NotImplementedError),
-        (dict(transport="eulerian_dye"), NotImplementedError),
+        (dict(solver="cg", cg_precond_bf16="on"), NotImplementedError),
+        (dict(transport="eulerian_dye", locator="topk"), NotImplementedError),
         (dict(transport="dye", locator="topk"), NotImplementedError),
         (dict(solver="cg", cg_storage="banded"), NotImplementedError),
-        (dict(dense_ops=False), NotImplementedError),
+        (dict(transport="dye_griddata", locator="topk"), NotImplementedError),
         (dict(precision="bf16", pressure_mode="merge"), NotImplementedError),
         (dict(precision="f32", pressure_mode="penalty"), ValueError),
         (dict(fused=True), ValueError),
@@ -152,6 +152,66 @@ def test_unported_or_invalid_config_refused(kw, error):
     _, tm = meshes(12, 16)
     with pytest.raises(error):
         tstokes.StokesProblem.build(tm, tstokes.StokesConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(variant="report", precision="f32", pressure_mode="merge"),
+        dict(variant="report", fused=True, pressure_mode="merge"),
+        dict(fused=True, pressure_mode="merge", dense_ops=False),
+        dict(solver="cg", transport="dye_griddata"),
+        dict(variant="smooth"),
+    ],
+    ids=["report-f32", "report-fused", "fused-no-dense-ops", "cg-griddata", "unknown-variant"],
+)
+def test_invalid_variant_config_refused_as_tpufem(kw):
+    """tpufem's own refusals of the report variant, griddata dye and the
+    fused step, as ValueErrors."""
+    _, tm = meshes(12, 16)
+    with pytest.raises(ValueError):
+        tstokes.StokesProblem.build(tm, tstokes.StokesConfig(**kw), device="cpu")
+
+
+DENSE_MERGE = dict(solver="inverse", pressure_mode="merge")
+CSR = dict(solver="cg", cg_storage="csr")
+# The configuration branches of the dense and CSR paths, f64, 10 steps from
+# rest on (12, 16): measured ≤ 3.4e-16 relative in u (tracers 2.8e-16 max
+# abs) on the CPU, held at 1e-12.
+BRANCHES = {
+    "dense-lu-merge": dict(solver="lu", pressure_mode="merge"),
+    "dense-rotating-ramp": dict(DENSE_MERGE, bc_kind="rotating", ramp_steps=5),
+    "dense-all-walls": dict(DENSE_MERGE, all_walls=True, outer_value=(1.0, 0.0)),
+    "dense-outer-value": dict(DENSE_MERGE, outer_value=(0.5, 0.0)),
+    "dense-body-force": dict(DENSE_MERGE, body_force=(0.1, 0.0)),
+    "dense-dirichlet-lift": dict(DENSE_MERGE, dirichlet_lift=True),
+    "dense-single-projection": dict(DENSE_MERGE, double_projection=False),
+    "dense-pusher": dict(DENSE_MERGE, B2=-5.0),
+    "fused-rk2-tracers": dict(DENSE_MERGE, fused=True, transport="tracers", tracer_density=15,
+                              tracer_method="rk2"),
+    "csr-jacobi": dict(CSR),
+    "csr-twolevel-tol": dict(CSR, cg_precond="twolevel", cg_tol_pressure=1e-10),
+    "csr-cold-start": dict(CSR, cg_warm_start=False),
+}
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_configuration_branches_match_tpufem(branch):
+    kw = dict(BASE, **BRANCHES[branch])
+    jm, tm = meshes(12, 16)
+    jp = jstokes.StokesProblem.build(jm, jstokes.StokesConfig(**kw))
+    s0 = _jax_initial_state(jp)
+    s1, m1 = jstokes.run(jp, steps=10, state=dict(s0))
+    tp = tstokes.StokesProblem.build(tm, tstokes.StokesConfig(**kw), device="cpu")
+    out, metrics = tstokes.run(tp, steps=10, state=interop.state_from_numpy(
+        {k: np.asarray(v) for k, v in s0.items()}, device="cpu"))
+    assert rel(out["u"].numpy(), np.asarray(s1["u"])) < 1e-12
+    np.testing.assert_allclose(metrics["final_div_max"].numpy(), np.asarray(m1["final_div_max"]),
+                               rtol=1e-10)
+    if "tracers" in s1:
+        np.testing.assert_allclose(out["tracers"].numpy(), np.asarray(s1["tracers"]), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_array_equal(out["tracer_status"].numpy(), np.asarray(s1["tracer_status"]))
 
 
 def test_grid_steps_per_call_ignored_on_csr_storage():

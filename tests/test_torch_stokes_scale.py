@@ -129,7 +129,6 @@ def test_grid_steps_per_call_builds_k5():
         ("stencil", {}, "item 5"),
         ("banded", {}, "item 5"),
         ("grid", dict(cg_precond_bf16="on"), "item 6"),
-        ("grid", dict(variant="report"), "item 10"),
     ],
 )
 def test_unported_scale_settings_refused(storage, kw, item):

@@ -83,6 +83,19 @@ def periodic_penalty(A: np.ndarray, masters, slaves, penalty: float = PENALTY) -
     return A
 
 
+def periodic_penalty_device(A: torch.Tensor, masters: torch.Tensor, slaves: torch.Tensor,
+                            penalty: float = PENALTY) -> torch.Tensor:
+    """:func:`periodic_penalty` of a matrix that lives on the device (one
+    rebuilt every step), out of place; ``masters``/``slaves`` are int64
+    index tensors on its device, and repeated indices accumulate."""
+    rows = torch.cat([masters, slaves, masters, slaves])
+    cols = torch.cat([masters, slaves, slaves, masters])
+    k = len(masters)
+    vals = torch.full((4 * k,), penalty, dtype=A.dtype, device=A.device)
+    vals[2 * k:] = -penalty
+    return A.index_put((rows, cols), vals, accumulate=True)
+
+
 def squirmer_values(
     coords: np.ndarray,
     idx: np.ndarray,

@@ -9,8 +9,14 @@ Dense regime:
 
     ``visc_solver.lu`` + ``visc_solver.piv`` (SciPy 0-based pivots) or
     ``visc_solver.inv``; the same under ``pressure_solver.``;
-    ``div_x``, ``div_y``; optionally ``fused_M``, ``fused_b``,
-    ``fused_Dstar``, ``fused_dstar0`` and ``visc_lift``.
+    ``div_x``, ``div_y`` (left out under ``dense_ops=False``); optionally
+    ``fused_M``, ``fused_b``, ``fused_Dstar``, ``fused_dstar0`` and
+    ``visc_lift``; for ``pressure_smoothing > 0`` the smoothing solver as
+    ``smooth_solver.<lu|piv|inv>`` (as the other solvers); for
+    ``variant="report"`` ``pressure_pin`` (the pinned node, a 0-d integer);
+    for ``transport="eulerian_dye"`` ``eul_M`` (consistent mass), ``eul_K``
+    (stiffness) and, at f32, ``eul_Mg`` (periodic merge map); for
+    ``"dye_griddata"`` ``eul_K``.
 
 Scale regime, grid storage (``solver="cg"``), with the JAX package's
 grid-operator layout (its one-hot remainder is turned back into the port's
@@ -197,12 +203,18 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
     fused = None
     if "fused_M" in arrays:
         fused = tuple(dev_array(k) for k in ("fused_M", "fused_b", "fused_Dstar", "fused_dstar0"))
+    smooth = None
+    if any(k.startswith("smooth_solver.") for k in arrays):
+        smooth = _solver(arrays, "smooth_solver", dev)
     return StokesProblem.from_host(
         mesh, config, dev,
         visc_solver=_solver(arrays, "visc_solver", dev),
         pressure_solver=_solver(arrays, "pressure_solver", dev),
         div_xy=(dev_array("div_x"), dev_array("div_y")),
         fused=fused,
+        smooth_solver=smooth,
+        pressure_pin=int(arrays.get("pressure_pin", -1)),
+        eul=tuple(dev_array(k) for k in ("eul_M", "eul_K", "eul_Mg")),
         **common,
     )
 

@@ -69,6 +69,21 @@ def divergence(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
     return _lump(mesh, element_divergence(mesh, u))
 
 
+def mass_apply(mesh: Mesh, c: torch.Tensor) -> torch.Tensor:
+    """Matrix-free consistent-mass product M·c, never materialized: per
+    element (M^e c)_i = (A/12)(2c_i + c_j + c_k), the local mass of
+    ``assembly.element_mass``."""
+    dtype, dev = c.dtype, c.device
+    geo = mesh.tensors(dtype, dev)
+    tris = geo["tris"]
+    c_loc = c[tris]  # (T, 3)
+    tot = c_loc.sum(dim=1, keepdim=True)
+    w = geo["valid"].to(dtype) * geo["area"] / 12.0
+    contrib = w[:, None] * (tot + c_loc)
+    return torch.zeros(mesh.n_nodes, dtype=dtype, device=dev).index_add_(
+        0, tris.reshape(-1), contrib.reshape(-1))
+
+
 def convection_apply(mesh: Mesh, u: torch.Tensor, c: torch.Tensor,
                      variant: str = "stokescolor") -> torch.Tensor:
     """Matrix-free convection product C(u)·c, never materialized:

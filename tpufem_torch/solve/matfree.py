@@ -78,7 +78,7 @@ class ViscousCG:
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None) -> torch.Tensor:
         diag = 1.0 + self.dt_nu * self.K.diag()
         inv_diag = torch.where(self.interior_mask > 0, 1.0 / diag, torch.ones_like(diag))
-        precond = lambda r: (inv_diag * r.T).T  # (N,) and (N, k) residuals
+        precond = lambda r: inv_diag * r if r.ndim == 1 else inv_diag[:, None] * r
         return _solve_columns(self.matvec, b, x0=x0, tol=self.tol, iters=self.iters,
                               precond=precond)
 

@@ -1,16 +1,21 @@
 """Operator-split Stokes solver with squirmer BCs and transport.
 
-The PyTorch counterpart of ``tpufem.workloads.stokes`` (``variant="color"``)
-in its two regimes: the dense one (``solver="lu"`` or ``"inverse"``) and the
-matrix-free scale regime (``solver="cg"``).  Per step:
+The PyTorch counterpart of ``tpufem.workloads.stokes`` in its two regimes:
+the dense one (``solver="lu"`` or ``"inverse"``) and the matrix-free scale
+regime (``solver="cg"``).  Per step (``variant="color"``):
 
   1. implicit viscous solve  (I + Δt·ν·K) u* = uⁿ + Δt·F
   2. periodic copy + Dirichlet/squirmer overwrite on u*
   3. lumped divergence → pressure solve, u = u* − Δt·∇p, BCs again
   4. second projection applied to interior nodes only
   5. metrics: max|div u*|, max|div u| final, max|u|
-  6. optional transport: semi-Lagrangian dye + mixing index, or tracer
-     advection + capture statistics
+  6. optional transport: semi-Lagrangian dye, implicit Eulerian dye or
+     departure-point ("griddata") dye, each with the mixing index; or
+     tracer advection + capture statistics
+
+``variant="report"`` writes the BC values into the viscous right-hand side,
+pins and de-means the pressure, optionally smooths it with an (I + αK)
+solve, and projects once (:func:`_report_projection_step`).
 
 Dense regime: all matrices are assembled, factored and (with
 ``fused=True``) composed once on the host in float64; a fused step is then
@@ -47,7 +52,7 @@ from tpufem_torch.solve.dense import DenseInverse, make_dense_solver
 from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
 from tpufem_torch.solve.grid_step import GridStokesStep
 from tpufem_torch.solve.matfree import PressureCG, ViscousCG
-from tpufem_torch.solve.pressure import merged_pressure_apply_matrix
+from tpufem_torch.solve.pressure import merge_map, merged_pressure_apply_matrix
 
 
 @dataclasses.dataclass
@@ -105,12 +110,12 @@ class StokesConfig:
     matvec_impl: str = "xla"  # "xla": torch.addmv | "pallas": kernel K1 on CUDA
     fused: bool = False  # compose the whole velocity update into one (2N,2N) map
     double_projection: bool = True  # second, interior-only projection
-    variant: str = "color"  # "report" is not ported
-    pressure_smoothing: float = 0.0  # used by the "report" variant only
+    variant: str = "color"  # | "report": pinned pressure, optional smoothing, one projection
+    pressure_smoothing: float = 0.0  # α of the "report" variant's (I+αK) smoothing; 0 = off
     dirichlet_lift: bool = False  # lift eliminated Dirichlet columns into the RHS
     # transport
-    transport: str = "none"  # "none" | "dye" | "tracers"
-    D: float = 1e-3  # dye diffusivity (Eulerian dye, not ported)
+    transport: str = "none"  # "none" | "dye" | "tracers" | "eulerian_dye" | "dye_griddata"
+    D: float = 1e-3  # dye diffusivity (Eulerian and griddata dye)
     dye_threshold: float = 0.5  # initial dye: c=1 where x < threshold
     tracer_density: int = 25
     capture_radius: float = 0.28
@@ -121,6 +126,7 @@ class StokesConfig:
 
 
 _TRANSPORTS = ("none", "dye", "tracers", "eulerian_dye", "dye_griddata")
+_DYE_TRANSPORTS = ("dye", "eulerian_dye", "dye_griddata")  # half-domain dye, mixing index
 _STORAGES = ("auto", "grid", "grid_interpret", "csr", "stencil", "banded")
 
 
@@ -136,13 +142,9 @@ def check_config(config: StokesConfig) -> None:
     the ``cg_*`` fields concern ``solver="cg"`` only."""
     if config.transport not in _TRANSPORTS:
         raise ValueError(f"unknown transport {config.transport!r}; expected one of {_TRANSPORTS}")
-    if config.transport in ("eulerian_dye", "dye_griddata"):
-        raise _not_ported(f"transport={config.transport!r}", "10")
     if config.solver not in ("lu", "inverse", "cg"):
         raise ValueError(f"unknown solver method: {config.solver}")
-    if config.variant == "report":
-        raise _not_ported("variant='report'", "10")
-    if config.variant != "color":
+    if config.variant not in ("color", "report"):
         raise ValueError(f"unknown variant {config.variant!r}")
     if config.locator == "topk":
         raise _not_ported("locator='topk' (TopKLocator)", "3")
@@ -156,18 +158,25 @@ def check_config(config: StokesConfig) -> None:
     if config.solver == "cg":
         _check_cg(config)
         return
-    if not config.dense_ops:
-        raise _not_ported("dense_ops=False with a dense solver (sparse div/grad)", "5")
     if config.precision != "f64" and config.pressure_mode != "merge":
         raise ValueError(
             "the ±1e10 penalty pressure operator is numerically unusable below "
             "f64; use pressure_mode='merge' (exact periodic)"
         )
+    if config.variant == "report" and not (
+            config.pressure_mode == "penalty" and config.precision == "f64" and not config.fused):
+        raise ValueError("the 'report' variant implements the reference's pinned f64 path: "
+                         "pressure_mode='penalty', precision='f64', fused=False")
     if config.fused and (config.pressure_mode != "merge" or config.ramp_steps != 0):
         raise ValueError("fused step requires pressure_mode='merge' and no BC ramp")
+    if config.fused and not config.dense_ops:
+        raise ValueError("fused step requires dense_ops=True (it composes the dense div/grad)")
 
 
 def _check_cg(config: StokesConfig) -> None:
+    if config.transport == "dye_griddata":
+        raise ValueError("dye_griddata needs the dense regime (its explicit diffusion uses the "
+                         "dense stiffness); use solver='lu'/'inverse'")
     if config.fused:
         raise ValueError("fused and cg are mutually exclusive")
     if config.cg_storage not in _STORAGES:
@@ -210,6 +219,11 @@ class StokesProblem:
     mf_dy: Any = None
     grid_step: GridStokesStep | None = None  # K5, under grid_steps_per_call ≥ 1
     gridified: Any = None  # mesh.gridify.Gridified when the mesh was renumbered
+    smooth_solver: Any = None  # (I+αK) pinned pressure smoothing ("report" variant)
+    pressure_pin: int = -1  # pinned pressure node ("report" variant)
+    eul_M: torch.Tensor | None = None  # (N,N) consistent mass (dense Eulerian dye)
+    eul_K: torch.Tensor | None = None  # (N,N) stiffness (dense Eulerian and griddata dye)
+    eul_Mg: torch.Tensor | None = None  # (N,N_act) periodic merge map (f32 Eulerian dye)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -222,12 +236,16 @@ class StokesProblem:
     def div(self, u: torch.Tensor) -> torch.Tensor:
         if self.div_x is not None:
             return self.div_x @ u[:, 0] + self.div_y @ u[:, 1]
-        return self.mf_dx.matvec(u[:, 0]) + self.mf_dy.matvec(u[:, 1])
+        if self.mf_dx is not None:
+            return self.mf_dx.matvec(u[:, 0]) + self.mf_dy.matvec(u[:, 1])
+        return calculus.divergence(self.mesh, u)  # dense solvers, dense_ops=False
 
     def grad(self, p: torch.Tensor) -> torch.Tensor:
         if self.div_x is not None:
             return torch.stack([self.div_x @ p, self.div_y @ p], dim=1)
-        return torch.stack([self.mf_dx.matvec(p), self.mf_dy.matvec(p)], dim=1)
+        if self.mf_dx is not None:
+            return torch.stack([self.mf_dx.matvec(p), self.mf_dy.matvec(p)], dim=1)
+        return calculus.gradient(self.mesh, p)
 
     @classmethod
     def build(cls, mesh: Mesh, config: StokesConfig = StokesConfig(), device=None) -> "StokesProblem":
@@ -261,6 +279,8 @@ class StokesProblem:
         # viscous system: (I + Δt·ν·K), symmetric Dirichlet surgery
         A_visc = bc.dirichlet_rows_cols(np.eye(n) + config.dt * config.nu * K, boundary.dirichlet)
 
+        # "report": the first interior node pins the pressure gauge
+        pressure_pin = _pressure_pin(mesh, config)
         if config.pressure_mode == "merge":
             A_eff = merged_pressure_apply_matrix(mesh, m_lumped, boundary.masters, boundary.slaves)
             pressure_solver = DenseInverse(inv=torch.as_tensor(A_eff, dtype=dtype, device=dev))
@@ -268,14 +288,34 @@ class StokesProblem:
             A_p = K / (m_lumped[:, None] + 1e-12)
             if len(boundary.masters):
                 A_p = bc.periodic_penalty(A_p, boundary.masters, boundary.slaves)
+            if pressure_pin >= 0:
+                A_p = bc.dirichlet_rows_cols(A_p, [pressure_pin])
             pressure_solver = make_dense_solver(A_p, config.solver, dtype=dtype, device=dev)
+
+        smooth_solver = None
+        if config.pressure_smoothing > 0:
+            S = np.eye(n) + config.pressure_smoothing * K
+            if pressure_pin >= 0:
+                S = bc.dirichlet_rows_cols(S, [pressure_pin])
+            smooth_solver = make_dense_solver(S, config.solver, dtype=dtype, device=dev)
+
+        eul = (None, None, None)  # (M, K, merge map) of the dense Eulerian/griddata dye
+        if config.transport == "dye_griddata":
+            eul = (None, K, None)
+        elif config.transport == "eulerian_dye":
+            M = assembly.assemble_dense(mesh, assembly.element_mass(mesh)).numpy()
+            Mg = None
+            if config.precision != "f64":
+                Mg = merge_map(n, boundary.masters, boundary.slaves)
+            eul = (M, K, Mg)
 
         if config.precision == "f64":
             visc_solver = make_dense_solver(A_visc, config.solver, dtype=dtype, device=dev)
         else:
             visc_solver = DenseInverse.factor(A_visc, dtype=dtype, device=dev)
 
-        dx, dy = calculus.divergence_matrices(mesh)
+        # dense_ops=False: div/grad by index_add_ each step (StokesProblem.div)
+        dx, dy = calculus.divergence_matrices(mesh) if config.dense_ops else (None, None)
         inner_values = _inner_values(mesh, boundary, config)
         visc_lift = None
         if config.dirichlet_lift:
@@ -300,13 +340,14 @@ class StokesProblem:
             mesh, config, dev, boundary=boundary, visc_solver=visc_solver,
             pressure_solver=pressure_solver, inner_values=inner_values,
             m_lumped=m_lumped, div_xy=(dx, dy), fused=fused, visc_lift=visc_lift,
-            locator=locator, tracer_init=tracer_init,
+            locator=locator, tracer_init=tracer_init, smooth_solver=smooth_solver,
+            pressure_pin=pressure_pin, eul=eul,
         )
 
     @classmethod
     def _build_matfree(cls, mesh, config, boundary, m_lumped, dtype, dev) -> "StokesProblem":
         """The scale regime: sparse operators and CG solvers, no dense matrix."""
-        visc, pressure, mf_dx, mf_dy = _build_matfree_problem_fields(
+        visc, pressure, mf_dx, mf_dy, smooth, pin = _build_matfree_problem_fields(
             mesh, config, boundary, m_lumped, dtype, dev)
         inner_values = _inner_values(mesh, boundary, config)
         visc_lift = None
@@ -330,16 +371,18 @@ class StokesProblem:
             mesh, config, dev, boundary=boundary, visc_solver=visc, pressure_solver=pressure,
             inner_values=inner_values, m_lumped=m_lumped, div_xy=(None, None),
             visc_lift=visc_lift, locator=locator, tracer_init=tracer_init,
-            mf_dxy=(mf_dx, mf_dy),
+            mf_dxy=(mf_dx, mf_dy), smooth_solver=smooth, pressure_pin=pin,
         )
         return dataclasses.replace(problem, grid_step=GridStokesStep.build(problem))
 
     @classmethod
     def from_host(cls, mesh, config, device, *, boundary, visc_solver, pressure_solver,
                   inner_values, m_lumped, div_xy, fused=None, visc_lift=None,
-                  locator=None, tracer_init=None, mf_dxy=(None, None)) -> "StokesProblem":
+                  locator=None, tracer_init=None, mf_dxy=(None, None), smooth_solver=None,
+                  pressure_pin=-1, eul=(None, None, None)) -> "StokesProblem":
         """Assemble a problem from host arrays (moved to ``device``; arrays
-        that are already tensors keep their dtype) and ready solvers."""
+        that are already tensors keep their dtype) and ready solvers;
+        ``eul`` is (eul_M, eul_K, eul_Mg)."""
         dtype = tconfig.dtype(config.precision)
 
         def t(a, dt=dtype):
@@ -372,6 +415,11 @@ class StokesProblem:
             visc_lift=t(visc_lift),
             mf_dx=mf_dxy[0],
             mf_dy=mf_dxy[1],
+            smooth_solver=smooth_solver,
+            pressure_pin=int(pressure_pin),
+            eul_M=t(eul[0]),
+            eul_K=t(eul[1]),
+            eul_Mg=t(eul[2]),
         )
 
 
@@ -383,8 +431,17 @@ def _storage(config: StokesConfig, dev: torch.device) -> str:
     return config.cg_storage
 
 
+def _pressure_pin(mesh, config: StokesConfig) -> int:
+    """The "report" variant's pinned pressure node, the first interior
+    node; -1 (no pin) for the "color" variant."""
+    if config.variant != "report":
+        return -1
+    return int(np.nonzero(mesh.markers == 0)[0][0])
+
+
 def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
-    """(viscous solver, pressure solver, Dx, Dy) of the scale regime.
+    """(viscous solver, pressure solver, Dx, Dy, smoothing solver, pressure
+    pin) of the scale regime.
 
     Storage, as tpufem decides it (``tpufem/workloads/stokes.py:589-670``):
     ``"auto"`` takes the grid on CUDA when the run is f32, N = ns² and the
@@ -396,7 +453,14 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     The operators take the card kernels' split
     (:meth:`~tpufem_torch.ops.gridop.GridOperator.dense_split`) on every
     device, so the kernels and their plain versions apply one split; it is
-    tpufem's wherever tpufem's TPU caps on the remainder do not bind."""
+    tpufem's wherever tpufem's TPU caps on the remainder do not bind.
+
+    The "report" variant pins the pressure, which the grid kernels do not
+    implement: as in tpufem, it takes CSR under every storage (the mesh
+    stays renumbered where ``"grid"`` asked for it), with a pinned
+    :class:`PressureCG` and, for ``pressure_smoothing > 0``, the (I + αK)
+    smoothing as a :class:`ViscousCG` masked at the pin (α for Δt·ν, the
+    viscous iteration cap and the pressure tolerance)."""
     from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
     from tpufem_torch.solve.pressure import owner_map
 
@@ -419,8 +483,10 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     ns = int(round(np.sqrt(n)))
+    pin = _pressure_pin(mesh, config)
     explicit = storage in ("grid", "grid_interpret")
-    if explicit or (storage == "auto_accel" and ns * ns == n and dtype == torch.float32):
+    if pin < 0 and (explicit or (storage == "auto_accel" and ns * ns == n
+                                 and dtype == torch.float32)):
         stream = config.cg_stream_diags == "on" or (config.cg_stream_diags == "auto" and n >= 360_000)
         hbm_io = config.cg_hbm_io == "on" or (config.cg_hbm_io == "auto" and n >= 700_000)
         stream = stream or hbm_io
@@ -446,7 +512,7 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
                     use_coarse=config.cg_precond == "twolevel", coarse_dtype=coarse_dtype,
                     plain=storage == "grid_interpret", **tpu_fields,
                 )
-                return visc, pressure, *mf
+                return visc, pressure, *mf, None, -1
         except GridDecompositionError:
             if explicit:
                 raise  # asked for by name: say why it cannot be had
@@ -473,8 +539,15 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
         K_merged=km, m_lumped=t(m_lumped), masters=boundary.masters, slaves=boundary.slaves,
         active_mask=t(active_mask), iters=config.cg_iters_pressure, precond=config.cg_precond,
         cheby_degree=config.cg_cheby_degree, lmax=lmax, twolevel=tl, tol=config.cg_tol_pressure,
+        pin=pin,
     )
-    return visc, pressure, *mf
+    smooth = None
+    if pin >= 0 and config.pressure_smoothing > 0:
+        pin_mask = np.ones(n)
+        pin_mask[pin] = 0.0
+        smooth = ViscousCG(K=visc.K, interior_mask=t(pin_mask), dt_nu=config.pressure_smoothing,
+                           iters=config.cg_iters_visc, tol=config.cg_tol_pressure)
+    return visc, pressure, *mf, smooth, pin
 
 
 def _bc_field(mesh, boundary, inner_values, config) -> np.ndarray:
@@ -605,7 +678,7 @@ def initial_state(problem: StokesProblem) -> dict:
         if cfg.cg_tol_visc > 0:
             # the viscous CG warm-starts from the previous step's u*
             state["ustar_warm"] = u
-    if cfg.transport == "dye":
+    if cfg.transport in _DYE_TRANSPORTS:
         # half-domain dye
         left = problem.mesh.coords[:, 0] < cfg.dye_threshold
         state["c"] = torch.as_tensor(left, device=dev).to(dtype)
@@ -636,6 +709,9 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
     viscous one; ``warm_out`` is this step's, or None without ``warm``."""
     cfg = problem.config
     dt = cfg.dt
+
+    if cfg.variant == "report":
+        return _report_projection_step(problem, u, bc_scale, warm)
 
     if problem.grid_step is not None:
         # K whole steps in one launch of K5; bc_scale is 1 (K5 refuses ramps)
@@ -708,6 +784,171 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
     return u_new, p, metrics, warm_out
 
 
+def _report_projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale, warm=None):
+    """The "report" step: BC values written into the viscous right-hand
+    side, the periodic copy on u* only, the pinned pressure solve of the
+    de-meaned right-hand side, the optional (I+αK) smoothing of the pinned
+    pressure (then de-meaned), a single projection, and the BCs applied
+    again in walls → periodic → inner order; ``final_div`` is measured
+    before that.  ``warm`` (CG solvers) warm-starts the viscous
+    (``"u_star"``), raw-pressure (``"p"``) and smoothed-pressure (``"p2"``)
+    solves."""
+    cfg = problem.config
+    b = problem.bidx
+    periodic = len(problem.boundary.masters) > 0
+    dt = cfg.dt
+    pin = problem.pressure_pin
+    vals = problem.inner_values * bc_scale
+
+    rhs = u + dt * problem.body_force
+    if problem.visc_lift is not None:
+        rhs = rhs + bc_scale * problem.visc_lift
+    rhs = rhs.index_put((b["walls"],), problem.outer_value)
+    rhs = rhs.index_put((b["inner"],), vals)
+    if warm is not None and "u_star" in warm:
+        u_star_raw = problem.visc_solver.solve(rhs, x0=warm["u_star"])
+    else:
+        u_star_raw = problem.visc_solver.solve(rhs)
+    u_star = u_star_raw
+    if periodic:
+        u_star = bc.apply_periodic_field(u_star, b["masters"], b["slaves"])
+
+    div_star = problem.div(u_star)
+    b_p = -div_star / dt
+    b_p = b_p - torch.mean(b_p)
+    b_p[pin] = 0.0
+    if warm is not None:
+        p_raw = problem.pressure_solver.solve(b_p, x0=warm["p"])
+    else:
+        p_raw = problem.pressure_solver.solve(b_p)
+    p = p_raw
+    if problem.smooth_solver is not None:
+        p = p_raw.clone()
+        p[pin] = 0.0
+        if warm is not None:
+            p = problem.smooth_solver.solve(p, x0=warm["p2"])
+        else:
+            p = problem.smooth_solver.solve(p)
+        p = p - torch.mean(p)
+
+    u_new = u_star - dt * problem.grad(p)
+    final_div = problem.div(u_new)  # measured before the BCs are applied again
+    u_new = u_new.index_put((b["walls"],), problem.outer_value)
+    if periodic:
+        u_new = bc.apply_periodic_field(u_new, b["masters"], b["slaves"])
+    u_new = u_new.index_put((b["inner"],), vals)
+    metrics = {
+        "div_star_max": torch.max(torch.abs(div_star)),
+        "final_div_max": torch.max(torch.abs(final_div)),
+        "max_u": torch.max(torch.abs(u_new)),
+    }
+    warm_out = None
+    if warm is not None:
+        warm_out = {"p": p_raw, "p2": p}
+        if "u_star" in warm:
+            warm_out["u_star"] = u_star_raw
+    return u_new, p, metrics, warm_out
+
+
+def eulerian_dye_step(problem: StokesProblem, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Implicit Eulerian advection–diffusion of the dye:
+
+      A_c = M + Δt (C(u) + D K) + diag(Δt M_L (∇·u))   [slave entries copied]
+      A_c c' = M c,  then clip to [0, 1] and copy master → slave.
+
+    A_c depends on u, so it is assembled and solved on the device every step
+    (dense LU, ``torch.linalg.solve``).  Periodicity: the ±1e10 penalty at
+    f64, the exact DOF merge (``eul_Mg``) at f32.  The scale regime
+    (``solver="cg"``) solves the same system matrix-free
+    (:func:`_eulerian_dye_step_matfree`)."""
+    if problem.eul_M is None:
+        return _eulerian_dye_step_matfree(problem, c, u)
+    cfg = problem.config
+    b = problem.bidx
+    periodic = len(problem.boundary.masters) > 0
+    dt = cfg.dt
+    C = assembly.assemble_dense(problem.mesh, assembly.element_convection(problem.mesh, u))
+    g = dt * (problem.m_lumped * problem.div(u))
+    if periodic:
+        g = g.index_put((b["slaves"],), g[b["masters"]])
+    A_c = problem.eul_M + dt * (C + cfg.D * problem.eul_K) + torch.diag(g)
+    rhs = problem.eul_M @ c
+    if problem.eul_Mg is None:
+        if periodic:
+            A_c = bc.periodic_penalty_device(A_c, b["masters"], b["slaves"])
+        c_new = torch.linalg.solve(A_c, rhs)
+    else:
+        mg = problem.eul_Mg
+        c_new = mg @ torch.linalg.solve(mg.T @ A_c @ mg, mg.T @ rhs)
+    c_new = torch.clamp(c_new, 0.0, 1.0)
+    if periodic:
+        c_new = bc.apply_periodic_field(c_new, b["masters"], b["slaves"])
+    return c_new
+
+
+def _eulerian_dye_step_matfree(problem: StokesProblem, c: torch.Tensor,
+                               u: torch.Tensor) -> torch.Tensor:
+    """:func:`eulerian_dye_step` for the scale regime: the same system,
+    solved by ``cg_iters_dye`` Jacobi-preconditioned BiCGStab iterations over
+    matrix-free applies (consistent mass, convection and the viscous
+    solver's stiffness operator, CSR or grid) in the merged-periodic space;
+    no matrix is formed."""
+    from tpufem_torch.solve.cg import bicgstab_fixed
+
+    cfg = problem.config
+    mesh = problem.mesh
+    periodic = len(problem.boundary.masters) > 0
+    m, s = problem.bidx["masters"], problem.bidx["slaves"]
+    dt = cfg.dt
+    active = problem.pressure_solver.active_mask.to(c.dtype)
+    K = problem.visc_solver.K
+
+    g = dt * (problem.m_lumped * problem.div(u))
+    if periodic:
+        g = g.index_put((s,), g[m])
+
+    def spread(x):
+        return x.index_put((s,), x[m]) if periodic else x
+
+    def fold(z):
+        if periodic:
+            z = z.index_add(0, m, z[s]) * active
+        return z
+
+    def A(x):
+        xf = spread(x)
+        z = (calculus.mass_apply(mesh, xf)
+             + dt * (calculus.convection_apply(mesh, u, xf) + cfg.D * K.matvec(xf))
+             + g * xf)
+        return fold(z)
+
+    rhs = fold(calculus.mass_apply(mesh, c))
+    md = problem.m_lumped
+    if periodic:
+        md = md.index_add(0, m, md[s])
+    inv_diag = torch.where(active > 0, 1.0 / (md + g), torch.ones_like(md))
+    x0 = c * active if periodic else c
+    c_new, _ = bicgstab_fixed(A, rhs, x0=x0, iters=cfg.cg_iters_dye,
+                              precond=lambda r: inv_diag * r)
+    c_new = torch.clamp(spread(c_new), 0.0, 1.0)
+    if periodic:
+        c_new = bc.apply_periodic_field(c_new, m, s)
+    return c_new
+
+
+def griddata_dye_step(problem: StokesProblem, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Departure-point dye: linear interpolation of c at x − Δt·u on the
+    mesh (0 outside it), then, for D > 0, explicit diffusion
+    c + Δt·D·(K c) clipped to [0, 1] (with D = 0 the values stay
+    unclipped)."""
+    cfg = problem.config
+    dep = problem.locator.coords - cfg.dt * u
+    vals, _ = transport.interpolate(problem.mesh, c, dep, problem.locator)
+    if cfg.D > 0:
+        vals = torch.clamp(vals + cfg.dt * cfg.D * (problem.eul_K @ vals), 0.0, 1.0)
+    return vals
+
+
 def make_step(problem: StokesProblem, var0=None):
     """The step function: state → (state, metrics), all on the device."""
     cfg = problem.config
@@ -716,7 +957,9 @@ def make_step(problem: StokesProblem, var0=None):
 
     def step(state):
         if cfg.ramp_steps > 0:
-            ramp = torch.clamp(state["step"].to(problem.dtype) / cfg.ramp_steps, max=1.0)
+            # the "report" variant ramps by (step + 1)/ramp_steps, "color" by step/ramp_steps
+            num = state["step"] + (1 if cfg.variant == "report" else 0)
+            ramp = torch.clamp(num.to(problem.dtype) / cfg.ramp_steps, max=1.0)
         else:
             ramp = 1.0
         warm = None
@@ -731,10 +974,15 @@ def make_step(problem: StokesProblem, var0=None):
             new_state["p2_warm"] = warm_out["p2"]
             if "u_star" in warm_out:
                 new_state["ustar_warm"] = warm_out["u_star"]
-        if cfg.transport == "dye":
-            c = transport.advect_semilagrange(
-                mesh, problem.locator, state["c"], u, cfg.dt, L=cfg.L, H=cfg.H
-            )
+        if cfg.transport in _DYE_TRANSPORTS:
+            if cfg.transport == "dye":
+                c = transport.advect_semilagrange(
+                    mesh, problem.locator, state["c"], u, cfg.dt, L=cfg.L, H=cfg.H
+                )
+            elif cfg.transport == "eulerian_dye":
+                c = eulerian_dye_step(problem, state["c"], u)
+            else:
+                c = griddata_dye_step(problem, state["c"], u)
             _, _, var = transport.mixing_index(c, problem.m_lumped, mask=interior_mask)
             new_state["c"] = c
             metrics["mixing_var"] = var
@@ -758,7 +1006,7 @@ def make_step(problem: StokesProblem, var0=None):
 
 def _metric_dtypes(problem: StokesProblem) -> dict[str, torch.dtype]:
     keys = {k: problem.dtype for k in ("div_star_max", "final_div_max", "max_u")}
-    if problem.config.transport == "dye":
+    if problem.config.transport in _DYE_TRANSPORTS:
         keys["mixing_var"] = problem.dtype
     elif problem.config.transport == "tracers":
         keys["eaten"] = torch.int64
@@ -796,7 +1044,7 @@ def run(problem: StokesProblem, steps: int | None = None, state: dict | None = N
         state, m = step(state)
         for key, series in metrics.items():
             series[i * k:(i + 1) * k] = m[key]
-    if cfg.transport == "dye":
+    if cfg.transport in _DYE_TRANSPORTS:
         var0 = dye_baseline(problem, initial_state(problem))
         metrics["mixing_progress"] = 1.0 - metrics["mixing_var"] / (var0 + 1e-16)
     return state, metrics
