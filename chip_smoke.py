@@ -147,6 +147,31 @@ Phases 27–30, the rest of the Stokes workload (no new kernel), run last:
     10 steps (1e-9); griddata dye and ``dense_ops=False`` over 20 steps
     (1e-10).
 
+Phases 31–35, Poisson, heat, the small workloads and the dense Taylor–Hood
+solvers (no kernel: each checks that none of K1–K6 launches on its path),
+run last:
+
+31. Poisson at scale: ``bench_large.run_poisson_large`` (tpufem's
+    configuration: f32, two-level BiCGStab on the CSR surgery operator, at
+    most 2000 iterations, tol 1e-6) on phase 9's mesh; tpufem's gates
+    (relative residual < 1e-4, Dirichlet values within 1e-3); build, first
+    and second solve seconds, iterations, device ms and kernels an
+    iteration, the index kernels' share and the busy share (profiler);
+    then the same operator on the card's grid split (plain apply) beside
+    CSR: ms an apply against each one's byte bound, and the solve on each;
+32. heat at scale: ``bench_large.run_heat_large`` (f32, 50 steps) at
+    160,000 nodes and on phase 9's mesh; u in [−1e-2, 1 + 1e-2]; cold and
+    warm steps/s, iterations and device ms a step;
+33. f64 card against the port's CPU path on ``generate_annulus_mesh(20,
+    24)``: Poisson (lu, inverse, cg), heat (lu, cg; 50 steps),
+    advection–diffusion (100 steps), graph average; dense 1e-10, CG 1e-9;
+34. Stam's grid solver: ``StamConfig()`` (200², f32) for 400 frames, cold
+    then warm, frames/s and kernels a frame; at f64 and size 64, each of 50
+    card frames from the CPU's state within 1e-10 of the CPU's frame;
+35. the dense Taylor–Hood solvers on ``p2_refine(generate_annulus_mesh(28,
+    32))`` (5,192 dofs): the steady solve under tpufem's residual gate, the
+    θ-scheme 200 steps f64 card against CPU (1e-10), f32 steps/s.
+
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
 the other cards through peer access, and its times there are taken by the
@@ -1778,6 +1803,249 @@ def phase_variants(dev) -> None:
         check(v <= lim, f"{k} card vs CPU {v} > {lim}")
 
 
+# ---------------------------------------------------------------------------
+# Poisson, heat, the small workloads and the dense Taylor–Hood solvers
+# ---------------------------------------------------------------------------
+
+HEAT_STEPS = 50
+SMALL_MESH = (20, 24)
+AD_STEPS = 100
+STAM_FRAMES = 400
+STAM_PROFILE_FRAMES = 5
+STAM_PARITY = dict(size=64, precision="f64")
+STAM_PARITY_FRAMES = 50
+TH_MESH = (28, 32)  # P2-refined: 2,292 velocity nodes, 5,192 dofs
+TH_STEPS = 200
+TH_CONFIG = dict(dt=0.01)
+
+
+def no_kernel_launches(label: str) -> None:
+    """Check that none of K1–K6 launched since the counts were set to 0."""
+    counts = launch_counts()
+    check(not any(counts.values()), f"{label} launched kernels of the port: {counts}")
+
+
+def phase_poisson_scale(dev, mesh) -> None:
+    """tpufem's ``run_poisson_large`` on phase 9's mesh: f32, two-level
+    BiCGStab on the CSR surgery operator, at most 2000 iterations, tol 1e-6;
+    its gates; build, first and second solve seconds, iterations, and the
+    profiler's device time an iteration (the index kernels' share, the
+    device's busy share of the second solve)."""
+    zero_launches()
+    row = bench_large.run_poisson_large(*SCALE_MESH, device=dev, mesh=mesh)
+    no_kernel_launches("the Poisson solve")
+    prof = row.pop("profile_per_iteration")
+    print(f"[31 Poisson] {row['n_nodes']} nodes, f32, {row['storage']} ({row['nnz']} stored "
+          f"entries): build {row['build_s']:.1f} s, "
+          f"solves {row['compile_plus_solve_s']:.3f} then {row['solve_s']:.3f} s, "
+          f"{row['iterations']} iterations ({row['first_iterations']} the first), "
+          f"{1e3 * row['solve_s'] / row['iterations']:.3f} ms an iteration; res_rel "
+          f"{row['res_rel']:.3e} (< 1e-4), Dirichlet off by {row['bc_err_max']:.3e} (< 1e-3); "
+          f"launches of K1-K6 0; {json.dumps(row)}")
+    print(f"[31 Poisson] device an iteration: {prof['device_ms_per_step']:.4f} ms, "
+          f"{prof['kernels_per_step']:.1f} kernels, busy {100 * prof['device_busy_share']:.1f} % "
+          f"of the second solve, index kernels (gathers, index_add_) "
+          f"{100 * prof['index_share']:.1f} %: {json.dumps(prof['top'])}")
+    poisson_storages(dev, mesh)
+    no_kernel_launches("the Poisson storages")
+
+
+def poisson_storages(dev, mesh) -> None:
+    """Phase 31's operator as CSR and on the card's grid split
+    (``GridOperator.dense_split``, its plain apply: rolls and a remainder
+    ``index_add_``), the storage the grid kernels use: device ms an apply of
+    each beside its byte bound, and the two-level BiCGStab solve (f32, tol
+    1e-6, ``poisson.cg_solver_on`` each storage) timed CSR, grid, grid, CSR."""
+    from tpufem_torch.workloads import poisson
+
+    cfg = poisson.PoissonConfig(solver="cg", precision="f32", cg_iters=2000, cg_tol=1e-6)
+    op, K, b, _ = poisson.build_system_csr(mesh, cfg, dev)
+    csr, b = op.astype(torch.float32), b.to(torch.float32)
+    grid = GridOperator.dense_split(K, int(round(mesh.n_nodes ** 0.5)), device=dev)
+    x = torch.randn(mesh.n_nodes, generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    err = rel(grid.matvec(x), csr.matvec(x))
+    n, nnz = mesh.n_nodes, len(csr.indices)
+    bytes_ = {"csr": nnz * (4 + 16) + 8 * n,  # values, int64 rows and columns; x, y
+              "grid": 4 * n * len(grid.offsets) + 20 * grid.n_rest + 8 * n}
+    ms = {k: device_ms(m, x, calls=20) for k, m in (("csr", csr.matvec), ("grid", grid.matvec))}
+    runs = {name: poisson.cg_solver_on(o, K, mesh, cfg) for name, o in (("csr", csr),
+                                                                        ("grid", grid))}
+    solves = {}
+    for name in ("csr", "grid", "grid", "csr"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f, res = runs[name](b)
+        torch.cuda.synchronize()
+        solves.setdefault(name, []).append((time.perf_counter() - t0, runs[name].iterations,
+                                            float(res) / float(torch.linalg.norm(b))))
+    print(f"[31 storage] the Poisson operator ({nnz} CSR entries; grid split "
+          f"{len(grid.offsets)} planes, {grid.n_rest} remainder entries): apply rel {err:.3e} "
+          f"(<= 1e-5); device ms an apply CSR {ms['csr']:.4f} (bound "
+          f"{bytes_['csr'] / HBM_BYTES_PER_S * 1e3:.4f}), grid plain {ms['grid']:.4f} (bound "
+          f"{bytes_['grid'] / HBM_BYTES_PER_S * 1e3:.4f}); solves (s, iterations, res_rel) "
+          f"{json.dumps(solves)}")
+    check(err <= 1e-5, f"grid split apply vs CSR rel {err}")
+    for name, runs_ in solves.items():
+        check(all(r[2] < 1e-4 for r in runs_), f"{name} Poisson solve res_rel {runs_}")
+
+
+def phase_heat_scale(dev, mesh) -> None:
+    """tpufem's ``run_heat_large`` (f32, warm-started BiCGStab on
+    I + dt·K_mod, 50 steps) at 160,000 nodes and on phase 9's mesh; u in
+    [−1e-2, 1 + 1e-2]; cold and warm steps/s, iterations and device ms a
+    step."""
+    for n_side, n_circle, given in (MID_MESH + (None,), SCALE_MESH + (mesh,)):
+        zero_launches()
+        row = bench_large.run_heat_large(n_side, n_circle, HEAT_STEPS, device=dev, mesh=given)
+        no_kernel_launches("the heat run")
+        prof = row.pop("profile_per_step")
+        print(f"[32 heat] {row['n_nodes']} nodes, f32, {HEAT_STEPS} steps: build "
+              f"{row['build_s']:.1f} s, cold {row['cold_steps_per_sec']:.2f}, warm "
+              f"{row['steps_per_sec']:.2f} steps/s, iterations a step "
+              f"{row['iterations_per_step']}; u in [{row['u_range'][0]:.3e}, "
+              f"{row['u_range'][1]:.6f}]; device {prof['device_ms_per_step']:.3f} ms and "
+              f"{prof['kernels_per_step']:.0f} kernels a step, busy "
+              f"{100 * prof['device_busy_share']:.1f} %, index kernels "
+              f"{100 * prof['index_share']:.1f} %; {json.dumps(row)}; {json.dumps(prof['top'][:4])}")
+
+
+def card_and_cpu_runs(dev, run) -> dict:
+    """``run(device)`` on the card ``dev`` and on the CPU, as float64 NumPy."""
+    return {name: run(device).detach().double().cpu().numpy()
+            for name, device in (("gpu", dev), ("cpu", CPU))}
+
+
+def phase_small_parity(dev) -> None:
+    """Card f64 against the port's CPU f64 on ``generate_annulus_mesh(20,
+    24)``: Poisson (lu, inverse, cg), heat (lu, cg; 50 steps), advection–
+    diffusion (100 steps) and the graph average; dense 1e-10, CG 1e-9
+    relative."""
+    from tpufem_torch.workloads import advection_diffusion, graph_average, heat, poisson
+
+    mesh = generate_annulus_mesh(*SMALL_MESH)
+    cases = {}
+    zero_launches()
+    for solver in ("lu", "inverse", "cg"):
+        cases[f"Poisson {solver}"] = (card_and_cpu_runs(dev, lambda d: poisson.solve(
+            mesh, poisson.PoissonConfig(solver=solver), device=d)[0]),
+            1e-9 if solver == "cg" else 1e-10)
+    for solver in ("lu", "cg"):
+        cases[f"heat {solver}"] = (card_and_cpu_runs(dev, lambda d: heat.run(
+            mesh, heat.HeatConfig(solver=solver), steps=HEAT_STEPS, device=d)[0]),
+            1e-9 if solver == "cg" else 1e-10)
+    cases["advection-diffusion"] = (card_and_cpu_runs(dev, lambda d: advection_diffusion.run(
+        advection_diffusion.ADProblem.build(mesh, device=d), AD_STEPS)[0]), 1e-10)
+    cases["graph average"] = (card_and_cpu_runs(
+        dev, lambda d: graph_average.solve(mesh, device=d)[0]), 1e-10)
+    no_kernel_launches("the small workloads")
+    errs = {k: (float(np.linalg.norm(r["gpu"] - r["cpu"]) / np.linalg.norm(r["cpu"])), lim)
+            for k, (r, lim) in cases.items()}
+    print(f"[33 small parity] {mesh.n_nodes} nodes, f64 card vs CPU, rel L2: " + "; ".join(
+        f"{k} {v:.3e} (<= {lim:g})" for k, (v, lim) in errs.items()))
+    for k, (v, lim) in errs.items():
+        check(v <= lim, f"{k} card vs CPU rel {v} > {lim}")
+
+
+def stam_max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].double().cpu() - b[k].double().cpu()).abs().max())
+               for k in ("vx", "vy", "density"))
+
+
+def phase_stam(dev) -> None:
+    """``StamConfig()`` (200², f32, 20 Jacobi sweeps) for 400 frames, cold
+    then warm: frames/s, device time and kernels a frame; then at f64 and
+    size 64 over 50 frames, each card frame from the CPU's state against the
+    CPU's frame (1e-10 max abs), and the free-running card and CPU runs'
+    distance, which the flow's own amplification of roundoff sets."""
+    from tpufem_torch.workloads import stam_grid
+
+    cfg = stam_grid.StamConfig()
+    zero_launches()
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, speed = stam_grid.run(cfg, frames=STAM_FRAMES, device=dev)
+        torch.cuda.synchronize()
+        rates.append(STAM_FRAMES / (time.perf_counter() - t0))
+    prof = profile_run(lambda: stam_grid.run(cfg, frames=STAM_PROFILE_FRAMES, state=state),
+                       STAM_PROFILE_FRAMES, top=4)
+    no_kernel_launches("Stam's solver")
+    d = state["density"]
+    check(bool(torch.isfinite(d).all() and torch.isfinite(speed).all()), "Stam state is finite")
+    print(f"[34 Stam] {cfg.size}², f32, {cfg.solver_iters} sweeps, {STAM_FRAMES} frames: cold "
+          f"{rates[0]:.1f}, warm {rates[1]:.1f} frames/s; device {prof['device_ms_per_step']:.3f} "
+          f"ms and {prof['kernels_per_step']:.0f} kernels a frame, busy "
+          f"{prof['device_ms_per_step'] * rates[1] / 10:.1f} %; max speed "
+          f"{float(speed[-1]):.4f}, density max {float(d.max()):.4f}; {json.dumps(prof['top'])}")
+
+    pcfg = stam_grid.StamConfig(**STAM_PARITY)
+    host = stam_grid.initial_state(pcfg, device=CPU)
+    free = stam_grid.initial_state(pcfg, device=dev)
+    one_frame, drift = 0.0, []
+    zero_launches()
+    for _ in range(STAM_PARITY_FRAMES):
+        from_host = stam_grid.step(pcfg, {k: v.to(dev) for k, v in host.items()})
+        host = stam_grid.step(pcfg, host)
+        free = stam_grid.step(pcfg, free)
+        one_frame = max(one_frame, stam_max_abs(from_host, host))
+        drift.append(stam_max_abs(free, host))
+    no_kernel_launches("Stam's parity run")
+    print(f"[34 Stam] size {pcfg.size}, f64, {STAM_PARITY_FRAMES} frames: one card frame from "
+          f"the CPU's state, max abs {one_frame:.3e} (<= 1e-10); free-running card vs CPU max "
+          f"abs after frames 10, 20, 30, 50: {drift[9]:.3e}, {drift[19]:.3e}, {drift[29]:.3e}, "
+          f"{drift[-1]:.3e} (not gated: the flow amplifies roundoff)")
+    check(one_frame <= 1e-10, f"Stam one frame card vs CPU max abs {one_frame}")
+
+
+def phase_taylor_hood(dev) -> None:
+    """The dense Taylor–Hood solvers on a P2-refined generated mesh:
+    ``solve_taylor_hood`` under tpufem's residual gate; the θ-scheme, built
+    on the host once and carried to the card, 200 steps f64 card against
+    CPU (1e-10), then f32 steps/s on the card."""
+    from tpufem_torch import interop, p2_refine
+
+    mesh = p2_refine(generate_annulus_mesh(*TH_MESH), snap_center=(0.5, 0.5), snap_radius=0.25)
+    zero_launches()
+    t0 = time.perf_counter()
+    u, p, res = navier_stokes.solve_taylor_hood(mesh, device=dev)
+    solve_s = time.perf_counter() - t0
+    check(float(res) < 1e-10 and bool(torch.isfinite(u).all() and torch.isfinite(p).all()),
+          f"Taylor–Hood residual {float(res)} < 1e-10")
+    cfg = navier_stokes.TransientTHConfig(**TH_CONFIG)
+    t0 = time.perf_counter()
+    host = navier_stokes.TransientTHProblem.build(mesh, cfg, device=CPU)
+    build_s = time.perf_counter() - t0
+    arrays = {"e_inv": host.e_inv.numpy(), "r_op": host.r_op.numpy(), "bc_dofs": host.bc_dofs,
+              "bc_values": host.bc_values.numpy(), "corners": host.corners}
+    card = interop.th_problem_from_numpy(arrays, mesh, cfg, dev)
+    u_gpu, p_gpu, m_gpu = navier_stokes.run_transient_th(card, TH_STEPS)
+    u_cpu, p_cpu, m_cpu = navier_stokes.run_transient_th(host, TH_STEPS)
+    du, dp = rel(u_gpu, u_cpu), rel(p_gpu, p_cpu)
+    card32 = interop.th_problem_from_numpy(
+        arrays, mesh, dataclasses.replace(cfg, precision="f32"), dev)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u32, _, _ = navier_stokes.run_transient_th(card32, TH_STEPS)
+        torch.cuda.synchronize()
+        rates.append(TH_STEPS / (time.perf_counter() - t0))
+    no_kernel_launches("the Taylor–Hood solvers")
+    d32 = rel(u32, u_gpu)
+    print(f"[35 Taylor-Hood] p2_refine{TH_MESH}: {mesh.n_nodes} velocity nodes, "
+          f"{card.e_inv.shape[0]} dofs; steady solve {solve_s:.2f} s (host LU), residual "
+          f"{float(res):.3e} (< 1e-10); θ-system built on the host in {build_s:.2f} s; "
+          f"{TH_STEPS} steps f64 card vs CPU: u rel {du:.3e}, p rel {dp:.3e} (<= 1e-10), "
+          f"max|u| {float(m_gpu['max_u'][-1]):.4f}, div_max {float(m_gpu['div_max'][-1]):.3e}; "
+          f"f32 on the card {rates[0]:.1f} then {rates[1]:.1f} steps/s, u rel to f64 {d32:.3e} "
+          f"(<= 1e-4)")
+    check(du <= 1e-10 and dp <= 1e-10, f"TH f64 card vs CPU u {du}, p {dp}")
+    check(rel(m_gpu["div_max"], m_cpu["div_max"]) <= 1e-10, "TH div_max card vs CPU")
+    check(d32 <= 1e-4, f"TH f32 vs f64 u rel {d32}")
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -1874,6 +2142,11 @@ def main() -> None:
     timed(28, phase_eulerian_scale, scale_mesh)
     timed(29, phase_eulerian_parity, dev)
     timed(30, phase_variants, dev)
+    timed(31, phase_poisson_scale, dev, scale_mesh)
+    timed(32, phase_heat_scale, dev, scale_mesh)
+    timed(33, phase_small_parity, dev)
+    timed(34, phase_stam, dev)
+    timed(35, phase_taylor_hood, dev)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",

@@ -18,11 +18,11 @@ import torch
 from tpufem.ops import assembly as jassembly
 from tpufem.solve.cg import bicgstab_fixed as jbicgstab
 from tpufem.workloads import navier_stokes as jns
-from tpufem_torch import interop
+from tpufem_torch import bench_large, interop
 from tpufem_torch.ops import assembly as tassembly
 from tpufem_torch.solve.cg import bicgstab_fixed as tbicgstab
 from tpufem_torch.solve import grid_cg
-from tpufem_torch.workloads import navier_stokes as tns
+from tpufem_torch.workloads import navier_stokes as tns, th_sparse
 
 from tests._torch_parity import NS_GRID, meshes, ns_grid_pair, ns_problem_arrays, rel
 
@@ -183,8 +183,9 @@ def test_auto_storage_is_csr_on_the_cpu_and_continues():
 @pytest.mark.parametrize("call,item", [
     (lambda m: tns.NSProblem.build(m, tns.NSConfig(solver="cg", cg_storage="stencil"),
                                    device=CPU), "item 5"),
-    (lambda m: tns.solve_taylor_hood(m), "item 9"),
-    (lambda m: tns.TransientTHProblem.build(m), "item 9"),
+    (lambda m: th_sparse.SparseTHProblem.build(m), "item 9"),
+    (lambda m: th_sparse.GridTHProblem.build(m), "item 9"),
+    (lambda m: bench_large.run_th_sparse(20, 24, steps=10), "item 9"),
 ])
 def test_unported_parts_refused(call, item):
     _, tm = meshes(*MESH)

@@ -3,9 +3,11 @@
 The JAX package ``tpufem`` is the reference; this package mirrors its
 layout and names.  It covers the squirmer Stokes step in its dense and
 scale regimes (on any mesh: ``gridify_mesh`` renumbers one for the grid
-kernels) with tracer and dye transport, the Navier–Stokes workload, and
-the space-sharded grid path on a device mesh (``tpufem_torch.parallel``);
-the TPU kernels on those paths are hand-written CUDA kernels (``csrc/``).
+kernels) with tracer and dye transport, the Navier–Stokes workload with
+the dense Taylor–Hood solvers (``p2_refine`` makes their P2 meshes),
+Poisson, heat and the small workloads, and the space-sharded grid path on
+a device mesh (``tpufem_torch.parallel``); the TPU kernels on those paths
+are hand-written CUDA kernels (``csrc/``).
 
 Quick start::
 
@@ -22,6 +24,7 @@ Quick start::
 
 from tpufem_torch.mesh import Mesh, generate_annulus_mesh, load_mesh, mesh_from_arrays
 from tpufem_torch.mesh.gridify import Gridified, gridify_mesh
+from tpufem_torch.mesh.p2 import p2_refine
 
 __all__ = ["Mesh", "generate_annulus_mesh", "load_mesh", "mesh_from_arrays", "Gridified",
-           "gridify_mesh"]
+           "gridify_mesh", "p2_refine"]

@@ -5,8 +5,10 @@ application to fields on the device is an indexed copy.  Same semantics as
 ``tpufem.bc``:
 
 * periodic pair discovery (left/right columns, nearest-y matching),
-* periodic enforcement by ±1e10 penalty or by field copy,
-* symmetric Dirichlet row+column surgery,
+* periodic enforcement by ±1e10 penalty, field copy, master/slave row
+  elimination (dense, and on CSR with Dirichlet rows in one pass) and
+  DOF-merge relabeling,
+* Dirichlet row-only and symmetric row+column surgery,
 * squirmer tangential slip and rotating-cylinder surface velocities.
 """
 
@@ -58,6 +60,15 @@ def apply_dirichlet_field(u: torch.Tensor, idx: torch.Tensor, values) -> torch.T
     return u.index_put((idx,), torch.as_tensor(values, dtype=u.dtype, device=u.device))
 
 
+def dirichlet_rows(A: np.ndarray, idx) -> np.ndarray:
+    """Zero rows, unit diagonal (the non-symmetric variant; host set-up)."""
+    A = np.array(A, dtype=np.float64)
+    idx = np.asarray(idx, dtype=np.int64)
+    A[idx, :] = 0.0
+    A[idx, idx] = 1.0
+    return A
+
+
 def dirichlet_rows_cols(A: np.ndarray, idx) -> np.ndarray:
     """Zero rows *and* columns, unit diagonal (host set-up).
 
@@ -94,6 +105,92 @@ def periodic_penalty_device(A: torch.Tensor, masters: torch.Tensor, slaves: torc
     vals = torch.full((4 * k,), penalty, dtype=A.dtype, device=A.device)
     vals[2 * k:] = -penalty
     return A.index_put((rows, cols), vals, accumulate=True)
+
+
+def periodic_elimination(A: np.ndarray, b: np.ndarray, masters, slaves):
+    """Master/slave row elimination (host set-up): each slave row is added
+    into its master row, then replaced by the constraint x_s − x_m = 0.
+
+    The pairs are processed one after the other: the nearest-y matching is
+    not always injective, and a later pair then sees the slave row an
+    earlier pair rewrote.  Returns float64 copies ``(A, b)``."""
+    A = np.array(A, dtype=np.float64)
+    b = np.array(b, dtype=np.float64)
+    for m, s in zip(np.asarray(masters), np.asarray(slaves)):
+        A[m, :] += A[s, :]
+        b[m] += b[s]
+        A[s, :] = 0.0
+        A[s, s] = 1.0
+        A[s, m] = -1.0
+        b[s] = 0.0
+    return A, b
+
+
+def bc_surgery_csr(K, masters, slaves, dirichlet, b=None):
+    """Row-only BC surgery on a ``CSROperator``: the operator
+    :func:`periodic_elimination` then :func:`dirichlet_rows` make of the
+    same matrix, in O(nnz) host work.
+
+    Master rows are summed with their slave rows, slave rows replaced by the
+    constraint x_s − x_m = 0, Dirichlet rows by identity (their values enter
+    through the caller's right-hand side); Dirichlet wins where a row is
+    both.  The periodic matching must be injective: a repeated slave needs
+    the dense path's sequential semantics, and raises ``AssertionError``.
+
+    Returns ``(K_mod, b_mod)``: ``K_mod`` float64 on ``K``'s device;
+    ``b`` (optional, a tensor) gets the matching row treatment in its own
+    dtype and device, repeated masters accumulating."""
+    from tpufem_torch.ops.sparse import csr_from_coo
+
+    masters = np.asarray(masters, dtype=np.int64)
+    slaves = np.asarray(slaves, dtype=np.int64)
+    dirichlet = np.asarray(dirichlet, dtype=np.int64)
+    if len(np.unique(slaves)) != len(slaves):
+        raise AssertionError("bc_surgery_csr requires injective periodic matching "
+                             "(use the dense path for meshes with duplicated pairs)")
+    n = K.shape[0]
+    rows = np.asarray(K.row_ids, dtype=np.int64)
+    cols = np.asarray(K.indices, dtype=np.int64)
+    data = K.data.detach().cpu().to(torch.float64).numpy()
+
+    master_of = np.full(n, -1, dtype=np.int64)
+    master_of[slaves] = masters
+    is_slave = np.zeros(n, dtype=bool)
+    is_slave[slaves] = True
+    is_diri = np.zeros(n, dtype=bool)
+    is_diri[dirichlet] = True
+
+    # A[m, :] += A[s, :], except into masters that are Dirichlet rows
+    sel = is_slave[rows]
+    add_rows = master_of[rows[sel]]
+    keep_add = ~is_diri[add_rows]
+    # original rows survive unless slave or Dirichlet
+    keep = ~(is_slave[rows] | is_diri[rows])
+    # constraint rows x_s − x_m = 0 where the slave is not a Dirichlet row
+    cs = slaves[~is_diri[slaves]]
+    cm = master_of[cs]
+    ones = np.ones(len(cs))
+    K_mod = csr_from_coo(
+        np.concatenate([rows[keep], add_rows[keep_add], cs, cs, dirichlet]),
+        np.concatenate([cols[keep], cols[sel][keep_add], cs, cm, dirichlet]),
+        np.concatenate([data[keep], data[sel][keep_add], ones, -ones, np.ones(len(dirichlet))]),
+        (n, n), sum_duplicates=True, device=K.data.device,
+    )
+    if b is None:
+        return K_mod, None
+    b_np = b.detach().cpu().numpy().copy()
+    np.add.at(b_np, masters, b_np[slaves])  # repeated masters accumulate
+    b_np[slaves] = 0.0
+    return K_mod, torch.as_tensor(b_np, dtype=b.dtype, device=b.device)
+
+
+def periodic_relabel_tris(tris: np.ndarray, masters, slaves) -> np.ndarray:
+    """DOF merge: slave node ids rewritten to their masters in the
+    connectivity, so assembly yields an exactly periodic, symmetric
+    operator."""
+    remap = np.arange(tris.max() + 1, dtype=np.int32)
+    remap[np.asarray(slaves)] = np.asarray(masters)
+    return remap[tris]
 
 
 def squirmer_values(

@@ -7,6 +7,7 @@ both pressure solves, f32 fields, bf16 coarse inverse.
 
     python -m tpufem_torch.bench_large --size 1.05M [--steps 200] [--transport tracers]
         [--steps-per-call K] [--no-pad-hole] [--storage grid]
+    python -m tpufem_torch.bench_large --poisson | --heat [--size L] [--precision f64]
 
 prints one JSON row like tpufem's (cold and warm steps/s, the physics
 report), plus the card's name and power limit, the mean CG iterations per
@@ -17,7 +18,10 @@ numbering, which ``--storage grid`` renumbers onto a raster (``gridify``);
 ``--mesh PATH`` runs an imported Triangle mesh (:func:`run_imported`,
 tpufem's "imported" gate) instead of the generated sizes.  ``--ns`` runs
 tpufem's Navier–Stokes row instead (:func:`run_ns`: f32, the grid path's K4
-velocity and K3 pressure solves on CUDA).  There is no CPU fallback:
+velocity and K3 pressure solves on CUDA).  ``--poisson`` and ``--heat`` run
+tpufem's matrix-free Poisson and heat rows (:func:`run_poisson_large`,
+:func:`run_heat_large`: f32, BiCGStab on the CSR surgery operator, at
+1,048,576 and 160,000 nodes by default).  There is no CPU fallback:
 without a CUDA device it fails.
 """
 
@@ -153,8 +157,12 @@ def _build_kernels(device) -> None:
 
 
 def _sync(problem) -> None:
-    if problem.device.type == "cuda":
-        torch.cuda.synchronize(problem.device)
+    _device_sync(problem.device)
+
+
+def _device_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _timed_run(problem, steps: int, state=None):
@@ -399,11 +407,164 @@ def run_ns(n_side: int, n_circle: int, steps: int, precision: str = "f32",
     return row
 
 
+def index_share(prof: dict) -> float:
+    """The share of a profile's device time spent in index kernels (the
+    gathers and ``index_add_`` scatters of the CSR matvec and of the
+    two-level restriction), from its ``top`` list."""
+    index_ms = sum(k["ms_per_step"] for k in prof["top"] if "index" in k["name"].lower())
+    return index_ms / prof["device_ms_per_step"]
+
+
+def run_poisson_large(n_side: int, n_circle: int, precision: str = "f32", device="cuda",
+                      mesh=None) -> dict:
+    """tpufem's ``run_poisson_large``: the matrix-free Poisson solve (the
+    row-surgery operator as CSR, two-level BiCGStab, at most 2000
+    iterations, tol 1e-6 at f32 or 1e-10 at f64) on the pad_hole annulus
+    (or ``mesh``), timed twice (the first call and a second, warm one),
+    under tpufem's gates: relative residual below 1e-4 and the Dirichlet
+    values within 1e-3.  On CUDA the solve is repeated under
+    ``torch.profiler``: device ms and kernels an iteration, the device's
+    busy share of the warm solve and the index kernels' share."""
+    from tpufem_torch.bench import card, profile_run
+    from tpufem_torch.mesh import generate_annulus_mesh
+    from tpufem_torch.workloads import poisson
+
+    t0 = time.perf_counter()
+    if mesh is None:
+        mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=True)
+    cfg = poisson.PoissonConfig(solver="cg", precision=precision, cg_iters=2000,
+                                cg_tol=1e-6 if precision == "f32" else 1e-10)
+    run, op, b, boundary = poisson.make_cg_solver(mesh, cfg, device)
+    _device_sync(device)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(b)
+    _device_sync(device)
+    first_s = time.perf_counter() - t0
+    first_iters = run.iterations
+    t0 = time.perf_counter()
+    f, res = run(b)
+    f_host = f.double().cpu().numpy()
+    solve_s = time.perf_counter() - t0
+
+    if not np.isfinite(f_host).all():
+        raise AssertionError("Poisson solve non-finite")
+    b_norm = float(torch.linalg.norm(b.double()))
+    res_rel = float(res) / max(b_norm, 1e-30)
+    if not res_rel < 1e-4:
+        raise AssertionError(f"Poisson relative residual {res_rel:.2e} ≥ 1e-4")
+    # Dirichlet rows are identity rows: the solution carries their values
+    want = poisson.dirichlet_values(boundary, cfg.outer_value, cfg.inner_value)
+    bc_err = float(np.abs(f_host[boundary.dirichlet] - want).max())
+    if not bc_err < 1e-3:
+        raise AssertionError(f"Poisson Dirichlet values off by {bc_err:.2e}")
+    row = {
+        "workload": "poisson",
+        "n_nodes": int(mesh.n_nodes),
+        "n_tris": int(mesh.n_tris),
+        "precision": precision,
+        "storage": type(op).__name__,
+        "nnz": len(op.indices),
+        "build_s": t_build,
+        "compile_plus_solve_s": first_s,  # the first call (the port compiles nothing)
+        "solve_s": solve_s,
+        "iterations": run.iterations,
+        "first_iterations": first_iters,
+        "res_rel": res_rel,
+        "bc_err_max": bc_err,
+        "f_range": [float(f_host.min()), float(f_host.max())],
+    }
+    if torch.device(device).type == "cuda":
+        row["device"] = torch.cuda.get_device_name(device)
+        row["card"] = card()
+        iters = run.iterations
+        prof = profile_run(lambda: run(b), iters, top=40)
+        prof["device_busy_share"] = prof["device_ms_per_step"] * iters / (solve_s * 1e3)
+        prof["index_share"] = index_share(prof)
+        prof["top"] = prof["top"][:8]
+        row["profile_per_iteration"] = prof
+    return row
+
+
+def run_heat_large(n_side: int, n_circle: int, steps: int = 50, precision: str = "f32",
+                   device="cuda", mesh=None) -> dict:
+    """tpufem's ``run_heat_large``: the matrix-free implicit-Euler heat run
+    (BiCGStab on I + dt·K_mod as CSR, warm-started, at most 60 iterations a
+    step, tol 1e-6 at f32 or 1e-10 at f64) on the pad_hole annulus (or
+    ``mesh``), ``steps`` steps from the initial state twice (the first run
+    cold, the second warm), under tpufem's gate: u within [−1e-2, 1 + 1e-2].
+    On CUDA the run is repeated under ``torch.profiler``."""
+    from tpufem_torch.bench import card, profile_run
+    from tpufem_torch.mesh import generate_annulus_mesh
+    from tpufem_torch.workloads import heat
+
+    t0 = time.perf_counter()
+    if mesh is None:
+        mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle, pad_hole=True)
+    cfg = heat.HeatConfig(solver="cg", precision=precision, steps=steps, cg_iters=60,
+                          cg_tol=1e-6 if precision == "f32" else 1e-10)
+    problem = heat.HeatProblem.build(mesh, cfg, device)
+    u0 = heat.initial_state(problem, mesh.n_nodes)
+    _device_sync(device)
+    t_build = time.perf_counter() - t0
+    applications = problem.solver.applications
+
+    def timed():
+        applications[0] = 0
+        _device_sync(device)
+        t0 = time.perf_counter()
+        u, maxu = heat.run_problem(problem, u0, steps)
+        _device_sync(device)
+        return time.perf_counter() - t0, u, maxu, applications[0] / (2 * steps)
+
+    cold_s, _, _, cold_iters = timed()
+    warm_s, u, maxu, warm_iters = timed()
+    u_host = u.double().cpu().numpy()
+    if not np.isfinite(u_host).all():
+        raise AssertionError("heat run non-finite")
+    if not (-1e-2 <= u_host.min() and u_host.max() <= 1.0 + 1e-2):
+        raise AssertionError(f"heat field left [0,1]: [{u_host.min():.3e}, {u_host.max():.3e}]")
+    row = {
+        "workload": "heat",
+        "n_nodes": int(mesh.n_nodes),
+        "n_tris": int(mesh.n_tris),
+        "steps": steps,
+        "steps_per_sec": steps / warm_s,
+        "cold_steps_per_sec": steps / cold_s,
+        "precision": precision,
+        "storage": type(problem.solver.op).__name__,
+        "build_s": t_build,
+        "compile_s": cold_s,  # the first run's seconds (the port compiles nothing)
+        "iterations_per_step": {"cold": cold_iters, "warm": warm_iters},
+        "u_range": [float(u_host.min()), float(u_host.max())],
+        "max_u_final": float(maxu[-1]),
+    }
+    if torch.device(device).type == "cuda":
+        row["device"] = torch.cuda.get_device_name(device)
+        row["card"] = card()
+        prof = profile_run(lambda: heat.run_problem(problem, u0, steps), steps, top=40)
+        prof["device_busy_share"] = prof["device_ms_per_step"] * row["steps_per_sec"] / 1e3
+        prof["index_share"] = index_share(prof)
+        prof["top"] = prof["top"][:8]
+        row["profile_per_step"] = prof
+    return row
+
+
+def run_th_sparse(n_side: int, n_circle: int, steps: int, **kwargs) -> dict:
+    """tpufem's timed sparse Taylor–Hood row: refused until the sparse TH
+    engine (``workloads/th_sparse.py``) is ported."""
+    from tpufem_torch.workloads import th_sparse
+
+    raise th_sparse._not_ported("run_th_sparse")
+
+
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(prog="python -m tpufem_torch.bench_large")
-    parser.add_argument("--size", default="1.05M",
-                        help="comma-separated labels from %s" % [s[0] for s in SIZES])
-    parser.add_argument("--steps", type=int, default=200)
+    parser.add_argument("--size", default=None,
+                        help="comma-separated labels from %s (default 1.05M; 160k with --heat)"
+                        % [s[0] for s in SIZES])
+    parser.add_argument("--steps", type=int, default=None,
+                        help="steps a run (default 200; 50 with --heat)")
     parser.add_argument("--precond", default="twolevel", choices=["twolevel", "jacobi"])
     parser.add_argument("--transport", default="none", choices=["none", "tracers", "dye"])
     parser.add_argument("--storage", default="auto", help="cg_storage: auto | grid | csr")
@@ -417,8 +578,18 @@ def main(argv=None) -> list[dict]:
                              "instead of the generated sizes; storage grid unless --storage")
     parser.add_argument("--ns", action="store_true",
                         help="run the Navier–Stokes configuration (run_ns) instead of Stokes")
+    parser.add_argument("--poisson", action="store_true",
+                        help="run the matrix-free Poisson solve (run_poisson_large) instead")
+    parser.add_argument("--heat", action="store_true",
+                        help="run the matrix-free heat run (run_heat_large) instead")
+    parser.add_argument("--precision", default="f32", choices=["f32", "f64"],
+                        help="--poisson/--heat precision")
     parser.add_argument("--out", default=None, help="write the rows as JSON lines here too")
     args = parser.parse_args(argv)
+    if args.size is None:
+        args.size = "160k" if args.heat else "1.05M"
+    if args.steps is None:
+        args.steps = 50 if args.heat else 200
     if not torch.cuda.is_available():
         raise SystemExit("bench_large measures the card: no CUDA device found")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -437,7 +608,11 @@ def main(argv=None) -> list[dict]:
     for label, n_side, n_circle in SIZES:
         if args.mesh or label not in wanted:
             continue
-        if args.ns:
+        if args.poisson:
+            row = run_poisson_large(n_side, n_circle, precision=args.precision)
+        elif args.heat:
+            row = run_heat_large(n_side, n_circle, args.steps, precision=args.precision)
+        elif args.ns:
             row = run_ns(n_side, n_circle, args.steps, precond=args.precond,
                          storage=args.storage)
         else:

@@ -46,6 +46,18 @@ operator under ``grid_refill.template.`` (as ``<op>`` above; its values are
 not used); ``Kg_diags``, ``Kg_rest``; ``inv_diag_visc``; ``wall_mask``; the
 pressure solver's arrays as above.
 
+Poisson-family and dense Taylor–Hood problems (the factored or inverted
+arrays of a dense build, the BC index sets and values):
+
+    :func:`heat_problem_from_numpy`: ``solver.<lu|piv|inv>``,
+    ``boundary.<walls|inner|dirichlet|interior|masters|slaves>``,
+    ``dirichlet_values``;
+    :func:`ad_problem_from_numpy`: ``solver.<lu|piv|inv>``, ``mass``,
+    ``dirichlet``, ``inject_idx``, ``inject_vals``;
+    :func:`th_problem_from_numpy`: ``e_inv``, ``r_op``, ``bc_dofs``,
+    ``bc_values``, ``corners``;
+    :func:`stam_state_from_numpy`: Stam's state ``{vx, vy, density, t}``.
+
 Operator arrays keep their own dtype on the device; the arrays are copied,
 so read-only inputs (such as views of JAX arrays) are fine.
 """
@@ -66,7 +78,10 @@ from tpufem_torch.ops.sparse import CSROperator
 from tpufem_torch.solve.dense import DenseInverse, DenseLU
 from tpufem_torch.solve.grid_cg import NSGridBiCGStab, PressureGridCG, ViscousGridCG
 from tpufem_torch.solve.grid_step import GridStokesStep, steps_per_call
-from tpufem_torch.workloads.navier_stokes import NSConfig, NSProblem
+from tpufem_torch.workloads.advection_diffusion import ADConfig, ADProblem
+from tpufem_torch.workloads.heat import HeatConfig, HeatProblem
+from tpufem_torch.workloads.navier_stokes import (NSConfig, NSProblem, TransientTHConfig,
+                                                  TransientTHProblem)
 from tpufem_torch.workloads.navier_stokes import check_config as check_ns_config
 from tpufem_torch.workloads.stokes import StokesConfig, StokesProblem, check_config
 
@@ -252,6 +267,51 @@ def ns_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: NSC
                                        interpret=plain),
         ones_mask=torch.ones(mesh.n_nodes, dtype=dtype, device=dev),
     )
+
+
+def heat_problem_from_numpy(arrays: dict[str, np.ndarray], config: HeatConfig,
+                            device=None) -> HeatProblem:
+    """A port ``HeatProblem`` of a dense build (``solver`` "lu" or
+    "inverse"; at f32 the inverse) holding the given arrays."""
+    if config.solver == "cg":
+        raise ValueError("heat_problem_from_numpy carries the dense solvers only")
+    dev = tconfig.device(device)
+    boundary = bc.ChannelBoundary(**{
+        f.name: np.asarray(arrays[f"boundary.{f.name}"])
+        for f in dataclasses.fields(bc.ChannelBoundary)
+    })
+    return HeatProblem(solver=_solver(arrays, "solver", dev), boundary=boundary,
+                       dirichlet_values=_tensor(arrays["dirichlet_values"], dev), config=config,
+                       index=boundary.index_tensors(dev))
+
+
+def ad_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: ADConfig,
+                          device=None) -> ADProblem:
+    """A port ``ADProblem`` holding the given factored or inverted system
+    and consistent mass."""
+    dev = tconfig.device(device)
+    return ADProblem(mesh=mesh, solver=_solver(arrays, "solver", dev),
+                     mass=_tensor(arrays["mass"], dev),
+                     dirichlet=np.asarray(arrays["dirichlet"]),
+                     inject_idx=np.asarray(arrays["inject_idx"]),
+                     inject_vals=np.asarray(arrays["inject_vals"]), config=config)
+
+
+def th_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: TransientTHConfig,
+                          device=None) -> TransientTHProblem:
+    """A port ``TransientTHProblem`` holding the given inverse θ-system and
+    right-hand-side operator (cast to the configuration's precision)."""
+    return TransientTHProblem.from_host(mesh, config, np.array(arrays["e_inv"]),
+                                        np.array(arrays["r_op"]), arrays["bc_dofs"],
+                                        np.array(arrays["bc_values"]), arrays["corners"], device)
+
+
+def stam_state_from_numpy(state: dict[str, np.ndarray], device=None) -> dict[str, torch.Tensor]:
+    """Stam's state ``{vx, vy, density, t}`` on ``device``, each array in its
+    own dtype."""
+    if set(state) != {"vx", "vy", "density", "t"}:
+        raise ValueError(f"a Stam state has vx, vy, density and t, not {sorted(state)}")
+    return state_from_numpy(state, device)
 
 
 def state_from_numpy(state: dict[str, np.ndarray], device=None) -> dict[str, torch.Tensor]:

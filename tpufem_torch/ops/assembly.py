@@ -133,6 +133,44 @@ def lumped_mass(mesh: Mesh, dtype=torch.float64, device=None) -> torch.Tensor:
     return out.index_add_(0, seg, contrib)
 
 
+def load_vector(mesh: Mesh, g_source, signed_area: bool = False, negate: bool = True,
+                dtype=torch.float64, device=None) -> torch.Tensor:
+    """(N,) load vector of source g: b_j += g(centroid)·area/3 at each corner
+    of each valid triangle.
+
+    ``g_source`` is a number or a callable ``g(x, y)`` of the centroid
+    coordinates as tensors in ``dtype`` on ``device``.  ``signed_area=True``
+    takes the signed area (det/2), the early Poisson variant;
+    ``negate=True`` returns −b."""
+    area = _t(0.5 * mesh.det if signed_area else mesh.area, dtype, device)
+    if callable(g_source):
+        cent = _t(mesh.centroids(), dtype, device)
+        g = torch.as_tensor(g_source(cent[:, 0], cent[:, 1]), dtype=dtype, device=device)
+    else:
+        g = torch.full((mesh.n_tris,), float(g_source), dtype=dtype, device=device)
+    contrib = g * area / 3.0
+    contrib = torch.where(_t(mesh.valid, torch.bool, device), contrib,
+                          torch.zeros((), dtype=dtype, device=device))
+    seg = torch.as_tensor(mesh.tris, dtype=torch.int64, device=device).reshape(-1)
+    b = torch.zeros(mesh.n_nodes, dtype=dtype, device=device).index_add_(
+        0, seg, contrib[:, None].expand(mesh.n_tris, 3).reshape(-1))
+    return -b if negate else b
+
+
+def load_vector_nodal(mesh: Mesh, g_nodal: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """Consistent-mass load of a nodal source: b_i += (A/12)(2g_i + g_j + g_k)
+    over the triangles at i.  The area is in ``dtype``; the result takes the
+    promoted dtype of it and ``g_nodal``, on ``g_nodal``'s device."""
+    dev = g_nodal.device
+    area = _t(mesh.area, dtype, dev)
+    tris = torch.as_tensor(mesh.tris, dtype=torch.int64, device=dev)
+    g_loc = g_nodal[tris]  # (T, 3)
+    total = g_loc.sum(dim=1, keepdim=True)
+    contrib = (area[:, None] / 12.0) * (g_loc + total)  # 2g_i + g_j + g_k
+    out = torch.zeros(mesh.n_nodes, dtype=contrib.dtype, device=dev)
+    return out.index_add_(0, tris.reshape(-1), contrib.reshape(-1))
+
+
 def assemble_csr(mesh: Mesh, elem: torch.Tensor):
     """Materialize (T, 3, 3) element matrices as a static-pattern CSR
     operator; the values keep ``elem``'s dtype and device."""

@@ -25,8 +25,13 @@ Three solver paths:
 ``cg_storage``: ``"auto"`` takes the grid on CUDA at f32 when N = ns² and
 ``GridRefill`` decomposes, else CSR; ``"grid"`` runs K4/K3 at f32 and f64;
 ``"grid_interpret"`` runs their plain versions on any device; ``"csr"`` asks
-for CSR.  The Taylor–Hood functions of the JAX module are not ported
-(ROADMAP Queue 1 item 9).
+for CSR.
+
+The dense P2/P1 Taylor–Hood solvers (:func:`solve_taylor_hood`, the
+θ-scheme :class:`TransientTHProblem`) assemble and factor on the host in
+float64 and apply on the device; their meshes come from
+``mesh.p2.p2_refine``.  The sparse and grid Taylor–Hood engines are not
+ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -128,36 +133,281 @@ def solve_monolithic(mesh: Mesh, config: MonolithicConfig = MonolithicConfig(),
 
 
 # ---------------------------------------------------------------------------
-# Taylor–Hood (not ported: needs mesh/p2.py)
+# P2/P1 Taylor–Hood monolithic Stokes (LBB-stable), dense
 # ---------------------------------------------------------------------------
 
 
-def _taylor_hood_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (P2/P1 Taylor–Hood) is not ported to tpufem_torch yet; it needs "
-        "mesh/p2.py (ROADMAP Queue 1 item 9)")
+@dataclasses.dataclass
+class TaylorHoodConfig:
+    nu: float = 1.0
+    B1: float = -2.0  # squirmer gait, relative to the center
+    B2: float = 0.0
+    center: tuple[float, float] = (0.5, 0.5)
+    outer_marker: int = 1
+    inner_marker: int = 2
 
 
-def assemble_taylor_hood(mesh, config=None):
-    raise _taylor_hood_not_ported("assemble_taylor_hood")
+def _p2_quadrature():
+    """The 3-midpoint rule, exact for degree-2 integrands on a triangle."""
+    pts = np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]])
+    w = np.full(3, 1.0 / 3.0)
+    return pts, w
 
 
-def solve_taylor_hood(mesh, config=None):
-    raise _taylor_hood_not_ported("solve_taylor_hood")
+def _p2_quadrature_deg4():
+    """Dunavant's 6-point rule, exact to degree 4 (the P2·P2 mass)."""
+    a1, a2 = 0.445948490915965, 0.091576213509771
+    w1, w2 = 0.223381589678011, 0.109951743655322
+    pts = np.array(
+        [
+            [1 - 2 * a1, a1, a1], [a1, 1 - 2 * a1, a1], [a1, a1, 1 - 2 * a1],
+            [1 - 2 * a2, a2, a2], [a2, 1 - 2 * a2, a2], [a2, a2, 1 - 2 * a2],
+        ]
+    )
+    w = np.array([w1, w1, w1, w2, w2, w2])
+    return pts, w
 
 
+_P2_PAIRS = [(1, 2), (2, 0), (0, 1)]  # midpoint k is opposite corner k
+
+
+def _p2_values_at(L: np.ndarray) -> np.ndarray:
+    """P2 shape values at barycentric point L → (6,)."""
+    v = np.empty(6)
+    for i in range(3):
+        v[i] = L[i] * (2.0 * L[i] - 1.0)
+    for k, (a, b) in enumerate(_P2_PAIRS):
+        v[3 + k] = 4.0 * L[a] * L[b]
+    return v
+
+
+def _p2_grads_at_batch(L: np.ndarray, gl: np.ndarray) -> np.ndarray:
+    """∇φ_a at barycentric point L for every element: gl (T, 3, 2) → (T, 6, 2),
+    in Triangle's P2 node order (corners, then the midpoints opposite them)."""
+    g = np.empty((gl.shape[0], 6, 2))
+    for i in range(3):
+        g[:, i] = (4.0 * L[i] - 1.0) * gl[:, i]
+    for k, (a, b) in enumerate(_P2_PAIRS):
+        g[:, 3 + k] = 4.0 * (L[a] * gl[:, b] + L[b] * gl[:, a])
+    return g
+
+
+def _th_element_matrices(mesh: Mesh):
+    """The Taylor–Hood element matrices of every element (host NumPy f64):
+
+      ke (T,6,6)  ∫ ∇φᵢ·∇φⱼ   (3-midpoint rule, exact for degree 2)
+      me (T,6,6)  ∫ φᵢ φⱼ      (Dunavant 6-point, exact for degree 4)
+      bex/bey (T,3,6)  −∫ ψᵢ ∂φⱼ/∂x|y   (P1 test × P2 gradient)
+
+    plus the pressure numbering (corners, p_of_node)."""
+    if mesh.tris_p2 is None:
+        raise ValueError("Taylor–Hood needs a 6-node (P2) mesh: see mesh.p2.p2_refine")
+    tris6 = mesh.tris_p2
+    n2 = mesh.coords.shape[0]
+    corners = np.unique(tris6[:, :3])
+    p_of_node = -np.ones(n2, dtype=np.int64)
+    p_of_node[corners] = np.arange(len(corners))
+
+    gl = mesh.grads  # (T, 3, 2) barycentric gradients
+    area = mesh.area
+    T = tris6.shape[0]
+    ke = np.zeros((T, 6, 6))
+    bex = np.zeros((T, 3, 6))
+    bey = np.zeros((T, 3, 6))
+    pts, wq = _p2_quadrature()
+    for q in range(len(wq)):
+        g6 = _p2_grads_at_batch(pts[q], gl)  # (T, 6, 2)
+        wa = (wq[q] * area)[:, None, None]
+        ke += wa * np.einsum("tid,tjd->tij", g6, g6)
+        psi = pts[q]  # (3,) P1 values at the quadrature point
+        bex -= wa * psi[None, :, None] * g6[:, None, :, 0]
+        bey -= wa * psi[None, :, None] * g6[:, None, :, 1]
+    me = np.zeros((T, 6, 6))
+    pts4, wq4 = _p2_quadrature_deg4()
+    for q in range(len(wq4)):
+        phi = _p2_values_at(pts4[q])  # (6,)
+        me += (wq4[q] * area)[:, None, None] * np.outer(phi, phi)[None]
+    return ke, me, bex, bey, corners, p_of_node
+
+
+def _scatter_block(A, rows, cols, elem):
+    """A[rows_i, cols_j] += elem[t, i, j] for all t (dense scatter-add)."""
+    ri = np.repeat(rows, cols.shape[1], axis=1).reshape(-1)
+    ci = np.tile(cols, (1, rows.shape[1])).reshape(-1)
+    np.add.at(A, (ri, ci), elem.reshape(-1))
+
+
+def _th_bc_dofs(mesh: Mesh, config, n2: int):
+    """(Dirichlet velocity dofs, their values) of the squirmer TH system:
+    no-slip outer walls, the squirmer velocity on the inner boundary."""
+    from tpufem_torch import bc as bc_mod
+
+    outer = np.nonzero(mesh.markers == config.outer_marker)[0]
+    inner = np.nonzero(mesh.markers == config.inner_marker)[0]
+    vals = np.zeros((len(inner), 2))
+    if len(inner):
+        vals = bc_mod.squirmer_values(mesh.coords, inner, config.center, config.B1, config.B2)
+    dofs = np.concatenate([outer, outer + n2, inner, inner + n2])
+    values = np.concatenate([np.zeros(2 * len(outer)), vals[:, 0], vals[:, 1]])
+    return dofs.astype(np.int64), values
+
+
+def _th_blocks(mesh: Mesh, corners: np.ndarray, p_of_node: np.ndarray):
+    """The dof blocks of every element: (uₓ (T, 6), u_y (T, 6), p (T, 3))
+    in the layout [uₓ (N2); u_y (N2); p (N1 corner nodes)]."""
+    n2 = mesh.coords.shape[0]
+    ux = mesh.tris_p2.astype(np.int64)
+    return ux, ux + n2, 2 * n2 + p_of_node[mesh.tris_p2[:, :3]]
+
+
+def _scatter_saddle(A, blocks, velocity_elem, bex, bey):
+    """The velocity blocks (``velocity_elem`` on both components) and the
+    divergence coupling B and Bᵀ of the saddle system, into A."""
+    ux, uy, pd = blocks
+    _scatter_block(A, ux, ux, velocity_elem)
+    _scatter_block(A, uy, uy, velocity_elem)
+    _scatter_block(A, pd, ux, bex)
+    _scatter_block(A, pd, uy, bey)
+    _scatter_block(A, ux, pd, np.swapaxes(bex, 1, 2))
+    _scatter_block(A, uy, pd, np.swapaxes(bey, 1, 2))
+
+
+def assemble_taylor_hood(mesh: Mesh, config: TaylorHoodConfig = TaylorHoodConfig()):
+    """(A, b, corners) of the P2-velocity / P1-pressure saddle system, host
+    NumPy f64: LBB-stable, uniquely solvable once one pressure dof is
+    pinned.  DOF layout [uₓ (N2); u_y (N2); p (N1 corner nodes)]."""
+    ke, _, bex, bey, corners, p_of_node = _th_element_matrices(mesh)
+    n2 = mesh.coords.shape[0]
+    total = 2 * n2 + len(corners)
+    A = np.zeros((total, total))
+    _scatter_saddle(A, _th_blocks(mesh, corners, p_of_node), config.nu * ke, bex, bey)
+    b = np.zeros(total)
+    dofs, values = _th_bc_dofs(mesh, config, n2)
+    A[dofs, :] = 0.0
+    A[dofs, dofs] = 1.0
+    b[dofs] = values
+    pin = 2 * n2
+    A[pin, :] = 0.0
+    A[pin, pin] = 1.0
+    b[pin] = 0.0
+    return A, b, corners
+
+
+def solve_taylor_hood(mesh: Mesh, config: TaylorHoodConfig = TaylorHoodConfig(), device=None):
+    """(u (N2, 2), p (N1,), residual ‖A·sol − b‖) on ``device``: one dense
+    LU solve, factored on the host in float64."""
+    A, b, _ = assemble_taylor_hood(mesh, config)
+    dev = tconfig.device(device)
+    A_t = torch.as_tensor(A, device=dev)
+    b_t = torch.as_tensor(b, device=dev)
+    sol = make_dense_solver(A, "lu", device=dev).solve(b_t)
+    n2 = mesh.coords.shape[0]
+    u = torch.stack([sol[:n2], sol[n2:2 * n2]], dim=1)
+    return u, sol[2 * n2:], torch.linalg.norm(A_t @ sol - b_t)
+
+
+# ---------------------------------------------------------------------------
+# Transient Taylor–Hood (θ-scheme)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TransientTHConfig(TaylorHoodConfig):
+    dt: float = 0.01
+    steps: int = 200
+    theta: float = 1.0  # 1 = backward Euler, 0.5 = Crank–Nicolson
+    precision: str = "f64"
+
+
+@dataclasses.dataclass(frozen=True)
 class TransientTHProblem:
+    """θ-scheme stepper on the coupled P2/P1 saddle system:
+
+        [M/Δt + θνK   Bᵀ] [uⁿ⁺¹]   [M/Δt uⁿ − (1−θ)νK uⁿ]
+        [B            0 ] [pⁿ⁺¹] = [0]
+
+    with Dirichlet rows on the velocity and the pressure pinned.  The
+    system is constant: it is inverted once on the host (float64), and a
+    step is the right-hand-side matvec and one (2N₂+N₁)² matvec on the
+    device."""
+
+    mesh: Mesh
+    e_inv: torch.Tensor  # (total, total) inverse of the θ-system
+    r_op: torch.Tensor  # (2N2, 2N2) right-hand-side operator M/Δt − (1−θ)νK
+    bc_dofs: np.ndarray
+    bc_values: torch.Tensor
+    corners: np.ndarray
+    config: TransientTHConfig
+    bc_index: torch.Tensor  # bc_dofs as int64 on the device
+
     @classmethod
-    def build(cls, mesh, config=None):
-        raise _taylor_hood_not_ported("TransientTHProblem")
+    def build(cls, mesh: Mesh, config: TransientTHConfig = TransientTHConfig(), device=None):
+        ke, me, bex, bey, corners, p_of_node = _th_element_matrices(mesh)
+        n2 = mesh.coords.shape[0]
+        total = 2 * n2 + len(corners)
+        dt, th, nu = config.dt, config.theta, config.nu
+        blocks = _th_blocks(mesh, corners, p_of_node)
+        E = np.zeros((total, total))
+        R = np.zeros((2 * n2, 2 * n2))
+        _scatter_saddle(E, blocks, me / dt + th * nu * ke, bex, bey)
+        rhs_e = me / dt - (1.0 - th) * nu * ke
+        _scatter_block(R, blocks[0], blocks[0], rhs_e)
+        _scatter_block(R, blocks[1], blocks[1], rhs_e)
+
+        dofs, values = _th_bc_dofs(mesh, config, n2)
+        E[dofs, :] = 0.0
+        E[dofs, dofs] = 1.0
+        R[dofs, :] = 0.0  # BC rows carry the BC value directly
+        pin = 2 * n2
+        E[pin, :] = 0.0
+        E[pin, pin] = 1.0
+        return cls.from_host(mesh, config, np.linalg.inv(E), R, dofs, values, corners, device)
+
+    @classmethod
+    def from_host(cls, mesh: Mesh, config: TransientTHConfig, e_inv, r_op, bc_dofs, bc_values,
+                  corners, device=None) -> "TransientTHProblem":
+        """The problem from its host arrays, moved to ``device`` in the
+        configuration's precision."""
+        dev = tconfig.device(device)
+        dtype = tconfig.dtype(config.precision)
+        bc_dofs = np.asarray(bc_dofs, dtype=np.int64)
+        return cls(
+            mesh=mesh,
+            e_inv=torch.as_tensor(np.asarray(e_inv), dtype=dtype, device=dev),
+            r_op=torch.as_tensor(np.asarray(r_op), dtype=dtype, device=dev),
+            bc_dofs=bc_dofs,
+            bc_values=torch.as_tensor(np.asarray(bc_values), dtype=dtype, device=dev),
+            corners=np.asarray(corners),
+            config=config,
+            bc_index=torch.as_tensor(bc_dofs, device=dev),
+        )
 
 
-def th_step(problem, u_flat):
-    raise _taylor_hood_not_ported("th_step")
+def th_step(problem: TransientTHProblem, u_flat: torch.Tensor):
+    """One θ-step: u_flat (2N2,) → (u_flat', p (N1,), metrics)."""
+    n2 = problem.mesh.coords.shape[0]
+    rhs_v = (problem.r_op @ u_flat).index_put((problem.bc_index,), problem.bc_values)
+    rhs = torch.cat([rhs_v, u_flat.new_zeros(len(problem.corners))])
+    sol = problem.e_inv @ rhs
+    u_new = sol[:2 * n2]
+    div = calculus.divergence(problem.mesh, torch.stack([u_new[:n2], u_new[n2:]], dim=1))
+    metrics = {"max_u": torch.max(torch.abs(u_new)), "div_max": torch.max(torch.abs(div))}
+    return u_new, sol[2 * n2:], metrics
 
 
-def run_transient_th(problem, steps=None):
-    raise _taylor_hood_not_ported("run_transient_th")
+def run_transient_th(problem: TransientTHProblem, steps: int | None = None):
+    """``steps`` θ-steps from rest: (u (N2, 2), p (N1,), metrics per step)."""
+    n_steps = steps if steps is not None else problem.config.steps
+    n2 = problem.mesh.coords.shape[0]
+    u = torch.zeros(2 * n2, dtype=problem.e_inv.dtype, device=problem.e_inv.device)
+    p = u.new_zeros(len(problem.corners))
+    history = []
+    for _ in range(n_steps):
+        u, p, m = th_step(problem, u)
+        history.append(m)
+    metrics = {k: torch.stack([m[k] for m in history]) for k in ("max_u", "div_max")} \
+        if history else {}
+    return torch.stack([u[:n2], u[n2:]], dim=1), p, metrics
 
 
 # ---------------------------------------------------------------------------
