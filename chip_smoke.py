@@ -170,7 +170,28 @@ run last:
     card frames from the CPU's state within 1e-10 of the CPU's frame;
 35. the dense Taylor–Hood solvers on ``p2_refine(generate_annulus_mesh(28,
     32))`` (5,192 dofs): the steady solve under tpufem's residual gate, the
-    θ-scheme 200 steps f64 card against CPU (1e-10), f32 steps/s.
+    θ-scheme 200 steps f64 card against CPU (1e-10), f32 steps/s;
+36. K2 and K3 on the sparse Taylor–Hood engine's operators (the P2
+    velocity operator's identity split on its raster, the P1 pressure
+    Laplacian) against their plain versions: ``p2_refine(
+    generate_annulus_mesh(n, n))`` at n = 20 (K3 with 64 coarse nodes) and
+    192; f32 and f64, fixed iterations from zero and the engine's
+    ``tol_inner`` from a warm start, both velocity columns; rel L2,
+    iterations, ms a solve of both, two launches bit-equal, ms an iteration
+    against its bound, planes and remainder entries;
+37. the TH-192 row (241,880 dofs): ``bench_large.run_th_sparse(192, 192,
+    steps, precision="f32", engine="grid")`` at ``vel_restarts`` 0 and 1
+    from one ``SparseTHProblem``: build seconds, steps/s, outer iterations,
+    K2 and K3 launches a step (K2 = (1 + restarts)·(K3 + 2)), the
+    profiler's device split, weak and nodal divergence beside the P1/P1
+    projection's under tpufem's gate th_weak < 0.1·p1_weak;
+38. f64 card against CPU on ``p2_refine(generate_annulus_mesh(20, 20))``
+    over 10 steps (the CSR engine 1e-10, the grid engine 1e-9 relative in
+    u) and the steady Uzawa solve against the dense Taylor–Hood solve
+    (1e-9); the NS/TH cross-check of ``benchmarks/ns_th_xcheck_r5.py`` at
+    n_side 28 (rotational force, 50 steps, dt 1e-4), NS with
+    ``mass_consistent`` False and True against one CSR TH run, the second
+    within 0.1.
 
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
@@ -2046,6 +2067,245 @@ def phase_taylor_hood(dev) -> None:
     check(d32 <= 1e-4, f"TH f32 vs f64 u rel {d32}")
 
 
+# ---------------------------------------------------------------------------
+# The sparse and grid Taylor–Hood engines
+# ---------------------------------------------------------------------------
+
+TH_KERNEL_SIDES = (20, 192)
+TH_ROW_SIDE = 192  # 107,396 P2 nodes, 27,088 pressure dofs: 241,880 dofs
+TH_ROW_STEPS = 10
+TH_PARITY_SIDE = 20
+TH_PARITY_STEPS = 10
+TH_XCHECK_SIDE = 28
+TH_XCHECK = dict(steps=50, dt=1e-4, nu=1.0)
+# the engine's velocity tolerance a precision (bench_large.run_th_sparse)
+TH_TOL_INNER = {torch.float32: 1e-6, torch.float64: 1e-8}
+# K2/K3 against their plain versions as GRID_RTOL: summation order at f64
+# with fixed iterations, float32 roundoff at f32, and with a tolerance a
+# solve may stop one iteration apart, which moves it within that tolerance
+TH_RTOL = {(torch.float64, 0.0): 1e-9, (torch.float64, 1e-8): 1e-6,
+           (torch.float32, 0.0): 1e-3, (torch.float32, 1e-6): 1e-3}
+# K3 rounds its restriction and coarse product to float32 at every
+# precision (tpufem's rounding points): where the two summation orders put
+# a float32 block sum one ulp (6e-8 relative) apart, the f64 solves part by
+# that much times the coarse correction's share, up to ~1e-8 (4.1e-9
+# measured at n_side 192, 64 fixed iterations; K2 has no float32 stage
+# there and stays at 2e-14)
+TH_K3_F64_RTOL = 1e-7
+# tpufem's committed cross-check at n_side 28 (benchmarks/ns_th_xcheck_r5.jsonl)
+TH_XCHECK_TPUFEM = {False: 0.552, True: 0.051}
+
+
+def th_grid_problem(dev, n_side: int, precision: str = "f64", **kw):
+    """The grid engine on ``p2_refine(generate_annulus_mesh(n_side,
+    n_side))`` with ``bench_large.run_th_sparse``'s budgets."""
+    from tpufem_torch.workloads import th_sparse
+
+    _, base = bench_large.th_problem(n_side, n_side, precision, dev)
+    return th_sparse.GridTHProblem.build(base, **kw)
+
+
+def th_split_text(gp) -> str:
+    kv, kp = gp.vel_solver.K, gp.plap_solver.K
+    return (f"velocity raster {gp.ns2}² ({len(kv.offsets)} planes, {kv.n_rest} remainder "
+            f"entries), pressure raster {gp.ns1}² ({len(kp.offsets)} planes, {kp.n_rest} "
+            f"remainder entries, {gp.plap_solver.n_blocks}² coarse nodes)")
+
+
+def phase_th_kernels(dev) -> None:
+    """K2 and K3 on the TH operators against their plain versions (f32 and
+    f64; fixed iterations, then the engine's tol_inner from a warm start),
+    and ms an iteration of each (f32) against its bound."""
+    rng = np.random.default_rng(36)
+    for n_side in TH_KERNEL_SIDES:
+        gp = th_grid_problem(dev, n_side, target_coarse=64 if n_side <= 32 else 1024)
+        print(f"[36 TH kernels] n_side={n_side}: {th_split_text(gp)}")
+        ns2, ns1 = gp.ns2, gp.ns1
+        calls = 20 if n_side <= 32 else 3
+        for dtype in (torch.float32, torch.float64):
+            visc = gp.vel_solver
+            visc = dataclasses.replace(visc, K=visc.K.astype(dtype),
+                                       interior_mask=visc.interior_mask.to(dtype),
+                                       iters=min(visc.iters, 60))
+            pres = k3_cast(gp.plap_solver, dtype, dtype)
+            b2 = torch.as_tensor(rng.standard_normal((2, ns2, ns2)), dtype=dtype,
+                                 device=dev) * visc.mask_grid
+            b1 = torch.as_tensor(rng.standard_normal((ns1, ns1)), dtype=dtype,
+                                 device=dev) * pres.act_grid
+            for name, kernel, plain, solver, b in (
+                    ("K2", grid_cg.viscous_cg, grid_cg.viscous_cg_ref, visc, b2),
+                    ("K3", grid_cg.pressure_cg, grid_cg.pressure_cg_ref, pres, b1)):
+                for tol in (0.0, TH_TOL_INNER[dtype]):
+                    s = dataclasses.replace(solver, tol=tol)
+                    x0 = torch.zeros_like(b)
+                    if tol:
+                        x0 = plain(dataclasses.replace(solver, tol=0.0),
+                                   b * (1 + 1e-3 * torch.randn_like(b)), torch.zeros_like(b))
+                    rtol = TH_RTOL[(dtype, tol)]
+                    if name == "K3" and dtype == torch.float64:
+                        rtol = max(rtol, TH_K3_F64_RTOL)
+                    check_solve(36, f"{name} {str(dtype)[6:]} TH n_side={n_side} "
+                                f"({s.iters} iterations, tol {tol:g})", kernel, plain, s, b, x0,
+                                rtol, calls, 2)
+                if dtype == torch.float32:
+                    iteration_report(36, f"f32 TH n_side={n_side}", name, kernel,
+                                     [("card split", solver, solver.K)], b, calls=calls)
+
+
+def phase_th_row(dev) -> None:
+    """The TH-192 row on the grid engine, f32, at vel_restarts 0 and 1 from
+    one SparseTHProblem; the launch invariant and tpufem's gate (inside
+    ``run_th_sparse``)."""
+    t0 = time.perf_counter()
+    base = bench_large.th_problem(TH_ROW_SIDE, TH_ROW_SIDE, "f32", dev)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    print(f"[37 TH row] p2_refine(generate_annulus_mesh({TH_ROW_SIDE}, {TH_ROW_SIDE})): "
+          f"{base[1].n2} P2 nodes, {base[1].n1} pressure dofs, "
+          f"{2 * base[1].n2 + base[1].n1} dofs; SparseTHProblem built in {base_s:.1f} s")
+    for restarts in (0, 1):
+        zero_launches()
+        row = bench_large.run_th_sparse(TH_ROW_SIDE, TH_ROW_SIDE, TH_ROW_STEPS, precision="f32",
+                                        engine="grid", vel_restarts=restarts, device=dev,
+                                        base=base)
+        counts = launch_counts()
+        k2, k3 = counts["K2"], counts["K3"]
+        per = row["launches_per_step"]
+        check(k2 > 0 and k3 > 0 and not any(counts[k] for k in ("K1", "K4", "K5", "K6")),
+              f"TH row launches {counts}")
+        # per step K2 = (1 + restarts)·(K3 + 2), so over the timed steps too
+        timed_k2, timed_k3 = per["K2"] * TH_ROW_STEPS, per["K3"] * TH_ROW_STEPS
+        check(round(timed_k2) == (1 + restarts) * (round(timed_k3) + 2 * TH_ROW_STEPS),
+              f"launch invariant: K2 {timed_k2}, K3 {timed_k3} in {TH_ROW_STEPS} steps")
+        prof = row.pop("profile_of_warm_run")
+        weak = row["th_div_weak_max"]
+        print(f"[37 TH row] vel_restarts={restarts}: build {row['build_s']:.1f} s (grid engine, "
+              f"after the {base_s:.1f} s base), first step {row['compile_s']:.2f} s, timed "
+              f"{row['steps_per_sec']:.3f} and warm {row['warm_steps_per_sec']:.3f} steps/s; "
+              f"outer iterations a step {per['K3'] - 1:.2f}; launches a step K2 {per['K2']:.1f}, "
+              f"K3 {per['K3']:.1f} (K2 = {1 + restarts}·(K3 + 2)); iterations a solve "
+              f"{row['iters_per_solve']}; weak divergence {weak:.3e} (P1/P1 "
+              f"{row['p1p1_div_weak_max']:.3e}, gate < 0.1×, ratio {row['div_ratio_weak']:.1f}), "
+              f"nodal {row['th_final_div_max']:.3e} (P1/P1 {row['p1p1_final_div_max']:.3e}); "
+              f"f32 weak divergence reaches 1e-7: {weak <= 1e-7} (not gated); launches over the "
+              f"row {counts}")
+        print(f"[37 TH row] vel_restarts={restarts} device a warm step: "
+              f"{prof['device_ms_per_step']:.3f} ms, {prof['kernels_per_step']:.0f} kernels, K2 "
+              f"{100 * prof['K2_share']:.1f} %, K3 {100 * prof['K3_share']:.1f} %, busy "
+              f"{100 * prof['device_busy_share']:.1f} %; {json.dumps(prof['top'][:6])}")
+        print(f"[37 TH row] {json.dumps(row)}")
+
+
+def th_card_and_cpu(dev, run) -> tuple:
+    """``run(device)`` on the card (launch counts read around it) and on
+    the CPU: (card result, CPU result, card launches)."""
+    zero_launches()
+    gpu = run(dev)
+    counts = launch_counts()
+    return gpu, run(CPU), counts
+
+
+def phase_th_parity(dev) -> None:
+    """f64 card against CPU: the CSR engine and the grid engine over 10
+    steps, the steady solve against the dense one; then the NS/TH
+    cross-check at n_side 28."""
+    from tpufem_torch import p2_refine
+    from tpufem_torch.workloads import th_sparse
+
+    mesh = p2_refine(generate_annulus_mesh(TH_PARITY_SIDE, TH_PARITY_SIDE),
+                     snap_center=(0.5, 0.5), snap_radius=0.25)
+
+    def csr(d):
+        problem = th_sparse.SparseTHProblem.build(mesh, th_sparse.SparseTHConfig(), device=d)
+        return th_sparse.run(problem, steps=TH_PARITY_STEPS)[0]
+
+    def grid(d):
+        problem = th_sparse.SparseTHProblem.build(mesh, th_sparse.SparseTHConfig(), device=d)
+        gp = th_sparse.GridTHProblem.build(problem, tol_inner=0.0, target_coarse=64)
+        return th_sparse.run_grid(gp, steps=TH_PARITY_STEPS)[0]
+
+    g, c, counts = th_card_and_cpu(dev, csr)
+    check(not any(counts.values()), f"the CSR engine launched {counts}")
+    errs = {"CSR engine": (rel(g, c), 1e-10)}
+    g, c, counts = th_card_and_cpu(dev, grid)
+    check(counts["K2"] > 0 and counts["K3"] > 0, f"the grid engine's launches {counts}")
+    errs["grid engine"] = (rel(g, c), 1e-9)
+    zero_launches()
+    t0 = time.perf_counter()
+    us, _ = th_sparse.steady_solve(th_sparse.SparseTHProblem.build(mesh, device=dev),
+                                   iters_inner=200, iters_outer=40)
+    steady_s = time.perf_counter() - t0
+    ud, _, res = navier_stokes.solve_taylor_hood(mesh, device=dev)
+    no_kernel_launches("the steady Uzawa solve")
+    steady = float((us - ud).abs().max())
+    print(f"[38 TH parity] p2_refine(generate_annulus_mesh({TH_PARITY_SIDE}, {TH_PARITY_SIDE})), "
+          f"{mesh.n_nodes} P2 nodes, f64, {TH_PARITY_STEPS} steps card vs CPU, rel L2 in u: "
+          + "; ".join(f"{k} {v:.3e} (<= {lim:g})" for k, (v, lim) in errs.items())
+          + f" (grid engine on the card: K2 {counts['K2']}, K3 {counts['K3']} launches); "
+          f"steady Uzawa (200/40 iterations, {steady_s:.2f} s) vs dense TH on the card: max abs "
+          f"{steady:.3e} (<= 1e-9), dense residual {float(res):.3e}")
+    for k, (v, lim) in errs.items():
+        check(v <= lim, f"TH {k} card vs CPU rel {v} > {lim}")
+    check(steady <= 1e-9, f"steady Uzawa vs dense TH max abs {steady}")
+    for row in ns_th_xcheck(dev, TH_XCHECK_SIDE, **TH_XCHECK):
+        consistent = row["mass_consistent"]
+        print(f"[38 NS/TH cross-check] {json.dumps(row)}")
+        print(f"[38 NS/TH cross-check] mass_consistent={consistent}: rel_err_l2 "
+              f"{row['rel_err_l2']:.4f} (tpufem's committed {TH_XCHECK_TPUFEM[consistent]})")
+        if consistent:
+            check(row["rel_err_l2"] <= 0.1, f"NS mass_consistent vs TH rel_err_l2 "
+                  f"{row['rel_err_l2']} > 0.1")
+
+
+def ns_th_xcheck(dev, n_side: int, steps: int, dt: float, nu: float) -> list[dict]:
+    """``benchmarks/ns_th_xcheck_r5.py``'s rotational rows: NS (CSR, f64,
+    two-level, tol 1e-10) with ``mass_consistent`` False and True, each
+    against one run of the CSR TH engine (f64, B1 = B2 = 0, the force
+    f = 2·(0.5 − y, x − 0.5) as a nodal array), on the same P1 mesh from
+    rest, compared at the P1 nodes in the lumped-mass L2 norm."""
+    from tpufem_torch import p2_refine
+    from tpufem_torch.workloads import th_sparse
+
+    mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_side)
+
+    def force(xy):
+        return np.stack([2.0 * (0.5 - xy[:, 1]), 2.0 * (xy[:, 0] - 0.5)], axis=1)
+
+    t0 = time.perf_counter()
+    m2 = p2_refine(mesh, snap_center=(0.5, 0.5), snap_radius=0.25)
+    th_prob = th_sparse.SparseTHProblem.build(m2, th_sparse.SparseTHConfig(
+        dt=dt, nu=nu, B1=0.0, B2=0.0, body_force=force(m2.coords), precision="f64",
+        **bench_large.th_budgets(n_side)), device=dev)
+    u_th, _, th_mets = th_sparse.run(th_prob, steps=steps, host_loop=True)
+    u_th = u_th.double().cpu().numpy()[th_prob.corners]
+    t_th = time.perf_counter() - t0
+    ml = assembly.lumped_mass(mesh).numpy()
+
+    def l2(v):
+        return float(np.sqrt((ml * (v ** 2).sum(axis=1)).sum()))
+
+    rows = []
+    for consistent in (False, True):
+        t0 = time.perf_counter()
+        ns_prob = navier_stokes.NSProblem.build(mesh, navier_stokes.NSConfig(
+            dt=dt, nu=nu, body_force=force(mesh.coords), solver="cg", precision="f64",
+            cg_iters_visc=40, cg_iters_pressure=200, cg_tol=1e-10, cg_precond="twolevel",
+            mass_consistent=consistent), device=dev)
+        u_ns, mets = navier_stokes.run(ns_prob, steps=steps)
+        u_ns = u_ns.double().cpu().numpy()
+        err, ref = l2(u_ns - u_th), l2(u_th)
+        rows.append({
+            "mass_consistent": consistent, "n_side": n_side, "n_nodes": int(mesh.n_nodes),
+            "th_dofs": int(2 * th_prob.n2 + th_prob.n1), "steps": steps, "dt": dt,
+            "ns_max_u": float(np.abs(u_ns).max()), "th_max_u": float(np.abs(u_th).max()),
+            "ns_u_l2": l2(u_ns), "th_u_l2": ref, "err_l2": err,
+            "rel_err_l2": err / max(ref, 1e-30),
+            "ns_div_star_max": float(mets["div_star_max"][-1]),
+            "th_div_weak_max": float(th_mets["div_weak_max"]),
+            "ns_seconds": time.perf_counter() - t0, "th_seconds": t_th})
+    return rows
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -2147,6 +2407,9 @@ def main() -> None:
     timed(33, phase_small_parity, dev)
     timed(34, phase_stam, dev)
     timed(35, phase_taylor_hood, dev)
+    timed(36, phase_th_kernels, dev)
+    timed(37, phase_th_row, dev)
+    timed(38, phase_th_parity, dev)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",

@@ -146,3 +146,18 @@ def _grid_extras(problem) -> dict[str, np.ndarray]:
         out[f"{key}.indices"] = np.asarray(op.indices)
         out[f"{key}.data"] = np.asarray(op.data)
     return out
+
+
+def sparse_th_arrays(problem) -> dict[str, np.ndarray]:
+    """A tpufem ``SparseTHProblem`` as the arrays
+    ``interop.sparse_th_problem_from_numpy`` takes: its CSR operators'
+    patterns and values and its host arrays."""
+    arrays = {}
+    for name in ("K2", "M2", "Bx", "By", "BxT", "ByT", "Kp"):
+        op = getattr(problem, name)
+        arrays.update({f"{name}.indptr": np.asarray(op.indptr),
+                       f"{name}.indices": np.asarray(op.indices),
+                       f"{name}.data": np.asarray(op.data)})
+    for name in ("mp_lumped", "vel_mask", "u_bc", "corners"):
+        arrays[name] = np.asarray(getattr(problem, name))
+    return arrays

@@ -4,7 +4,8 @@ The JAX package ``tpufem`` is the reference; this package mirrors its
 layout and names.  It covers the squirmer Stokes step in its dense and
 scale regimes (on any mesh: ``gridify_mesh`` renumbers one for the grid
 kernels) with tracer and dye transport, the Navier–Stokes workload with
-the dense Taylor–Hood solvers (``p2_refine`` makes their P2 meshes),
+the dense Taylor–Hood solvers, the sparse and grid Taylor–Hood engines
+(``workloads.th_sparse``; ``p2_refine`` makes their P2 meshes),
 Poisson, heat and the small workloads, and the space-sharded grid path on
 a device mesh (``tpufem_torch.parallel``); the TPU kernels on those paths
 are hand-written CUDA kernels (``csrc/``).

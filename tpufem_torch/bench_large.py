@@ -8,6 +8,8 @@ both pressure solves, f32 fields, bf16 coarse inverse.
     python -m tpufem_torch.bench_large --size 1.05M [--steps 200] [--transport tracers]
         [--steps-per-call K] [--no-pad-hole] [--storage grid]
     python -m tpufem_torch.bench_large --poisson | --heat [--size L] [--precision f64]
+    python -m tpufem_torch.bench_large --th [--n-side 96] [--engine csr|grid]
+        [--precision f64|f32] [--restarts R] [--steps 50]
 
 prints one JSON row like tpufem's (cold and warm steps/s, the physics
 report), plus the card's name and power limit, the mean CG iterations per
@@ -21,8 +23,10 @@ tpufem's Navier–Stokes row instead (:func:`run_ns`: f32, the grid path's K4
 velocity and K3 pressure solves on CUDA).  ``--poisson`` and ``--heat`` run
 tpufem's matrix-free Poisson and heat rows (:func:`run_poisson_large`,
 :func:`run_heat_large`: f32, BiCGStab on the CSR surgery operator, at
-1,048,576 and 160,000 nodes by default).  There is no CPU fallback:
-without a CUDA device it fails.
+1,048,576 and 160,000 nodes by default).  ``--th`` runs tpufem's sparse
+Taylor–Hood row (:func:`run_th_sparse`: f64 by default, the CSR engine or
+the grid engine on K2 and K3, beside the same mesh's P1/P1 projection).
+There is no CPU fallback: without a CUDA device it fails.
 """
 
 from __future__ import annotations
@@ -550,12 +554,145 @@ def run_heat_large(n_side: int, n_circle: int, steps: int = 50, precision: str =
     return row
 
 
-def run_th_sparse(n_side: int, n_circle: int, steps: int, **kwargs) -> dict:
-    """tpufem's timed sparse Taylor–Hood row: refused until the sparse TH
-    engine (``workloads/th_sparse.py``) is ported."""
+def th_budgets(n_side: int) -> dict:
+    """tpufem's h-scaled iteration budgets of the sparse TH row: the inner
+    velocity CG's condition number grows like dt·ν/h², so the caps grow
+    linearly in ``n_side`` (on the grid engine the velocity solves and the
+    outer CG exit on tolerance, so these are caps)."""
+    return dict(iters_inner=max(60, int(1.5 * n_side)), iters_outer=max(40, n_side // 2),
+                iters_plap=max(20, n_side // 3))
+
+
+def th_problem(n_side: int, n_circle: int, precision: str = "f64", device="cuda"):
+    """(P1 mesh, ``SparseTHProblem``) of tpufem's sparse TH row: the
+    enclosed-box squirmer on ``p2_refine(generate_annulus_mesh(n_side,
+    n_circle))``, dt 0.01, ν 1, :func:`th_budgets`."""
+    from tpufem_torch import generate_annulus_mesh, p2_refine
     from tpufem_torch.workloads import th_sparse
 
-    raise th_sparse._not_ported("run_th_sparse")
+    mesh = generate_annulus_mesh(n_side=n_side, n_circle=n_circle)
+    m2 = p2_refine(mesh, snap_center=(0.5, 0.5), snap_radius=0.25)
+    cfg = th_sparse.SparseTHConfig(dt=0.01, nu=1.0, precision=precision, **th_budgets(n_side))
+    return mesh, th_sparse.SparseTHProblem.build(m2, cfg, device=device)
+
+
+def run_th_sparse(n_side: int, n_circle: int, steps: int, precision: str = "f64",
+                  engine: str = "csr", vel_restarts: int = 0, device="cuda",
+                  base=None) -> dict:
+    """tpufem's timed sparse Taylor–Hood row (Uzawa-CG) with its same-mesh
+    P1/P1 comparison: build (kernels included); one step (tpufem's compile
+    step), a timed run of ``steps`` from rest and a continuation of
+    ``steps`` from its end; the weak divergence ∫ψ ∇·u against the P1 test
+    space beside the P1/P1 projection's (the same mesh, dt, ν and steps;
+    f32 CG, two-level, tol 1e-5) under tpufem's gate th_weak < 0.1·p1_weak,
+    and the nodal divergence beside it (reported, not gated).
+
+    ``engine="grid"`` runs every velocity solve on K2 and every
+    Cahouet–Chabard sweep on K3 (tol_inner 1e-8 at f64, 1e-6 at f32;
+    tol_outer 1e-9 or 2e-6; ``vel_restarts`` true-residual passes a
+    velocity solve).  On CUDA the row also has the card, the K2 and K3
+    launches and mean iterations of the timed run, and the continuation
+    again under ``torch.profiler``.  ``base``: a
+    ``(mesh, SparseTHProblem)`` pair from :func:`th_problem` for these
+    arguments, to share one build between rows."""
+    from tpufem_torch.bench import card, profile_run
+    from tpufem_torch.ops import calculus
+    from tpufem_torch.solve import grid_cg
+    from tpufem_torch.workloads import th_sparse
+
+    t0 = time.perf_counter()
+    _build_kernels(device)
+    mesh, prob = base if base is not None else th_problem(n_side, n_circle, precision, device)
+    counters = {}
+    if engine == "grid":
+        gprob = th_sparse.GridTHProblem.build(
+            prob, tol_inner=1e-8 if precision == "f64" else 1e-6,
+            tol_outer=1e-9 if precision == "f64" else 2e-6, vel_restarts=vel_restarts)
+        gprob, counters = with_iteration_counters(gprob, {"vel_solver": 1, "plap_solver": 1})
+        runner = lambda steps, **kw: th_sparse.run_grid(gprob, steps=steps, **kw)
+    elif engine == "csr":
+        runner = lambda steps, **kw: th_sparse.run(prob, steps=steps, host_loop=True, **kw)
+    else:
+        raise ValueError(f"engine {engine!r}: expected 'csr' or 'grid'")
+    _device_sync(device)
+    t_build = time.perf_counter() - t0
+
+    def launches():
+        return grid_cg.viscous_cg.launches, grid_cg.pressure_cg.launches
+
+    t0 = time.perf_counter()
+    runner(1)
+    _device_sync(device)
+    t_first = time.perf_counter() - t0
+    for count, _ in counters.values():
+        count.zero_()
+    before = launches()
+    t0 = time.perf_counter()
+    u, _, mets, state = runner(steps, return_state=True)
+    _device_sync(device)
+    elapsed = time.perf_counter() - t0
+    after = launches()
+    iters = iterations_per_solve(counters, 1)
+    u_host = u.double().cpu().numpy()
+    if not np.isfinite(u_host).all():
+        raise FloatingPointError("sparse TH bench diverged")
+    t0 = time.perf_counter()
+    runner(steps, state=state)
+    _device_sync(device)
+    warm = steps / (time.perf_counter() - t0)
+
+    th_weak = float(prob.b_apply(u).abs().max())
+    th_div = float(mets["final_div_max"])
+    p1 = stokes.StokesProblem.build(mesh, stokes.StokesConfig(
+        dt=0.01, nu=1.0, solver="cg", precision="f32", transport="none", all_walls=True,
+        cg_precond="twolevel", cg_warm_start=True, cg_tol_pressure=1e-5, cg_tol_visc=1e-5),
+        device=device)
+    s1, m1 = stokes.run(p1, steps=steps)
+    p1_div = float(m1["final_div_max"][-1])
+    p1_weak = float(calculus.consistent_divergence_rhs(mesh, s1["u"]).abs().max())
+    if not th_weak < 0.1 * p1_weak:
+        raise AssertionError(f"sparse TH weak divergence {th_weak} not ≪ P1/P1 {p1_weak}")
+    row = {
+        "n1": int(prob.n1),
+        "n2": int(prob.n2),
+        "dofs": int(2 * prob.n2 + prob.n1),
+        "device": str(torch.device(device)),
+        "steps": steps,
+        "steps_per_sec": steps / elapsed,
+        "warm_steps_per_sec": warm,
+        "precision": precision,
+        "engine": engine,
+        "build_s": t_build,
+        "compile_s": t_first,  # the first step's seconds (the port compiles nothing)
+        "max_u": float(np.abs(u_host).max()),
+        "th_final_div_max": th_div,
+        "th_div_weak_max": th_weak,
+        "p1p1_final_div_max": p1_div,
+        "p1p1_div_weak_max": p1_weak,
+        "div_ratio_weak": p1_weak / max(th_weak, 1e-30),
+    }
+    if engine == "grid":
+        row.update(vel_restarts=vel_restarts, ns2=gprob.ns2, ns1=gprob.ns1,
+                   planes={"velocity": len(gprob.vel_solver.K.offsets),
+                           "pressure": len(gprob.plap_solver.K.offsets)},
+                   remainder={"velocity": gprob.vel_solver.K.n_rest,
+                              "pressure": gprob.plap_solver.K.n_rest})
+    if torch.device(device).type == "cuda":
+        row["device"] = torch.cuda.get_device_name(device)
+        row["card"] = card()
+        if engine == "grid":
+            k2, k3 = after[0] - before[0], after[1] - before[1]
+            row["launches_per_step"] = {"K2": k2 / steps, "K3": k3 / steps}
+            row["iters_per_solve"] = {"K2": iters["vel"] / max(k2, 1),
+                                      "K3": iters["plap"] / max(k3, 1)}
+        prof = profile_run(lambda: runner(steps, state=state), steps, top=40)
+        prof["device_busy_share"] = prof["device_ms_per_step"] * warm / 1e3
+        for name, key in (("viscous_cg", "K2_share"), ("pressure_cg", "K3_share")):
+            prof[key] = sum(k["ms_per_step"] for k in prof["top"]
+                            if name in k["name"]) / prof["device_ms_per_step"]
+        prof["top"] = prof["top"][:8]
+        row["profile_of_warm_run"] = prof
+    return row
 
 
 def main(argv=None) -> list[dict]:
@@ -582,18 +719,34 @@ def main(argv=None) -> list[dict]:
                         help="run the matrix-free Poisson solve (run_poisson_large) instead")
     parser.add_argument("--heat", action="store_true",
                         help="run the matrix-free heat run (run_heat_large) instead")
-    parser.add_argument("--precision", default="f32", choices=["f32", "f64"],
-                        help="--poisson/--heat precision")
+    parser.add_argument("--precision", default=None, choices=["f32", "f64"],
+                        help="--poisson/--heat/--th precision (default f32; f64 with --th)")
+    parser.add_argument("--th", action="store_true",
+                        help="run the sparse Taylor–Hood row (run_th_sparse) instead")
+    parser.add_argument("--n-side", type=int, default=96,
+                        help="--th mesh resolution (P2 dofs about 4·n_side²)")
+    parser.add_argument("--engine", default="csr", choices=["csr", "grid"],
+                        help="--th engine: csr (plain CSR Uzawa-CG) or grid (K2 and K3)")
+    parser.add_argument("--restarts", type=int, default=0,
+                        help="--th --engine grid: true-residual passes a velocity solve")
     parser.add_argument("--out", default=None, help="write the rows as JSON lines here too")
     args = parser.parse_args(argv)
     if args.size is None:
         args.size = "160k" if args.heat else "1.05M"
     if args.steps is None:
-        args.steps = 50 if args.heat else 200
+        args.steps = 50 if args.heat or args.th else 200
+    if args.precision is None:
+        args.precision = "f64" if args.th else "f32"
     if not torch.cuda.is_available():
         raise SystemExit("bench_large measures the card: no CUDA device found")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.th:
+        row = run_th_sparse(args.n_side, args.n_side, args.steps, precision=args.precision,
+                            engine=args.engine, vel_restarts=args.restarts)
+        row["label"] = f"th-{args.n_side}"
+        print(json.dumps(row), flush=True)
+        return [row]
     wanted = args.size.split(",")
     unknown = set(wanted) - {s[0] for s in SIZES}
     if unknown:

@@ -58,6 +58,12 @@ arrays of a dense build, the BC index sets and values):
     ``bc_values``, ``corners``;
     :func:`stam_state_from_numpy`: Stam's state ``{vx, vy, density, t}``.
 
+Sparse Taylor–Hood problems (:func:`sparse_th_problem_from_numpy`, the JAX
+package's ``SparseTHProblem``): ``<op>.<indptr|indices|data>`` for ``<op>``
+in ``K2``, ``M2``, ``Bx``, ``By``, ``BxT``, ``ByT`` and ``Kp``; ``mp_lumped``,
+``vel_mask``, ``u_bc`` and ``corners``.  The grid engine
+(``th_sparse.GridTHProblem.build``) then builds on it as on the port's own.
+
 Operator arrays keep their own dtype on the device; the arrays are copied,
 so read-only inputs (such as views of JAX arrays) are fine.
 """
@@ -84,6 +90,7 @@ from tpufem_torch.workloads.navier_stokes import (NSConfig, NSProblem, Transient
                                                   TransientTHProblem)
 from tpufem_torch.workloads.navier_stokes import check_config as check_ns_config
 from tpufem_torch.workloads.stokes import StokesConfig, StokesProblem, check_config
+from tpufem_torch.workloads.th_sparse import SparseTHConfig, SparseTHProblem
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -304,6 +311,24 @@ def th_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Tra
     return TransientTHProblem.from_host(mesh, config, np.array(arrays["e_inv"]),
                                         np.array(arrays["r_op"]), arrays["bc_dofs"],
                                         np.array(arrays["bc_values"]), arrays["corners"], device)
+
+
+def sparse_th_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh,
+                                 config: SparseTHConfig, device=None) -> SparseTHProblem:
+    """A port ``SparseTHProblem`` holding the given CSR operators (pattern
+    from ``indptr``/``indices``, the values as given) and host arrays, cast
+    to the configuration's precision on ``device``."""
+    corners = np.asarray(arrays["corners"], dtype=np.int64)
+    n2, n1 = mesh.coords.shape[0], len(corners)
+    shapes = {"K2": (n2, n2), "M2": (n2, n2), "Bx": (n1, n2), "By": (n1, n2),
+              "BxT": (n2, n1), "ByT": (n2, n1), "Kp": (n1, n1)}
+    ops = {k: CSROperator(indptr=np.asarray(arrays[f"{k}.indptr"], dtype=np.int32),
+                          indices=np.asarray(arrays[f"{k}.indices"], dtype=np.int32),
+                          data=torch.as_tensor(np.array(arrays[f"{k}.data"])), shape=shape)
+           for k, shape in shapes.items()}
+    return SparseTHProblem.from_operators(
+        mesh, config, ops, np.asarray(arrays["mp_lumped"]), np.asarray(arrays["vel_mask"]),
+        np.asarray(arrays["u_bc"]), corners, device)
 
 
 def stam_state_from_numpy(state: dict[str, np.ndarray], device=None) -> dict[str, torch.Tensor]:

@@ -226,3 +226,33 @@ def _coo_to_csr_values(pattern: dict, elem: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(pattern["nnz"], dtype=elem.dtype, device=dev)
     return out.index_add_(0, torch.as_tensor(pattern["inverse"], dtype=torch.int64, device=dev),
                           vals)
+
+
+def assemble_csr_conn(conn_rows, conn_cols, elem, shape):
+    """CSR from arbitrary (possibly rectangular) element blocks.
+
+    ``conn_rows (T, kr)`` / ``conn_cols (T, kc)`` give each element block's
+    global row and column ids, ``elem (T, kr, kc)`` the values (host
+    NumPy; the result is float64 on the CPU).  The pattern is host NumPy:
+    the entries lexsorted by (row, column) and made unique; each unique
+    entry sums its element values in that order with ``index_add_``.  Used for the P2 stiffness
+    and mass and the P1×P2 divergence blocks of the sparse Taylor–Hood
+    engines (``workloads/th_sparse.py``)."""
+    from tpufem_torch.ops.sparse import CSROperator
+
+    conn_rows = np.asarray(conn_rows, dtype=np.int64)
+    conn_cols = np.asarray(conn_cols, dtype=np.int64)
+    kr, kc = conn_rows.shape[1], conn_cols.shape[1]
+    rows = np.repeat(conn_rows, kc, axis=1).reshape(-1)
+    cols = np.tile(conn_cols, (1, kr)).reshape(-1)
+    order = np.lexsort((cols, rows))
+    keys = rows[order] * np.int64(shape[1]) + cols[order]
+    uniq, inverse = np.unique(keys, return_inverse=True)
+    indptr = np.zeros(shape[0] + 1, dtype=np.int32)
+    np.add.at(indptr, (uniq // shape[1]).astype(np.int32) + 1, 1)
+    vals = torch.as_tensor(np.asarray(elem, dtype=np.float64).reshape(-1)[order])
+    data = torch.zeros(len(uniq), dtype=torch.float64).index_add_(
+        0, torch.as_tensor(inverse.reshape(-1), dtype=torch.int64), vals)
+    return CSROperator(indptr=np.cumsum(indptr).astype(np.int32),
+                       indices=(uniq % shape[1]).astype(np.int32), data=data,
+                       shape=tuple(shape))

@@ -104,6 +104,22 @@ def convection_apply(mesh: Mesh, u: torch.Tensor, c: torch.Tensor,
     return torch.zeros(mesh.n_nodes, dtype=dtype, device=dev).index_add_(0, tris.reshape(-1), contrib)
 
 
+def consistent_divergence_rhs(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
+    """(N,) consistent pressure right-hand side b_i = −∫ ∇φ_i · ū with the
+    element-averaged velocity ū (the weak divergence against the P1 test
+    space), in ``u``'s dtype and on its device."""
+    dtype, dev = u.dtype, u.device
+    geo = mesh.tensors(dtype, dev)
+    tris = geo["tris"]
+    u_avg = u[tris].mean(dim=1)  # (T, 2)
+    grads = geo["grads"]
+    contrib = -(u_avg[:, None, 0] * grads[:, :, 0] + u_avg[:, None, 1] * grads[:, :, 1])
+    contrib = contrib * geo["area"][:, None]
+    contrib = torch.where(geo["valid"][:, None], contrib, torch.zeros((), dtype=dtype, device=dev))
+    return torch.zeros(mesh.n_nodes, dtype=dtype, device=dev).index_add_(
+        0, tris.reshape(-1), contrib.reshape(-1))
+
+
 def divergence_matrices(mesh: Mesh):
     """(Dx, Dy) host NumPy (N, N) float64 matrices with
     div(u) = Dx uₓ + Dy u_y, and likewise ∇p = (Dx p, Dy p).  Equal to

@@ -6,6 +6,8 @@ tensor in the run's dtype on the run's device.  ``matvec`` gathers
 ``data * x[indices]`` and sums each row with ``index_add_``: on the CPU
 that sums in CSR order, on CUDA with atomics, so a CUDA result is not
 bit-reproducible from run to run (the order of the atomic adds varies).
+An (N, k) ``x`` is k columns at once, each summed as its 1-D matvec would
+be (tpufem vmaps the matvec over them).
 """
 
 from __future__ import annotations
@@ -54,11 +56,13 @@ class CSROperator:
 
 
 def csr_matvec(op: CSROperator, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x via gather + row sum; the result takes the promoted dtype
-    of ``op.data`` and ``x`` (as ``jnp`` promotes)."""
+    """y = A @ x via gather + row sum, for x (N,) or (N, k); the result takes
+    the promoted dtype of ``op.data`` and ``x`` (as ``jnp`` promotes)."""
     rows, cols = op._index_tensors
-    gathered = op.data * x[cols]
-    out = torch.zeros(op.shape[0], dtype=gathered.dtype, device=gathered.device)
+    data = op.data if x.ndim == 1 else op.data[:, None]
+    gathered = data * x[cols]
+    out = torch.zeros((op.shape[0],) + tuple(x.shape[1:]), dtype=gathered.dtype,
+                      device=gathered.device)
     return out.index_add_(0, rows, gathered)
 
 
@@ -92,3 +96,16 @@ def csr_from_coo(rows, cols, data, shape, sum_duplicates: bool = False,
         data=torch.as_tensor(data[order], dtype=dtype, device=device),
         shape=tuple(shape),
     )
+
+
+def permute_csr(op: CSROperator, row_perm, col_perm, shape) -> CSROperator:
+    """Renumber the rows and columns of ``op`` (a host-side rebuild; the
+    values keep their dtype and device).
+
+    ``row_perm[old_row] = new_row`` (likewise columns); ``shape`` may be
+    larger than the old one: unmapped new rows stay empty (the inert dummy
+    slots of a :func:`tpufem_torch.mesh.gridify.gridify_points` raster)."""
+    rows = np.asarray(row_perm, dtype=np.int64)[op.row_ids]
+    cols = np.asarray(col_perm, dtype=np.int64)[np.asarray(op.indices)]
+    data = op.data.detach().cpu().numpy()
+    return csr_from_coo(rows, cols, data, shape, dtype=op.data.dtype, device=op.data.device)

@@ -22,10 +22,12 @@ import torch
 from tpufem_torch.solve.cg import _ratio, cg, cg_fixed
 
 
-def _solve_columns(matvec, b, x0=None, tol: float = 0.0, **kw):
+def _solve_columns(matvec, b, x0=None, tol: float = 0.0, block: bool = False, **kw):
     """Batched CG: one iteration stream drives all columns of b (N, k)
     with per-column step lengths.  ``tol > 0`` loops until EVERY column's
-    residual is below tol·‖b_col‖ (``iters`` is then the cap)."""
+    residual is below tol·‖b_col‖ (``iters`` is then the cap).  ``block``:
+    ``matvec`` takes the (N, k) block and gives each column what it gives
+    that column alone (as tpufem's vmap of it), in one call instead of k."""
     if b.ndim == 1:
         if tol > 0:
             x, _ = cg(matvec, b, x0=x0, tol=tol, maxiter=kw.pop("iters"),
@@ -41,6 +43,8 @@ def _solve_columns(matvec, b, x0=None, tol: float = 0.0, **kw):
         return torch.sum(a * c, dim=0)  # (k,)
 
     def mv(x):
+        if block:
+            return matvec(x)
         return torch.stack([matvec(x[:, c]) for c in range(x.shape[1])], dim=1)
 
     x = torch.zeros_like(b) if x0 is None else x0

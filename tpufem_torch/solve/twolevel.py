@@ -109,14 +109,16 @@ def build_twolevel(csr_op, coords: np.ndarray, matvec, inv_diag: torch.Tensor, *
 
 
 def twolevel_preconditioner(matvec, inv_diag, tl: TwoLevel, active_mask=None):
-    """M(r) closure for CG (SPD on the active subspace)."""
+    """M(r) closure for CG (SPD on the active subspace), for r (N,) or
+    (N, k) columns (``inv_diag`` and ``active_mask`` shaped to broadcast)."""
     nc = tl.n_coarse
 
     def smooth(r):
         return tl.omega * (inv_diag * r)
 
     def coarse(r):
-        rc = torch.zeros(nc, dtype=r.dtype, device=r.device).index_add_(0, tl.agg_sorted, r[tl.order])
+        rc = torch.zeros((nc,) + tuple(r.shape[1:]), dtype=r.dtype, device=r.device).index_add_(
+            0, tl.agg_sorted, r[tl.order])
         # the coarse product in the coarse storage dtype, back in the field's
         z = (tl.ac_inv @ rc.to(tl.ac_inv.dtype)).to(r.dtype)[tl.agg]
         return z if active_mask is None else z * active_mask

@@ -8,6 +8,6 @@ stam_grid — the structured-grid "stable fluids" solver
 stokes — operator-split Stokes + squirmer + transport, dense and scale regimes
 navier_stokes — monolithic Stokes, the dense Taylor–Hood solvers and
     operator-split Navier–Stokes
-th_sparse — the sparse and grid Taylor–Hood engines (they refuse: not ported)
+th_sparse — the sparse (CSR) and grid (K2/K3) Taylor–Hood engines, Uzawa-CG
 sweep — the squirmer-gait food-capture campaign
 """

@@ -30,8 +30,8 @@ for CSR.
 The dense P2/P1 Taylor–Hood solvers (:func:`solve_taylor_hood`, the
 θ-scheme :class:`TransientTHProblem`) assemble and factor on the host in
 float64 and apply on the device; their meshes come from
-``mesh.p2.p2_refine``.  The sparse and grid Taylor–Hood engines are not
-ported (ROADMAP Queue 1 item 9).
+``mesh.p2.p2_refine``.  The sparse and grid Taylor–Hood engines are in
+:mod:`tpufem_torch.workloads.th_sparse`.
 """
 
 from __future__ import annotations
