@@ -21,7 +21,8 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 6. semi-Lagrangian dye on the fused f32 path for 200 steps;
 7. the K2/K3 build report: seconds, registers and spills per instance, and
    for each instance its registers, spill stores, shared memory and blocks
-   per SM;
+   per SM (K2's f32 instances for an iteration that streams from HBM and
+   for one that fits in L2);
 8. K2 and K3 against their plain versions on the card: f32 and f64 (and a
    bf16 coarse inverse for K3), fixed iterations and ``tol=1e-5`` from a
    warm start, at ``n_side=20`` (ragged 3×3 coarse blocks) and on the
@@ -176,14 +177,16 @@ run last:
     Laplacian) against their plain versions: ``p2_refine(
     generate_annulus_mesh(n, n))`` at n = 20 (K3 with 64 coarse nodes) and
     192; f32 and f64, fixed iterations from zero and the engine's
-    ``tol_inner`` from a warm start, both velocity columns; rel L2,
+    ``tol_inner`` from a warm start, K2 also at the engine's velocity cap
+    (288 iterations at 192) with ``tol_inner`` from zero and from the warm
+    start, both velocity columns; rel L2,
     iterations, ms a solve of both, two launches bit-equal, ms an iteration
     against its bound, planes and remainder entries;
 37. the TH-192 row (241,880 dofs): ``bench_large.run_th_sparse(192, 192,
     steps, precision="f32", engine="grid")`` at ``vel_restarts`` 0 and 1
     from one ``SparseTHProblem``: build seconds, steps/s, outer iterations,
-    K2 and K3 launches a step (K2 = (1 + restarts)·(K3 + 2)), the
-    profiler's device split, weak and nodal divergence beside the P1/P1
+    K2 and K3 launches and iterations a step (K2 = (1 + restarts)·(K3 +
+    2)), the profiler's device split, weak and nodal divergence beside the P1/P1
     projection's under tpufem's gate th_weak < 0.1·p1_weak;
 38. f64 card against CPU on ``p2_refine(generate_annulus_mesh(20, 20))``
     over 10 steps (the CSR engine 1e-10, the grid engine 1e-9 relative in
@@ -363,14 +366,19 @@ def ptxas_report(path, entry: str = "") -> str:
 def instance_label(mangled: str) -> str:
     """``pressure_cg f32 bf16`` for pressure_cg_kernel<float, __nv_bfloat16>:
     the kernel without ``_kernel`` and its template arguments (a second
-    field type equal to the first left out)."""
+    field type equal to the first left out; the first integer is the
+    columns, a second the blocks per SM of the register budget:
+    ``viscous_cg f32 C=2 5/SM`` for viscous_cg_kernel<float, 2, 5>)."""
     m = re.search(r"\d+([a-z][a-z_]*?)_kernelI(.*?)EEv", mangled)
     if m is None:
         return mangled
     args = []
     for t in re.finditer(r"\d+__nv_bfloat16|Li(\d+)E|[fd]", m.group(2)):
-        args.append(f"C={t.group(1)}" if t.group(1) else
-                    {"f": "f32", "d": "f64"}.get(t.group(0), "bf16"))
+        if t.group(1):
+            args.append(f"{t.group(1)}/SM" if any(a.startswith("C=") for a in args)
+                        else f"C={t.group(1)}")
+        else:
+            args.append({"f": "f32", "d": "f64"}.get(t.group(0), "bf16"))
     if len(args) == 2 and args[1] == args[0]:
         args = args[:1]
     return " ".join([m.group(1)] + args)
@@ -657,13 +665,17 @@ def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
     """The bound of one whole solve of K2, K3 or K4: its inputs read once
     (operator planes, masks and diagonals, right-hand sides, warm starts,
     K3's coarse inverse) and its solutions written once, against the flops
-    of this run's iterations (two a plane entry for each apply, ten a point
-    for the vector updates, K3's coarse product)."""
+    of this run's iterations (two a plane entry for each apply; the vector
+    updates: K2 21 a point and column, K3 30, K4 15; K3's coarse
+    product)."""
     n, n_off, item = K.n, len(K.offsets), K.diags.element_size()
     planes = (n_off * n + 3 * K.n_rest) * item
     if kernel == "K2":
+        # a column's point, an iteration: p = D⁻¹r + βp 3, m·p 1, the
+        # operator's m(p + dtν·Kmp) + (1 − m)p 6, p·q 2, x and r 4, r·D⁻¹r
+        # 3, r·r 2
         nbytes = planes + (2 + 3 * cols) * n * item
-        flops = (iters + 1) * cols * (2 * n_off + 10) * n
+        flops = (iters + 1) * cols * (2 * n_off + 21) * n
     elif kernel == "K3":
         m = ac_inv.shape[0]
         nbytes = planes + 5 * n * item + m * m * ac_inv.element_size()
@@ -675,7 +687,10 @@ def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
 
 
 # Vector passes an iteration makes at least: K2 the shared mask and inverse
-# diagonal three times and 11 a column (q = A p; x, r; p), K3 and K5's
+# diagonal three times and 10 a column (its two fused phases, csrc/
+# grid_cg.cu: A reads r and p_old and writes p and q, 4 a column, plus the
+# mask and D⁻¹; B reads x, p, r and q and writes x and r, 6, plus D⁻¹; the
+# three-phase first version made 11 a column), K3 and K5's
 # pressure solve 17 (the fused iteration of csrc/grid_common.cuh), K4 17 a
 # column and 5 shared (its three fused phases, csrc/grid_cg.cu: P reads r,
 # p_old, v_old and r̂ and writes p and v, 6 a column, plus the mask and D⁻¹;
@@ -693,7 +708,7 @@ def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None,
     n, item = K.n, K.diags.element_size()
     op = (len(K.offsets) * n + 3 * K.n_rest) * item
     if passes is None:
-        passes = {"K2": 3 + 11 * cols, "K3": 17, "K4": 17 * cols + 5}[kernel]
+        passes = {"K2": 3 + 10 * cols, "K3": 17, "K4": 17 * cols + 5}[kernel]
     nbytes = APPLIES[kernel] * op + passes * n * item
     if ac_inv is not None:
         nbytes += ac_inv.numel() * ac_inv.element_size()
@@ -2114,8 +2129,9 @@ def th_split_text(gp) -> str:
 
 def phase_th_kernels(dev) -> None:
     """K2 and K3 on the TH operators against their plain versions (f32 and
-    f64; fixed iterations, then the engine's tol_inner from a warm start),
-    and ms an iteration of each (f32) against its bound."""
+    f64; fixed iterations, then the engine's tol_inner from a warm start,
+    K2 also at the engine's velocity cap from zero), and ms an iteration of
+    each (f32) against its bound."""
     rng = np.random.default_rng(36)
     for n_side in TH_KERNEL_SIDES:
         gp = th_grid_problem(dev, n_side, target_coarse=64 if n_side <= 32 else 1024)
@@ -2124,28 +2140,35 @@ def phase_th_kernels(dev) -> None:
         calls = 20 if n_side <= 32 else 3
         for dtype in (torch.float32, torch.float64):
             visc = gp.vel_solver
+            cap = visc.iters  # the engine's velocity cap (288 at TH-192)
             visc = dataclasses.replace(visc, K=visc.K.astype(dtype),
                                        interior_mask=visc.interior_mask.to(dtype),
-                                       iters=min(visc.iters, 60))
+                                       iters=min(cap, 60))
             pres = k3_cast(gp.plap_solver, dtype, dtype)
             b2 = torch.as_tensor(rng.standard_normal((2, ns2, ns2)), dtype=dtype,
                                  device=dev) * visc.mask_grid
             b1 = torch.as_tensor(rng.standard_normal((ns1, ns1)), dtype=dtype,
                                  device=dev) * pres.act_grid
-            for name, kernel, plain, solver, b in (
-                    ("K2", grid_cg.viscous_cg, grid_cg.viscous_cg_ref, visc, b2),
-                    ("K3", grid_cg.pressure_cg, grid_cg.pressure_cg_ref, pres, b1)):
-                for tol in (0.0, TH_TOL_INNER[dtype]):
-                    s = dataclasses.replace(solver, tol=tol)
+            tol_inner = TH_TOL_INNER[dtype]
+            # (iterations, tol, warm start): K2 also at the engine's cap with
+            # its tolerance, from zero (where it runs to the cap) and warm
+            k2_cases = [(min(cap, 60), 0.0, False), (cap, tol_inner, False), (cap, tol_inner, True)]
+            k3_cases = [(pres.iters, 0.0, False), (pres.iters, tol_inner, True)]
+            for name, kernel, plain, solver, b, cases in (
+                    ("K2", grid_cg.viscous_cg, grid_cg.viscous_cg_ref, visc, b2, k2_cases),
+                    ("K3", grid_cg.pressure_cg, grid_cg.pressure_cg_ref, pres, b1, k3_cases)):
+                for iters, tol, warm in cases:
+                    s = dataclasses.replace(solver, iters=iters, tol=tol)
                     x0 = torch.zeros_like(b)
-                    if tol:
+                    if warm:
                         x0 = plain(dataclasses.replace(solver, tol=0.0),
                                    b * (1 + 1e-3 * torch.randn_like(b)), torch.zeros_like(b))
                     rtol = TH_RTOL[(dtype, tol)]
                     if name == "K3" and dtype == torch.float64:
                         rtol = max(rtol, TH_K3_F64_RTOL)
                     check_solve(36, f"{name} {str(dtype)[6:]} TH n_side={n_side} "
-                                f"({s.iters} iterations, tol {tol:g})", kernel, plain, s, b, x0,
+                                f"({iters} iterations, tol {tol:g}, from "
+                                f"{'a warm start' if warm else 'zero'})", kernel, plain, s, b, x0,
                                 rtol, calls, 2)
                 if dtype == torch.float32:
                     iteration_report(36, f"f32 TH n_side={n_side}", name, kernel,
@@ -2184,14 +2207,18 @@ def phase_th_row(dev) -> None:
               f"{row['steps_per_sec']:.3f} and warm {row['warm_steps_per_sec']:.3f} steps/s; "
               f"outer iterations a step {per['K3'] - 1:.2f}; launches a step K2 {per['K2']:.1f}, "
               f"K3 {per['K3']:.1f} (K2 = {1 + restarts}·(K3 + 2)); iterations a solve "
-              f"{row['iters_per_solve']}; weak divergence {weak:.3e} (P1/P1 "
+              f"{row['iters_per_solve']}, a step {row['iters_per_step']} (warm run "
+              f"{row['warm_iters_per_step']}); weak divergence "
+              f"{weak:.3e} (P1/P1 "
               f"{row['p1p1_div_weak_max']:.3e}, gate < 0.1×, ratio {row['div_ratio_weak']:.1f}), "
               f"nodal {row['th_final_div_max']:.3e} (P1/P1 {row['p1p1_final_div_max']:.3e}); "
               f"f32 weak divergence reaches 1e-7: {weak <= 1e-7} (not gated); launches over the "
               f"row {counts}")
         print(f"[37 TH row] vel_restarts={restarts} device a warm step: "
               f"{prof['device_ms_per_step']:.3f} ms, {prof['kernels_per_step']:.0f} kernels, K2 "
-              f"{100 * prof['K2_share']:.1f} %, K3 {100 * prof['K3_share']:.1f} %, busy "
+              f"{100 * prof['K2_share']:.1f} % ({row['warm_iters_per_step']['K2']:.1f} iterations, "
+              f"{prof['K2_share'] * prof['device_ms_per_step'] / row['warm_iters_per_step']['K2']:.5f} "
+              f"ms each), K3 {100 * prof['K3_share']:.1f} %, busy "
               f"{100 * prof['device_busy_share']:.1f} %; {json.dumps(prof['top'][:6])}")
         print(f"[37 TH row] {json.dumps(row)}")
 

@@ -1,7 +1,9 @@
 """Kernels K2 and K3 (``tpufem_torch.solve.grid_cg``) in their plain
 versions against tpufem's Pallas kernels run in interpret mode, on the
-operators of ``generate_annulus_mesh(20, 24, pad_hole=True)`` with seeded
-inputs; and the wrappers' CPU behaviour."""
+operators of ``generate_annulus_mesh(20, 24, pad_hole=True)`` and on the
+grid Taylor–Hood engine's velocity operator of
+``p2_refine(generate_annulus_mesh(12, 12))``, with seeded inputs; and the
+wrappers' CPU behaviour."""
 
 import dataclasses
 import functools
@@ -17,6 +19,7 @@ from tpufem.ops.gridop import GridOperator as JGrid
 from tpufem.solve.pallas_cg import PressureGridCG as JPressure
 from tpufem.solve.pallas_cg import ViscousGridCG as JViscous
 from tpufem.solve.pressure import owner_map
+from tpufem_torch import interop
 from tpufem_torch.ops import assembly as tassembly
 from tpufem_torch.ops.gridop import GridOperator as TGrid
 from tpufem_torch.solve import grid_cg
@@ -83,6 +86,84 @@ def test_viscous_plain_matches_tpufem_kernel(tol):
     want = np.asarray(jv.solve(jnp.asarray(b), jnp.asarray(x0) if tol else None))
     got = tv.solve(torch.as_tensor(b), torch.as_tensor(x0) if tol else None).numpy()
     assert rel(got, want) <= 1e-12
+
+
+TH_MESH = (12, 12)  # P2-refined: 440 velocity nodes on a raster
+TH_CFG = dict(dt=0.01, nu=1.0, iters_inner=60, iters_outer=40, iters_plap=20)
+TH_TOL_INNER = 1e-8  # the grid engine's velocity tolerance at f64 (bench_large.run_th_sparse)
+# K2 against tpufem's kernel on the TH velocity operator, relative L2.  On
+# tpufem's split carried across, the two differ in summation order only,
+# which the 30 fixed iterations from zero amplify (CG short of convergence
+# on A = M/dt + νK − I): measured 1.3e-12 there, 2.5e-14 with the tolerance
+# from a warm start.  The port's card split
+# (GridOperator.dense_split) keeps one plane (the diagonal) where tpufem's
+# split keeps two on tpufem's 128-wide raster, and its remainder rounds the
+# other plane's couplings to float32 as tpufem's kernels round theirs:
+# measured 3.6e-8 (fixed 30) and 5.2e-8 (tolerance, warm)
+TH_RTOL = {("tpufem", 0.0): 5e-12, ("tpufem", TH_TOL_INNER): 1e-12,
+           ("card", 0.0): 1e-7, ("card", TH_TOL_INNER): 1e-7}
+_GRID_FIELDS = ("diags", "n_rest", "gr_rowT", "gr_laneT", "sc_row", "sc_laneT", "rest_vals",
+                "offsets", "coverage")
+
+
+@functools.lru_cache(maxsize=None)
+def _th_velocity():
+    """tpufem's grid TH engine (interpret mode) on ``p2_refine(
+    generate_annulus_mesh(12, 12))`` and the port's grid engine on the same
+    rasters (the port's own build): (tpufem's velocity solver, the port's
+    plain K2 on tpufem's split carried across by ``interop``, the port's
+    plain K2 on its own card split)."""
+    from tpufem.mesh.p2 import p2_refine as jp2_refine
+    from tpufem.workloads import th_sparse as jth
+    from tpufem_torch.mesh.p2 import p2_refine as tp2_refine
+    from tpufem_torch.workloads import th_sparse as tth
+
+    snap = dict(snap_center=(0.5, 0.5), snap_radius=0.25)
+    jm, tm = meshes(*TH_MESH)
+    jbase = jth.SparseTHProblem.build(jp2_refine(jm, **snap), jth.SparseTHConfig(**TH_CFG))
+    jgp = jth.GridTHProblem.build(jbase, interpret=True, tol_inner=TH_TOL_INNER)
+    jv = jgp.vel_solver
+    arrays = {f"K.{f}": np.asarray(getattr(jv.K, f)) for f in _GRID_FIELDS}
+    mask = torch.as_tensor(np.array(jv.interior_mask))
+    carried = grid_cg.ViscousGridCG(K=interop._grid_operator(arrays, "K", "cpu"),
+                                    interior_mask=mask, dt_nu=jv.dt_nu, iters=jv.iters,
+                                    tol=jv.tol, plain=True)
+    tbase = tth.SparseTHProblem.build(tp2_refine(tm, **snap), tth.SparseTHConfig(**TH_CFG),
+                                      device=torch.device("cpu"))
+    tgp = tth.GridTHProblem.build(tbase, interpret=True, ns2=jgp.ns2, ns1=jgp.ns1,
+                                  tol_inner=TH_TOL_INNER)
+    np.testing.assert_array_equal(tgp.perm2, np.asarray(jgp.perm2))
+    return jv, carried, tgp.vel_solver
+
+
+@pytest.mark.parametrize("split,tol", [("tpufem", 0.0), ("tpufem", TH_TOL_INNER),
+                                       ("card", 0.0), ("card", TH_TOL_INNER)])
+def test_viscous_plain_matches_tpufem_kernel_on_th_velocity_operator(split, tol):
+    """K2 on the grid TH engine's velocity operator (dt_nu 1, both columns,
+    f64): fixed 30 iterations from zero, and the engine's f64 tol_inner
+    from a warm start, on tpufem's split carried across and on the port's
+    card split, within ``TH_RTOL``."""
+    jv, carried, card = _th_velocity()
+    port = carried if split == "tpufem" else card
+    assert port.K.ns == jv.K.ns and port.dt_nu == jv.dt_nu == 1.0
+    assert port.K.rest_round32
+    if split == "card":
+        assert len(card.K.offsets) < len(jv.K.offsets) and card.K.n_rest > jv.K.n_rest
+    jv = dataclasses.replace(jv, iters=30, tol=0.0) if not tol else jv
+    port = dataclasses.replace(port, iters=30, tol=0.0) if not tol else port
+    n = jv.K.ns ** 2
+    rng = np.random.default_rng(16)
+    b = rng.standard_normal((n, 2)) * np.asarray(jv.interior_mask)[:, None]
+    x0 = None
+    if tol:
+        fixed = dataclasses.replace(jv, iters=30, tol=0.0)
+        x0 = np.asarray(fixed.solve(jnp.asarray(b * (1 + 1e-3 * rng.standard_normal(b.shape)))))
+    want = np.asarray(jv.solve(jnp.asarray(b), None if x0 is None else jnp.asarray(x0)))
+    it = torch.zeros(1, dtype=torch.int32)
+    port = dataclasses.replace(port, iters_count=it)
+    got = port.solve(torch.as_tensor(b), None if x0 is None else torch.tensor(x0)).numpy()
+    assert (it.item() == 30) if not tol else (0 < it.item() < port.iters)
+    assert rel(got, want) <= TH_RTOL[(split, tol)]
 
 
 # (target_coarse, use_coarse, tol, bound).  target 64 gives a ragged 7×7

@@ -591,8 +591,9 @@ def run_th_sparse(n_side: int, n_circle: int, steps: int, precision: str = "f64"
     Cahouet–Chabard sweep on K3 (tol_inner 1e-8 at f64, 1e-6 at f32;
     tol_outer 1e-9 or 2e-6; ``vel_restarts`` true-residual passes a
     velocity solve).  On CUDA the row also has the card, the K2 and K3
-    launches and mean iterations of the timed run, and the continuation
-    again under ``torch.profiler``.  ``base``: a
+    launches and mean iterations of the timed run, their iterations a step
+    in the timed and in the warm run, and the warm run again under
+    ``torch.profiler``.  ``base``: a
     ``(mesh, SparseTHProblem)`` pair from :func:`th_problem` for these
     arguments, to share one build between rows."""
     from tpufem_torch.bench import card, profile_run
@@ -640,6 +641,7 @@ def run_th_sparse(n_side: int, n_circle: int, steps: int, precision: str = "f64"
     runner(steps, state=state)
     _device_sync(device)
     warm = steps / (time.perf_counter() - t0)
+    warm_iters = iterations_per_solve(counters, 1)
 
     th_weak = float(prob.b_apply(u).abs().max())
     th_div = float(mets["final_div_max"])
@@ -685,6 +687,9 @@ def run_th_sparse(n_side: int, n_circle: int, steps: int, precision: str = "f64"
             row["launches_per_step"] = {"K2": k2 / steps, "K3": k3 / steps}
             row["iters_per_solve"] = {"K2": iters["vel"] / max(k2, 1),
                                       "K3": iters["plap"] / max(k3, 1)}
+            row["iters_per_step"] = {"K2": iters["vel"] / steps, "K3": iters["plap"] / steps}
+            row["warm_iters_per_step"] = {"K2": warm_iters["vel"] / steps,
+                                          "K3": warm_iters["plap"] / steps}
         prof = profile_run(lambda: runner(steps, state=state), steps, top=40)
         prof["device_busy_share"] = prof["device_ms_per_step"] * warm / 1e3
         for name, key in (("viscous_cg", "K2_share"), ("pressure_cg", "K3_share")):

@@ -44,9 +44,18 @@
 // full (tpufem's split carried 20 and 26 planes there, for its TPU's one-hot
 // remainder), are ~8k remainder entries a lane search finds
 // (grid_common.cuh).
-//   K2 applies K once an iteration to each column and makes 25 vector
-//   passes: 21 + 105 MB, 0.038 ms at the HBM peak (tpufem's 20 planes: 189
-//   MB, 0.056 ms).  Three grid syncs an iteration.
+//   K2 applies K once an iteration, both columns at once (apply_cols), in
+//   two fused phases with one grid sync each (below): 10·C + 3 vector
+//   passes (23 for two columns; the mask and D⁻¹ counted in each phase that
+//   reads them), 21 + 96 MB and 0.035 ms an iteration at the HBM peak
+//   (tpufem's 20 planes: 181 MB, 0.054 ms).  On the Taylor–Hood velocity
+//   operator of n_side 192 (383² raster, 24 planes, 20,782 remainder
+//   entries) an iteration's 28 MB sit in L2, and the gathers' latency and
+//   the syncs set the pace, not HBM: there K2 runs more blocks per SM
+//   (kInL2MinBlocks).  On an H100 a 288-iteration solve there took 8.56–8.94
+//   ms against the three-phase, one-column-at-a-time first version's
+//   10.84–10.88 (ab_grid_kernels.py; its VARIANTS hold the designs that
+//   lost).
 //   K3 applies K three times an iteration (once in CG, twice in the
 //   preconditioner) in the fused iteration of grid_common.cuh: 4 grid syncs
 //   (11 unfused) and 17 vector passes (35 unfused): 3 × 21 MB of planes,
@@ -69,10 +78,9 @@
 //   warm-started NS solve takes one iteration, so the start is a large
 //   share of it.
 // Below ~10⁵ nodes the planes sit in L2 and the grid syncs dominate, a few µs
-// each.  K2 is a first version: each plane read once per apply with
-// coalesced loads, the vectors in device memory, no fused phases.  At f64 an
-// entry on the remainder is applied with tpufem's float32 rounding (below),
-// so the card's split rounds the couplings tpufem's split kept on planes.
+// each.  At f64 an entry on the remainder is applied with tpufem's float32
+// rounding (below), so the card's split rounds the couplings tpufem's split
+// kept on planes.
 
 // Both kernels round to float where tpufem's do (preferred_element_type=
 // float32), at every field precision: each remainder source value and each
@@ -91,6 +99,39 @@ namespace {
 // K2
 // ---------------------------------------------------------------------------
 
+// Blocks per SM that the whole-solve kernels' register budgets are set for
+// (__launch_bounds__): 64 registers a thread in f32, 128 in f64.  They are
+// latency-bound, so warps in flight buy more than registers: at 1,048,576
+// nodes on an H100 a K3 f32 iteration took 0.180 ms at 2 blocks per SM (118
+// registers, no spills), 0.148 at 3 (80) and 0.131 at 4 (64, a few spill
+// stores).
+template <typename T>
+constexpr int kFusedMinBlocks = sizeof(T) == 4 ? 4 : 2;
+
+// K2's f32 budget where an iteration's operator and vectors fit in L2: 5
+// blocks per SM (48 registers a thread, a few spill stores).  There the
+// gathers' latency sets the pace and more warps in flight hide it; where
+// they stream from HBM the spills cost more than the warps buy.  On an H100
+// (ab_grid_kernels.py, f32, both columns): at the Taylor–Hood velocity
+// raster of n_side 192 (28 MB an iteration) a 288-iteration solve took
+// 8.56–8.94 ms at 5 blocks per SM, 9.00–9.10 at 6 (40 registers) and
+// 9.48–9.49 at 4; at 1,048,576 nodes (117 MB) an iteration took 0.060–0.081
+// ms at 5 and 0.056–0.064 at 4.
+template <typename T>
+constexpr int kInL2MinBlocks = sizeof(T) == 4 ? 5 : kFusedMinBlocks<T>;
+
+// K2's and K4's phases walk the points in a grid-stride loop.  One
+// contiguous run of the raster a block instead (so that the rows above and
+// below a point are read by the same block) was slower: for K4 0.138–0.141
+// against 0.128–0.129 ms an iteration on an H100 at 1,048,576 nodes (f32, 4
+// blocks per SM), for K2 0.073 against 0.059 there (ab_grid_kernels.py,
+// variant "one run a block").
+template <typename B>
+__device__ __forceinline__ void for_points(int n, B body) {
+  const int stride = (int)gridDim.x * kThreads;
+  for (int i = (int)blockIdx.x * kThreads + (int)threadIdx.x; i < n; i += stride) body(i);
+}
+
 template <typename T>
 struct ViscousArgs {
   GridOp<T> op;
@@ -99,8 +140,8 @@ struct ViscousArgs {
   const T* __restrict__ b;   // (C, N)
   const T* __restrict__ x0;  // (C, N)
   T* x;                      // (C, N) the solution
-  T* r;
-  T* p;
+  T* r;                      // updated in place
+  T* p[2];  // double-buffered: phase A reads one at its sources, writes the other
   T* q;
   T* partials;
   T dt_nu;
@@ -109,60 +150,75 @@ struct ViscousArgs {
   int* iters_out;
 };
 
-// K2 was not redesigned.  Its register budget is pinned to the blocks per SM
-// its first version ran (48 registers a thread for one column, 64 for two),
-// so that a change in the shared apply does not change its launch shape, and
-// with it the order of every grid-wide sum.
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads, C == 1 ? 5 : 4) viscous_cg_kernel(ViscousArgs<T> a) {
+// tpufem's _cg_core_cols, two phases and two grid syncs an iteration (p is
+// computed where it is read, as K4 does):
+//   A  p = D⁻¹r + β p_old at each source (D⁻¹r in the first iteration),
+//      q = A p for both columns in one apply; p and q written; sums p·q
+//                                                                  [reduce]
+//   B  x += αp, r −= αq (in place); sums r·D⁻¹r and r·r             [reduce]
+// Per point every value is the plain version's expression.  The start
+// computes r = b − A x0 alone; the first iteration reads x0 as x.
+template <typename T, int C, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
+    viscous_cg_kernel(const __grid_constant__ ViscousArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   const int ns = a.op.ns, n = ns * ns;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+  const T* __restrict__ mask = a.mask;
+  const T* __restrict__ invd = a.invd;
   const T dt_nu = a.dt_nu;
   int slot = 0;
 
-  // m·(X + dtν·K(m·X)) + (1−m)·X at point i of plane X
-  auto mv = [&](const T* X, int i, int iy, int ix) -> T {
-    const T* m = a.mask;
-    const T kx = apply_at(a.op, iy, ix, [&](int j) { return m[j] * X[j]; });
-    const T mi = m[i], xi = X[i];
-    return mi * (xi + dt_nu * kx) + (T(1) - mi) * xi;
+  // out = m_i·(X_i + dtν·K(m·X)_i) + (1 − m_i)·X_i for each column at point
+  // i: xval(j, v) writes the C values of X at flat index j, xi holds those at i
+  auto mv = [&](int i, auto xval, const T (&xi)[C], T (&out)[C]) {
+    const int iy = i / ns, ix = i - iy * ns;
+    T kx[C];
+    apply_cols<C>(a.op, iy, ix, [&](int j, T (&v)[C]) {
+      xval(j, v);
+      const T mj = mask[j];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = mj * v[c];
+    }, kx);
+    const T mi = mask[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = mi * (xi[c] + dt_nu * kx[c]) + (T(1) - mi) * xi[c];
   };
 
-  // r = b − A x0, z = D⁻¹ r, p = z; sums b·b, r·z, r·r per column
-  T s0[3 * C];
+  // r = b − A x0; sums b·b, r·D⁻¹r, r·r per column
+  auto x0_at = [&](int j, T (&v)[C]) {
 #pragma unroll
-  for (int j = 0; j < 3 * C; ++j) s0[j] = T(0);
-  for (int i = tid; i < n; i += stride) {
-    const int iy = i / ns, ix = i - iy * ns;
-    const T di = a.invd[i];
+    for (int c = 0; c < C; ++c) v[c] = a.x0[c * n + j];
+  };
+  T s0[3 * C] = {};
+  for_points(n, [&](int i) {
+    T xi[C], ax[C];
+    x0_at(i, xi);
+    mv(i, x0_at, xi, ax);
+    const T di = invd[i];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const T* x0 = a.x0 + c * n;
-      const T bv = a.b[c * n + i];
-      a.x[c * n + i] = x0[i];
-      const T rv = bv - mv(x0, i, iy, ix);
-      const T zv = di * rv;
-      a.r[c * n + i] = rv;
-      a.p[c * n + i] = zv;
+      const int e = c * n + i;
+      const T bv = a.b[e];
+      const T rv = bv - ax[c];
+      a.r[e] = rv;
       s0[c] += bv * bv;
-      s0[C + c] += rv * zv;
+      s0[C + c] += rv * (di * rv);
       s0[2 * C + c] += rv * rv;
     }
-  }
+  });
   reduce_grid(grid, s0, a.partials, slot);
-  T atol2[C], rz[C], rr[C];
+  T atol2[C], rz[C], rr[C], beta[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const T t = a.tol * tmax(tsqrt(s0[c]), T(1e-30));
     atol2[c] = t * t;
     rz[c] = s0[C + c];
     rr[c] = s0[2 * C + c];
+    beta[c] = T(0);
   }
 
   int k = 0;
-  for (;;) {
+  for (;; ++k) {
     bool live = k < a.iters;
     if (live && a.tol > T(0)) {
       bool any = false;
@@ -171,74 +227,69 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? 5 : 4) viscous_cg_kernel(Vi
       live = any;
     }
     if (!live) break;
+    const bool first = k == 0;
+    const T* pold = pick(a.p, (k & 1) ^ 1);
+    T* pnew = pick(a.p, k & 1);
 
-    // q = A p; sums p·q
-    T s1[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) s1[c] = T(0);
-    for (int i = tid; i < n; i += stride) {
-      const int iy = i / ns, ix = i - iy * ns;
+    // A: p = D⁻¹r + β p_old, q = A p; sums p·q
+    auto p_at = [&](int j, T (&pv)[C]) {
+      const T dj = invd[j];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const T qv = mv(a.p + c * n, i, iy, ix);
-        a.q[c * n + i] = qv;
-        s1[c] += a.p[c * n + i] * qv;
+        const int e = c * n + j;
+        const T z = dj * a.r[e];
+        pv[c] = first ? z : z + beta[c] * pold[e];
       }
-    }
+    };
+    T s1[C] = {};
+    for_points(n, [&](int i) {
+      T pv[C], qv[C];
+      p_at(i, pv);
+      mv(i, p_at, pv, qv);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int e = c * n + i;
+        pnew[e] = pv[c];
+        a.q[e] = qv[c];
+        s1[c] += pv[c] * qv[c];
+      }
+    });
     reduce_grid(grid, s1, a.partials, slot);
     T alpha[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) alpha[c] = s1[c] != T(0) ? rz[c] / s1[c] : T(0);
 
-    // x += αp, r −= αq, z = D⁻¹ r; sums r·z, r·r
-    T s2[2 * C];
-#pragma unroll
-    for (int j = 0; j < 2 * C; ++j) s2[j] = T(0);
-    for (int i = tid; i < n; i += stride) {
-      const T di = a.invd[i];
+    // B: x += αp, r −= αq; sums r·D⁻¹r, r·r
+    const T* xold = first ? a.x0 : a.x;
+    T s2[2 * C] = {};
+    for_points(n, [&](int i) {
+      const T di = invd[i];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int e = c * n + i;
-        a.x[e] = a.x[e] + alpha[c] * a.p[e];
+        a.x[e] = xold[e] + alpha[c] * pnew[e];
         const T rv = a.r[e] - alpha[c] * a.q[e];
         a.r[e] = rv;
-        const T zv = di * rv;
-        s2[c] += rv * zv;
+        s2[c] += rv * (di * rv);
         s2[C + c] += rv * rv;
       }
-    }
+    });
     reduce_grid(grid, s2, a.partials, slot);
-    T beta[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       beta[c] = rz[c] != T(0) ? s2[c] / rz[c] : T(0);
       rz[c] = s2[c];
       rr[c] = s2[C + c];
     }
-
-    // p = z + βp (each thread owns the points it updated above)
-    for (int i = tid; i < n; i += stride) {
-      const T di = a.invd[i];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int e = c * n + i;
-        a.p[e] = di * a.r[e] + beta[c] * a.p[e];
-      }
-    }
-    grid.sync();
-    ++k;
   }
-  if (tid == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
+  if (k == 0) {  // no iteration ran: x = x0
+    for_points(n, [&](int i) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) a.x[c * n + i] = a.x0[c * n + i];
+    });
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
 }
-
-// Blocks per SM that K3's and K4's register budgets are set for
-// (__launch_bounds__): 64 registers a thread in f32, 128 in f64.  Both are
-// latency-bound, so warps in flight buy more than registers: at 1,048,576
-// nodes on an H100 a K3 f32 iteration took 0.180 ms at 2 blocks per SM (118
-// registers, no spills), 0.148 at 3 (80) and 0.131 at 4 (64, a few spill
-// stores).
-template <typename T>
-constexpr int kFusedMinBlocks = sizeof(T) == 4 ? 4 : 2;
 
 template <typename T, typename A>
 __global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
@@ -273,17 +324,6 @@ struct NSArgs {
   int iters;
   int* iters_out;
 };
-
-// K4's phases walk the points in a grid-stride loop.  One contiguous run of
-// the raster a block instead (so that the rows above and below a point are
-// read by the same block) was slower: 0.138–0.141 against 0.128–0.129 ms an
-// iteration on an H100 at 1,048,576 nodes (f32, 4 blocks per SM;
-// ab_grid_kernels.py, variant "contiguous runs").
-template <typename B>
-__device__ __forceinline__ void for_points(int n, B body) {
-  const int stride = (int)gridDim.x * kThreads;
-  for (int i = (int)blockIdx.x * kThreads + (int)threadIdx.x; i < n; i += stride) body(i);
-}
 
 // tpufem's _bicgstab_core_cols, three phases and three grid syncs an
 // iteration (the sources of each apply computed where they are read):
@@ -484,23 +524,36 @@ int viscous_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns, 
   ViscousArgs<T> a;
   cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val, round_rest);
   if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)ns * ns;
+  const size_t cn = (size_t)C * ns * ns;
   a.mask = mask;
   a.invd = invd;
   a.b = b;
   a.x0 = x0;
   a.x = x;
   a.r = work;
-  a.p = work + C * n;
-  a.q = work + 2 * C * n;
-  a.partials = work + 3 * C * n;
+  a.p[0] = work + cn;
+  a.p[1] = work + 2 * cn;
+  a.q = work + 3 * cn;
+  a.partials = work + 4 * cn;
   a.dt_nu = (T)dt_nu;
   a.tol = (T)tol;
   a.iters = iters;
   a.iters_out = iters_out;
+  // the register budget: does an iteration's working set (the planes and
+  // 10·C + 3 vector passes; the remainder is a few per cent) fit in L2?
+  const int n = ns * ns;
+  int dev = 0, l2 = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev)) != cudaSuccess)
+    return (int)err;
+  const bool in_l2 = (double)(n_off + 10 * C + 3) * n * sizeof(T) <= (double)l2;
   cudaStream_t s = (cudaStream_t)stream;
-  if (C == 1) return (int)launch_coop(viscous_cg_kernel<T, 1>, a, (int)n, s);
-  if (C == 2) return (int)launch_coop(viscous_cg_kernel<T, 2>, a, (int)n, s);
+  if (C == 1)
+    return (int)(in_l2 ? launch_coop(viscous_cg_kernel<T, 1, kInL2MinBlocks<T>>, a, n, s)
+                       : launch_coop(viscous_cg_kernel<T, 1, kFusedMinBlocks<T>>, a, n, s));
+  if (C == 2)
+    return (int)(in_l2 ? launch_coop(viscous_cg_kernel<T, 2, kInL2MinBlocks<T>>, a, n, s)
+                       : launch_coop(viscous_cg_kernel<T, 2, kFusedMinBlocks<T>>, a, n, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -615,23 +668,26 @@ PRESSURE_ENTRY(pressure_cg_f64_bf16, double, __nv_bfloat16)
 NS_ENTRY(ns_bicgstab_f32, float)
 NS_ENTRY(ns_bicgstab_f64, double)
 
-// Blocks per SM of each instance, in the order viscous f32 C=1, C=2, f64
-// C=1, C=2; pressure f32, f32 with a bf16 coarse inverse, f64, f64 bf16;
-// BiCGStab f32 C=1, C=2, f64 C=1, C=2: writes `cap` of them, returns the count.
+// Blocks per SM of each instance, in the order viscous f32 C=1 (HBM, L2),
+// C=2 (HBM, L2), f64 C=1, C=2; pressure f32, f32 with a bf16 coarse inverse,
+// f64, f64 bf16; BiCGStab f32 C=1, C=2, f64 C=1, C=2: writes `cap` of them,
+// returns the count.
 extern "C" int grid_cg_blocks_per_sm(int* out, int cap) {
-  int v[12] = {0};
-  blocks_per_sm(viscous_cg_kernel<float, 1>, &v[0]);
-  blocks_per_sm(viscous_cg_kernel<float, 2>, &v[1]);
-  blocks_per_sm(viscous_cg_kernel<double, 1>, &v[2]);
-  blocks_per_sm(viscous_cg_kernel<double, 2>, &v[3]);
-  blocks_per_sm(pressure_cg_kernel<float, float>, &v[4]);
-  blocks_per_sm(pressure_cg_kernel<float, __nv_bfloat16>, &v[5]);
-  blocks_per_sm(pressure_cg_kernel<double, double>, &v[6]);
-  blocks_per_sm(pressure_cg_kernel<double, __nv_bfloat16>, &v[7]);
-  blocks_per_sm(ns_bicgstab_kernel<float, 1>, &v[8]);
-  blocks_per_sm(ns_bicgstab_kernel<float, 2>, &v[9]);
-  blocks_per_sm(ns_bicgstab_kernel<double, 1>, &v[10]);
-  blocks_per_sm(ns_bicgstab_kernel<double, 2>, &v[11]);
-  for (int i = 0; i < 12 && i < cap; ++i) out[i] = v[i];
-  return 12;
+  int v[14] = {0};
+  blocks_per_sm(viscous_cg_kernel<float, 1, kFusedMinBlocks<float>>, &v[0]);
+  blocks_per_sm(viscous_cg_kernel<float, 1, kInL2MinBlocks<float>>, &v[1]);
+  blocks_per_sm(viscous_cg_kernel<float, 2, kFusedMinBlocks<float>>, &v[2]);
+  blocks_per_sm(viscous_cg_kernel<float, 2, kInL2MinBlocks<float>>, &v[3]);
+  blocks_per_sm(viscous_cg_kernel<double, 1, kFusedMinBlocks<double>>, &v[4]);
+  blocks_per_sm(viscous_cg_kernel<double, 2, kFusedMinBlocks<double>>, &v[5]);
+  blocks_per_sm(pressure_cg_kernel<float, float>, &v[6]);
+  blocks_per_sm(pressure_cg_kernel<float, __nv_bfloat16>, &v[7]);
+  blocks_per_sm(pressure_cg_kernel<double, double>, &v[8]);
+  blocks_per_sm(pressure_cg_kernel<double, __nv_bfloat16>, &v[9]);
+  blocks_per_sm(ns_bicgstab_kernel<float, 1>, &v[10]);
+  blocks_per_sm(ns_bicgstab_kernel<float, 2>, &v[11]);
+  blocks_per_sm(ns_bicgstab_kernel<double, 1>, &v[12]);
+  blocks_per_sm(ns_bicgstab_kernel<double, 2>, &v[13]);
+  for (int i = 0; i < 14 && i < cap; ++i) out[i] = v[i];
+  return 14;
 }

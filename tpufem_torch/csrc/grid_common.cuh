@@ -1,7 +1,7 @@
 // Device helpers shared by the whole-solve kernels (grid_cg.cu: K2, K3, K4)
 // and the whole-step kernel (grid_step.cu: K5): the grid-offset operator
-// apply (one column; several at once in K4's apply_cols), the deterministic
-// grid-wide reductions, K3's pressure solve and its two-level
+// apply (one column; several at once in K2's and K4's apply_cols), the
+// deterministic grid-wide reductions, K3's pressure solve and its two-level
 // preconditioner, and the cooperative launch.  Each source that includes it
 // gets its own copy (anonymous namespace).
 //
@@ -123,7 +123,7 @@ __device__ __forceinline__ void add_rest(const GridOp<T>& op, int iy, int ix, F 
 // K·X at one point; src(j, jy, jx) gives the source value at flat index
 // j = jy·ns + jx.  Planes in offset order, then the point's remainder sum.
 // Unroll: start the loads of the first kUnrolled offsets together (K3's
-// phases; K2, K4 and K5's other phases keep the plain loop).
+// phases; K5's other phases keep the plain loop).
 template <bool Unroll, typename T, typename F>
 __device__ __forceinline__ T apply_yx(const GridOp<T>& op, int iy, int ix, F src) {
   const int ns = op.ns;
@@ -155,7 +155,7 @@ __device__ __forceinline__ T apply_at(const GridOp<T>& op, int iy, int ix, F src
   return apply_yx<false>(op, iy, ix, [&](int j, int, int) { return src(j); });
 }
 
-// K·X for C columns at one point (K4): each plane entry and each remainder
+// K·X for C columns at one point (K2, K4): each plane entry and each remainder
 // value is loaded once and feeds every column, and the lane search runs
 // once; src(j, v) writes the C columns' source values at flat index j into
 // v.  Per column the same products in the same order as apply_at's.

@@ -5,7 +5,8 @@ The counterpart of ``tpufem.solve.pallas_cg`` on ring-in-grid meshes
 
 * :class:`ViscousGridCG`: ``(m·(I + dtν·K)·m + (1−m)I) x = b`` for both
   velocity columns in lockstep, Jacobi-PCG, warm start, ``tol > 0`` early
-  exit once every column has converged (kernel K2);
+  exit once every column has converged (kernel K2: two fused phases and two
+  grid syncs an iteration, both columns in one apply);
 * :class:`PressureGridCG`: the merged periodic pressure operator with
   constant-nullspace deflation on the active dofs and the two-level
   preconditioner (damped Jacobi ω = 1/λmax, block-aggregate restriction,
@@ -72,6 +73,7 @@ _PRESSURE = {
     (torch.float64, torch.bfloat16): "pressure_cg_f64_bf16",
 }
 _NS = {torch.float32: "ns_bicgstab_f32", torch.float64: "ns_bicgstab_f64"}
+_VISCOUS_PLANES = 4  # K2's work planes a column: r, q, and p twice (read one, write one)
 _NS_PLANES = 7  # K4's work planes a column: r̂, r, t, and p and v twice (read one, write one)
 _PRESSURE_PLANES = 6  # K3's work planes: r and p twice (read one, write the other), q, z
 _MAX_BLOCK = 1024  # K3's widest aggregation block (kTile in the source)
@@ -114,9 +116,12 @@ def library_path():
 def blocks_per_sm(lib: ctypes.CDLL | None = None) -> dict[str, int]:
     """Blocks per SM of each kernel instance in ``lib`` (default: the
     wrappers' library), as the cooperative launch finds them on the
-    current card."""
+    current card.  K2's instances carry the blocks per SM their register
+    budget is set for (in f32 4 where an iteration streams from HBM, 5
+    where it fits in L2)."""
     names = [f"{k} {t}" for k, types in (
-        ("viscous_cg", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2")),
+        ("viscous_cg", ("f32 C=1 4/SM", "f32 C=1 5/SM", "f32 C=2 4/SM", "f32 C=2 5/SM",
+                        "f64 C=1 2/SM", "f64 C=2 2/SM")),
         ("pressure_cg", ("f32", "f32 bf16", "f64", "f64 bf16")),
         ("ns_bicgstab", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2"))) for t in types]
     out = (ctypes.c_int * len(names))()
@@ -145,7 +150,9 @@ def _round32(x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ViscousGridCG:
     """``(m·(I + dtν·K)·m + (1−m)I) x = b`` per velocity column, Jacobi-PCG,
-    the whole solve in one launch of K2."""
+    the whole solve in one launch of K2 (each plane entry read once for
+    both columns; p formed where the apply reads it, so two grid syncs an
+    iteration)."""
 
     K: GridOperator
     interior_mask: torch.Tensor  # (N,)
@@ -277,7 +284,7 @@ def viscous_cg(solver: ViscousGridCG, b: torch.Tensor, x0: torch.Tensor,
     C, n = b.shape[0], K.n
     b, x0 = b.contiguous(), x0.contiguous()
     x = torch.empty_like(b)
-    work = torch.empty(3 * C * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
+    work = torch.empty(_VISCOUS_PLANES * C * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
     _launch(getattr(lib, _VISCOUS[b.dtype]), b.device, *_kernel_operator_args(K),
             solver.mask_grid.data_ptr(), solver.inv_diag_grid.data_ptr(), b.data_ptr(),
             x0.data_ptr(), x.data_ptr(), work.data_ptr(), C, float(solver.dt_nu),
