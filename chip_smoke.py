@@ -124,15 +124,15 @@ Phases 27–30, the rest of the Stokes workload (no new kernel), run last:
 
 27. the gait campaign: ``sweep.food_capture_sweep`` on
     ``generate_annulus_mesh(33, 48)`` (3 gaits × 6000 steps, f32 fused on
-    K1, 488 tracers), cold then warm: wall seconds of each gait and of the
-    campaign, eaten counts and fractions (recorded, not gated); K1 must run
-    6000 times a gait and no other kernel; then the f32 campaign on the card
-    against the f64 one (LU, penalty) on the CPU at 300 steps, fractions
-    within 0.05;
+    K1, 488 tracers), cold, then warm at 1000 steps a gait: wall seconds of
+    each gait and of the campaign, eaten counts and fractions (recorded, not
+    gated); K1 must run once a step of every gait and no other kernel; then
+    the f32 campaign on the card against the f64 one (LU, penalty) on the
+    CPU at 300 steps, fractions within 0.05;
 28. Eulerian dye at scale: ``bench_large.bench_config(transport=
     "eulerian_dye")`` on phase 9's 1,048,576-node mesh, grid storage,
-    through ``StokesProblem.build`` and ``stokes.run``: 100 steps from rest
-    and 100 continued; K2 once and K3 twice a step; tpufem's scale gates,
+    through ``StokesProblem.build`` and ``stokes.run``: 50 steps from rest
+    and 50 continued; K2 once and K3 twice a step; tpufem's scale gates,
     c in [0, 1], mixing progress > 0; build seconds, steps/s, device ms a
     step by kernel and the dye solve's share;
 29. Eulerian dye at f64, card against CPU: the dense penalty path on
@@ -196,10 +196,44 @@ run last:
     ``mass_consistent`` False and True against one CSR TH run, the second
     within 0.1.
 
+Phases 39–42, the ensembles, the one-program gait campaign, TopK and bf16
+(no kernel: each checks that none of K1–K6 launches on its path), run last:
+
+39. ``__graft_entry__.dryrun_multichip``'s gates on the port's
+    ``ShardedEnsemble`` (8 positions on the card, data 2 × space 4, f64
+    penalty dye) on ``generate_annulus_mesh(40, 48)``: the divergence falls
+    step over step, each simulation meets the scale divergence gate and the
+    velocity bound after 10 steps; on the jittered (12, 16) lattice the
+    ensemble's tracers stay within 1e-5 of the single-device stepper's with
+    equal status; then f64 card against CPU on (12, 16), 2 × 4 positions,
+    10 steps: color with dye and with tracers (merged pressure) and the
+    report ensemble over four rotation rates (penalty), 1e-10;
+40. the gait campaign as one sharded program:
+    ``sweep.food_capture_sweep_sharded`` on phase 27's mesh, one gait a
+    "data" position on the card (``run_sharded`` replays one CUDA graph a
+    step), cold and warm: campaign seconds, fractions within 0.05 of phase
+    27's; at B = 3 and 8 gaits, steps/s of the graph run and of the eager
+    steps, kernels and device ms a step and the busy share (profiler), the
+    count at B = 8 no more than 5 % above B = 3; eaten counts at 300 steps
+    within 2 of phase 27's f32 campaign (tpufem's own gate);
+41. the geometry ensemble: ``MultiMeshEnsemble`` over 8
+    ``generate_annulus_mesh(64, 72, pad_hole=True, jitter=0.15, seed=k)``
+    (4,096 nodes each), tracers, f32 merge, 8 data positions on the card,
+    500 steps: build seconds, steps/s, device ms and kernels a step, the
+    products' share, peak memory, each simulation under the gates; f64 card
+    against CPU on 4 jittered (14, 16) meshes, 10 steps, dye and tracers
+    (1e-10);
+42. ``locator="topk"`` beside the grid locator on the dense bench
+    configuration (200 steps cold and warm, K1 every step); topk f64 card
+    against CPU on (12, 16) with dye and tracers (1e-10); the bf16 fused
+    step (``torch.addmv``) on (12, 16), 10 steps: max|u| < 1.25·(|B1| +
+    |B2|), within 1e-2 of f64.
+
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
 the other cards through peer access, and its times there are taken by the
-host clock.
+host clock; with N ≥ 3 it also runs the campaign with one gait on each of
+three cards beside all gaits on the first (phase 40).
 
 Each phase prints its seconds.  Any failed check raises, so the exit code
 is not 0.  The line before the last is a JSON summary of the kernels (each
@@ -228,8 +262,10 @@ from tpufem_torch.ops import _nvcc, assembly, calculus
 from tpufem_torch.ops import fused_matvec as fm
 from tpufem_torch.ops.gridop import (STREAMED_NODES, GridDecompositionError, GridOperator,
                                      GridRefill, _PatternCSR)
-from tpufem_torch.parallel import (build_device_mesh, make_sharded_grid_solvers,
-                                   make_sharded_matfree_step, make_sharded_viscous_solver)
+from tpufem_torch.parallel import (MultiMeshEnsemble, ShardedEnsemble, build_device_mesh,
+                                   make_multimesh_step, make_sharded_grid_solvers,
+                                   make_sharded_matfree_step, make_sharded_step,
+                                   make_sharded_viscous_solver, run_sharded)
 from tpufem_torch.parallel import grid_remote_dma as rdma
 from tpufem_torch.parallel.grid_sharded import _signed_dy
 from tpufem_torch.solve import grid_cg
@@ -1554,7 +1590,7 @@ def phase_sharded_solvers(devs, big) -> None:
     check_sharded_solvers(f"{big.mesh.n_nodes} nodes f32", big, devs, (1e-3, 1e-3), "rel")
 
 
-def run_sharded(step, u, steps: int):
+def run_matfree_sharded(step, u, steps: int):
     """``steps`` sharded steps from ``u``: (u, metric series on the device)."""
     series = {}
     for i in range(steps):
@@ -1573,7 +1609,7 @@ def phase_sharded_main_path(devs, big, steps: int = SHARDED_STEPS) -> int:
     zero_launches()
     sync_all()
     t0 = time.perf_counter()
-    u, series = run_sharded(step, u0, steps)
+    u, series = run_matfree_sharded(step, u0, steps)
     sync_all()
     rate = steps / (time.perf_counter() - t0)
     launches = launch_counts()
@@ -1587,8 +1623,8 @@ def phase_sharded_main_path(devs, big, steps: int = SHARDED_STEPS) -> int:
           f"launches {launches} in {steps} sharded steps (want K6 = {want_k6} from "
           f"{visc_it} viscous and {pres_it} pressure iterations)")
     phys = bench_large.physics_report(problem, {"u": u}, series, steps)  # raises on a failed gate
-    prof = profile_run(lambda: run_sharded(step, u, SHARDED_PROFILE_STEPS), SHARDED_PROFILE_STEPS,
-                       top=200)
+    prof = profile_run(lambda: run_matfree_sharded(step, u, SHARDED_PROFILE_STEPS),
+                       SHARDED_PROFILE_STEPS, top=200)
     k6_ms = sum(t["ms_per_step"] for t in prof["top"] if "halo_push" in t["name"])
     # the single-device unfused step on the same problem, its solves from zero too
     single = dataclasses.replace(big, config=dataclasses.replace(big.config, cg_warm_start=False))
@@ -1624,7 +1660,7 @@ def phase_sharded_parity(devs, steps: int = SHARDED_PARITY_STEPS) -> None:
         halo = "rdma" if device.type == "cuda" else "ppermute"
         step = make_sharded_matfree_step(shard_mesh(shards), problem, halo=halo)
         zero_launches()
-        u, _ = run_sharded(step, stokes.initial_state(problem)["u"], steps)
+        u, _ = run_matfree_sharded(step, stokes.initial_state(problem)["u"], steps)
         check((rdma.halo_rdma.launches > 0) == (device.type == "cuda"),
               f"{name}: K6 launched {rdma.halo_rdma.launches} times")
         single, _ = stokes.run(problem, steps=steps)
@@ -1660,8 +1696,9 @@ def phase_sharded_parity(devs, steps: int = SHARDED_PARITY_STEPS) -> None:
 
 SWEEP_MESH = (33, 48)  # 852 nodes, tracer_density 25: 488 tracers
 SWEEP_PARITY_STEPS = 300
-EUL_STEPS = 100
-EUL_PROFILE_STEPS = 10
+SWEEP_WARM_STEPS = 1000  # the warm campaign's steps a gait (the cold one runs all 6000)
+EUL_STEPS = 50
+EUL_PROFILE_STEPS = 5
 EUL_DENSE_MESH = (12, 16)
 EUL_DENSE_STEPS = 20
 EUL_F32_STEPS = 200
@@ -1678,16 +1715,19 @@ VARIANT_STEPS = 20
 EUL_PENALTY_C_RTOL = 5e-3
 
 
-def phase_sweep(dev) -> None:
-    """The port's gait campaign twice (cold, warm), K1 on every step of
-    every gait; then its f32 fractions on the card against the f64 ones on
-    the CPU at SWEEP_PARITY_STEPS."""
+def phase_sweep(dev) -> tuple:
+    """The port's gait campaign cold (6000 steps a gait) and warm
+    (SWEEP_WARM_STEPS), K1 on every step of every gait; then its f32
+    fractions on the card against the f64 ones on the CPU at
+    SWEEP_PARITY_STEPS.  Returns (the cold campaign's results, the f32 card
+    campaign's at SWEEP_PARITY_STEPS) for phase 40."""
     mesh = generate_annulus_mesh(*SWEEP_MESH)
-    cfg = sweep.SweepConfig()
-    for run in ("cold", "warm"):
+    full = sweep.SweepConfig()
+    results = {}
+    for run, cfg in (("cold", full), ("warm", dataclasses.replace(full, steps=SWEEP_WARM_STEPS))):
         zero_launches()
         t0 = time.perf_counter()
-        res = sweep.food_capture_sweep(mesh, cfg, device=dev)
+        res = results[run] = sweep.food_capture_sweep(mesh, cfg, device=dev)
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = len(cfg.b2_values) * cfg.steps
@@ -1700,7 +1740,7 @@ def phase_sweep(dev) -> None:
             check(0.0 <= r["consumed_fraction"] <= 1.0, f"B2={b2} fraction in [0, 1]")
         print(f"[27 sweep] {run}: {len(cfg.b2_values)} gaits x {cfg.steps} steps on {mesh.n_nodes} "
               f"nodes, f32 fused on K1: campaign {wall:.2f} s; K1 launches {counts['K1']}; {gaits}")
-    short = dataclasses.replace(cfg, steps=SWEEP_PARITY_STEPS)
+    short = dataclasses.replace(full, steps=SWEEP_PARITY_STEPS)
     gpu = sweep.food_capture_sweep(mesh, short, device=dev)
     host = sweep.food_capture_sweep(mesh, dataclasses.replace(short, precision="f64"), device=CPU)
     diffs = {b2: abs(gpu[b2]["consumed_fraction"] - host[b2]["consumed_fraction"]) for b2 in gpu}
@@ -1709,6 +1749,7 @@ def phase_sweep(dev) -> None:
         for b2 in gpu) + " (within 0.05)")
     for b2, d in diffs.items():
         check(d <= 0.05, f"B2={b2}: f32 card fraction {d} from the f64 CPU one")
+    return results["cold"], gpu
 
 
 def phase_eulerian_scale(mesh, steps: int = EUL_STEPS) -> None:
@@ -2333,6 +2374,382 @@ def ns_th_xcheck(dev, n_side: int, steps: int, dt: float, nu: float) -> list[dic
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The ensembles, the one-program gait campaign, TopK and bf16 (no kernel)
+# ---------------------------------------------------------------------------
+
+ENS_GATE_MESH = (40, 48)  # dryrun_multichip's mesh
+ENS_TRACER_MESH = (12, 16)
+ENS_PARITY_STEPS = 10
+ENS_RTOL = 1e-10  # f64 card against the CPU, every field of every ensemble
+ENS_BATCHES = (3, 8)  # kernels a step must not grow with B on one card
+ENS_TIMED_STEPS = 1000
+ENS_PROFILE_STEPS = 20
+MM_MESH = (64, 72)  # pad_hole: 4,096 nodes, the top of the dense regime
+MM_SIMS = 8
+MM_STEPS = 500
+MM_PROFILE_STEPS = 10
+MM_PARITY_MESH = (14, 16)
+TOPK_STEPS = 200
+BF16_MESH = (12, 16)
+BF16_STEPS = 10
+# bf16 fused u against f64 after 10 steps, relative L2: 3.6e-3 measured on
+# the CPU (tpufem's bf16 3.7e-3)
+BF16_RTOL = 1e-2
+GAIT = dict(dt=0.01, nu=1.0, B1=-2.0)
+
+
+def ensemble_gates(meshes, u: torch.Tensor, b2s) -> list:
+    """dryrun_multichip's gates on each simulation of an ensemble (its own
+    mesh each, or one shared): the normalized divergence below
+    DIV_REL_GATES["stokes"] and max|u| < MAX_U_FACTOR·(|B1| + |B2|);
+    returns the normalized divergences."""
+    rels = []
+    for i, b2 in enumerate(b2s):
+        mesh = meshes[i] if isinstance(meshes, (list, tuple)) else meshes
+        ui = u[i].double().cpu()
+        div = calculus.divergence(mesh, ui).numpy()
+        ml = assembly.lumped_mass(mesh).numpy()
+        h = float(np.sqrt(2.0 * np.median(mesh.area)))
+        div_l2 = float(np.sqrt((ml * div ** 2).sum()))
+        u_l2 = float(np.sqrt((ml * (ui.numpy() ** 2).sum(axis=1)).sum()))
+        rels.append(div_l2 * h / max(u_l2, 1e-30))
+        scale = abs(GAIT["B1"]) + abs(float(b2))
+        check(float(ui.abs().max()) < MAX_U_FACTOR * scale,
+              f"simulation {i}: max|u| {float(ui.abs().max())} >= {MAX_U_FACTOR}·{scale}")
+    check(max(rels) < bench_large.DIV_REL_GATES["stokes"],
+          f"normalized divergence {rels} >= {bench_large.DIV_REL_GATES['stokes']}")
+    return rels
+
+
+def jitter_tracers(state: dict, seed: int = 42, sigma: float = 1e-3) -> np.ndarray:
+    """The ensemble's tracer lattice moved off the mesh edges (one draw for
+    every simulation, as dryrun_multichip does); returns the points."""
+    pts = state["tracers"][0].double().cpu().numpy()
+    pts = pts + sigma * np.random.default_rng(seed).standard_normal(pts.shape)
+    state["tracers"] = torch.as_tensor(np.broadcast_to(pts, state["tracers"].shape).copy(),
+                                       dtype=state["tracers"].dtype,
+                                       device=state["tracers"].device)
+    return pts
+
+
+def ensemble_card_and_cpu(dev, build, steps: int, jitter: bool) -> dict:
+    """``run_sharded`` of ``build(device_mesh)`` on 2 × 4 positions on the
+    card and on the CPU from one initial state: {field: rel L2 or max abs}."""
+    out = []
+    for d in (dev, CPU):
+        ens = build(build_device_mesh(devices=[d] * 8, data=2))
+        state = ens.initial_state()
+        if jitter:
+            jitter_tracers(state)
+        out.append(run_sharded(ens, steps, state))
+    (g, gm), (c, cm) = out
+    errs = {k: rel(g[k], c[k]) for k in g if g[k].is_floating_point() and k != "tracers"}
+    if "tracers" in g:
+        errs["tracers max abs"] = float((g["tracers"].cpu() - c["tracers"]).abs().max())
+        check(torch.equal(g["tracer_status"].cpu(), c["tracer_status"]), "tracer status card = CPU")
+    errs["metric"] = rel(gm, cm) if float(cm.abs().max()) > 0 else float((gm.cpu() - cm).abs().max())
+    return errs
+
+
+def phase_ensemble_gates(dev) -> None:
+    """dryrun_multichip's gates on the port's ShardedEnsemble (8 positions,
+    data 2 × space 4, on the card); f64 card against CPU on (12, 16)."""
+    dmesh = build_device_mesh(devices=[dev] * 8, data=2)
+    data = dmesh.shape["data"]
+    b2s = np.linspace(-5.0, 5.0, data)
+    mesh = generate_annulus_mesh(*ENS_GATE_MESH)
+    zero_launches()
+    ens = ShardedEnsemble.build(mesh, dmesh, np.full(data, GAIT["B1"]), b2s)
+    step = make_sharded_step(ens)
+    state, d1 = step(ens.initial_state())
+    state, d2 = step(state)
+    d1, d2 = d1.double().cpu().numpy(), d2.double().cpu().numpy()
+    check(bool(np.isfinite(d1).all() and np.isfinite(d2).all() and (d2 < d1).all()),
+          f"divergence not falling step over step: {d1} -> {d2}")
+    for _ in range(8):
+        state, _ = step(state)
+    rels = ensemble_gates(mesh, state["u"], b2s)
+    # the jittered tracer ensemble against the single-device stepper
+    tr_cfg = stokes.StokesConfig(dt=0.01, nu=1.0, transport="tracers", tracer_density=12,
+                                 solver="inverse", pressure_mode="merge")
+    mesh_tr = generate_annulus_mesh(*ENS_TRACER_MESH)
+    ens_tr = ShardedEnsemble.build(mesh_tr, dmesh, np.full(data, GAIT["B1"]), b2s, config=tr_cfg)
+    st = ens_tr.initial_state()
+    pts = jitter_tracers(st)
+    st, _ = run_sharded(ens_tr, 3, st)
+    prob0 = stokes.StokesProblem.build(mesh_tr, dataclasses.replace(
+        tr_cfg, B1=GAIT["B1"], B2=float(b2s[0])), device=dev)
+    st0 = stokes.initial_state(prob0)
+    st0["tracers"] = torch.as_tensor(pts, dtype=st0["tracers"].dtype, device=dev)
+    step0 = stokes.make_step(prob0)
+    for _ in range(3):
+        st0, _ = step0(st0)
+    tr_err = float((st["tracers"][0] - st0["tracers"]).abs().max())
+    check(tr_err < 1e-5, f"ensemble tracers {tr_err} from the single-device stepper's")
+    check(torch.equal(st["tracer_status"][0], st0["tracer_status"]), "tracer status equal")
+    no_kernel_launches("the ensemble gates")
+    print(f"[39 ensemble gates] {mesh.n_nodes} nodes, data {data} x space "
+          f"{dmesh.shape['space']} on one card, f64 penalty dye: max|div| {d1} -> {d2} "
+          f"(falling), after 10 steps div_rel {[f'{r:.4f}' for r in rels]} (< "
+          f"{bench_large.DIV_REL_GATES['stokes']}), max|u| "
+          f"{[round(float(state['u'][i].abs().max()), 4) for i in range(data)]}; jittered "
+          f"tracers on {mesh_tr.n_nodes} nodes, 3 steps: {tr_err:.3e} from the single-device "
+          f"stepper (< 1e-5), status equal")
+    mesh_p = generate_annulus_mesh(*ENS_TRACER_MESH)
+    b1s, b2p = np.full(4, GAIT["B1"]), np.array([0.0, 5.0, -5.0, 2.0])
+    report = dict(variant="report", bc_kind="rotating", solver="inverse",
+                  pressure_mode="penalty", ramp_steps=10, pressure_smoothing=0.01,
+                  transport="dye", dt=1e-3, nu=0.1)
+    cases = {
+        "color dye (merge)": (False, lambda dm: ShardedEnsemble.build(
+            mesh_p, dm, b1s, b2p, config=stokes.StokesConfig(
+                solver="inverse", pressure_mode="merge", transport="dye"))),
+        "color tracers (merge)": (True, lambda dm: ShardedEnsemble.build(
+            mesh_p, dm, b1s, b2p, config=tr_cfg)),
+        "report (penalty, rotating)": (False, lambda dm: ShardedEnsemble.build(
+            mesh_p, dm, config=stokes.StokesConfig(**report),
+            omegas=np.array([2.0, 5.0, -3.0, 8.0]))),
+    }
+    for name, (jit, build) in cases.items():
+        zero_launches()
+        errs = ensemble_card_and_cpu(dev, build, ENS_PARITY_STEPS, jit)
+        no_kernel_launches(f"the {name} ensemble")
+        print(f"[39 ensemble parity] {name}, {mesh_p.n_nodes} nodes, 2 x 4 positions, f64, "
+              f"{ENS_PARITY_STEPS} steps, card vs CPU: {json.dumps(errs)} (<= {ENS_RTOL:g})")
+        for k, v in errs.items():
+            check(v <= ENS_RTOL, f"{name}: card vs CPU {k} {v}")
+
+
+def eager_steps(step, state: dict, steps: int):
+    """``steps`` calls of an ensemble step, each launching its kernels."""
+    for _ in range(steps):
+        state, metric = step(state)
+    return state, metric
+
+
+def ensemble_step_numbers(dev, mesh, b: int) -> dict:
+    """The campaign's ensemble at B = ``b`` gaits (one a "data" position on
+    the card): warm steps/s of ``run`` (one CUDA graph a step) over
+    ENS_TIMED_STEPS steps and of the eager step; kernels and device ms a
+    step (profiler over ENS_PROFILE_STEPS eager steps, the kernels the graph
+    replays), the busy share; the graph's run against the eager steps."""
+    cfg = stokes.StokesConfig(**GAIT, transport="tracers", precision="f32",
+                              pressure_mode="merge", solver="inverse")
+    ens = ShardedEnsemble.build(mesh, build_device_mesh(devices=[dev] * b, data=b),
+                                np.full(b, GAIT["B1"]), np.linspace(-5.0, 5.0, b), config=cfg)
+    step = make_sharded_step(ens)
+    state, _ = step.run(ens.initial_state(), 50)
+    numbers = {}
+    for name, fn in (("steps_per_s", step.run), ("eager_steps_per_s",
+                                                  lambda s, n: eager_steps(step, s, n))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(state, ENS_TIMED_STEPS)
+        torch.cuda.synchronize()
+        numbers[name] = ENS_TIMED_STEPS / (time.perf_counter() - t0)
+    graph, _ = step.run(state, ENS_PROFILE_STEPS)
+    eager, _ = eager_steps(step, state, ENS_PROFILE_STEPS)
+    # index_add_ sums with atomics in a varying order: f32 roundoff apart
+    diff = max(float((graph[k] - eager[k]).abs().max()) for k in ("u", "tracers"))
+    check(diff <= 1e-4 and torch.equal(graph["tracer_status"], eager["tracer_status"]),
+          f"B={b}: graph run {diff} from the eager steps")
+    prof = profile_run(lambda: eager_steps(step, state, ENS_PROFILE_STEPS), ENS_PROFILE_STEPS,
+                       top=6)
+    prof.update(numbers, graph_vs_eager=diff)
+    prof["device_busy_share"] = prof["device_ms_per_step"] * numbers["steps_per_s"] / 1e3
+    return prof
+
+
+def phase_sweep_sharded(dev, sequential) -> None:
+    """The gait campaign as one sharded program on the card (one gait a
+    "data" position), cold and warm, beside phase 27's sequential one."""
+    seq_full, seq_short = sequential
+    mesh = generate_annulus_mesh(*SWEEP_MESH)
+    cfg = sweep.SweepConfig()
+    dm = build_device_mesh(devices=[dev] * len(cfg.b2_values), data=len(cfg.b2_values))
+    for run in ("cold", "warm"):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep.food_capture_sweep_sharded(mesh, dm, cfg)
+        wall = time.perf_counter() - t0
+        no_kernel_launches(f"the {run} sharded campaign")
+        print(f"[40 sharded sweep] {run}: {len(cfg.b2_values)} gaits x {cfg.steps} steps on "
+              f"{mesh.n_nodes} nodes as one program (data {len(cfg.b2_values)} on one card, f32 "
+              f"merge inverse): campaign {wall:.2f} s ({cfg.steps / wall:.1f} steps/s, build "
+              f"included); " + "; ".join(
+                  f"B2={b2:g}: eaten {r['eaten']} of {r['tracers']}, fraction "
+                  f"{r['consumed_fraction']:.4f}" for b2, r in res.items()))
+        for b2, r in res.items():
+            d = abs(r["consumed_fraction"] - seq_full[b2]["consumed_fraction"])
+            print(f"[40 sharded sweep] B2={b2:g}: fraction {r['consumed_fraction']:.4f}, "
+                  f"phase 27's sequential {seq_full[b2]['consumed_fraction']:.4f}")
+            check(d <= 0.05, f"B2={b2}: sharded fraction {d} from the sequential campaign's")
+    numbers = {}
+    for b in ENS_BATCHES:
+        zero_launches()
+        numbers[b] = ensemble_step_numbers(dev, mesh, b)
+        no_kernel_launches(f"the B={b} ensemble")
+        p = numbers[b]
+        print(f"[40 sharded sweep] B={b} gaits on one card: {p['steps_per_s']:.1f} warm steps/s "
+              f"(run, one CUDA graph a step; eager steps {p['eager_steps_per_s']:.1f}; "
+              f"{ENS_TIMED_STEPS} steps), {p['kernels_per_step']:.1f} kernels and "
+              f"{p['device_ms_per_step']:.4f} device ms a step, busy "
+              f"{100 * p['device_busy_share']:.1f} %; graph vs eager after "
+              f"{ENS_PROFILE_STEPS} steps {p['graph_vs_eager']:.2e}; {json.dumps(p['top'])}")
+    # one batch program: cuBLAS picks its product kernels by shape (140 at
+    # B = 8 against 138 at B = 3 on an H100), a loop over the
+    # simulations would multiply the count by B
+    k = [numbers[b]["kernels_per_step"] for b in ENS_BATCHES]
+    check(k[1] <= 1.05 * k[0], f"kernels a step grow with B: {dict(zip(ENS_BATCHES, k))}")
+    short = dataclasses.replace(cfg, steps=SWEEP_PARITY_STEPS)
+    res = sweep.food_capture_sweep_sharded(mesh, dm, short)
+    print(f"[40 sharded sweep] {SWEEP_PARITY_STEPS} steps, eaten sharded vs sequential f32: "
+          + "; ".join(f"B2={b2:g} {res[b2]['eaten']} vs {seq_short[b2]['eaten']}" for b2 in res)
+          + " (within 2)")
+    for b2, r in res.items():
+        check(abs(r["eaten"] - seq_short[b2]["eaten"]) <= 2,
+              f"B2={b2}: eaten {r['eaten']} vs sequential {seq_short[b2]['eaten']}")
+
+
+def phase_sweep_cards(devs: list) -> None:
+    """The sharded campaign with one gait on each of three cards (three
+    groups stepping apart), cold and warm, beside all gaits on the first."""
+    mesh = generate_annulus_mesh(*SWEEP_MESH)
+    cfg = sweep.SweepConfig()
+    gaits = len(cfg.b2_values)
+    layouts = {"one gait a card": devs[:gaits], "all gaits on the first card": [devs[0]] * gaits}
+    results = {}
+    for name, devices in layouts.items():
+        for run in ("cold", "warm"):
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sweep.food_capture_sweep_sharded(
+                mesh, build_device_mesh(devices=devices, data=gaits), cfg)
+            wall = time.perf_counter() - t0
+            no_kernel_launches(f"the sharded campaign, {name}")
+            results[name] = res
+            print(f"[40 sharded sweep] {name} ({len(devs)} cards), {run}: {gaits} gaits x "
+                  f"{cfg.steps} steps, campaign {wall:.2f} s; eaten "
+                  f"{[r['eaten'] for r in res.values()]}")
+    one, spread = results.values()
+    for b2 in one:
+        check(abs(one[b2]["consumed_fraction"] - spread[b2]["consumed_fraction"]) <= 0.05,
+              f"B2={b2}: one gait a card against one card")
+
+
+def matmul_share(prof: dict) -> float:
+    """The share of device time in cuBLAS/CUTLASS product kernels."""
+    words = ("gemm", "gemv", "xmma", "cutlass", "sm90_")
+    ms = sum(t["ms_per_step"] for t in prof["top"] if any(w in t["name"].lower() for w in words))
+    return ms / prof["device_ms_per_step"]
+
+
+def phase_multimesh(dev) -> None:
+    """The geometry ensemble at the top of the dense regime: 8 jittered
+    4,096-node meshes, tracers, f32 merge, one a "data" position on the
+    card, 500 steps; then f64 card against CPU on 4 small meshes."""
+    t0 = time.perf_counter()
+    meshes = [generate_annulus_mesh(*MM_MESH, pad_hole=True, jitter=0.15, seed=k)
+              for k in range(MM_SIMS)]
+    cfg = stokes.StokesConfig(**GAIT, solver="inverse", pressure_mode="merge",
+                              transport="tracers", precision="f32")
+    b2s = np.linspace(-5.0, 5.0, MM_SIMS)
+    dm = build_device_mesh(devices=[dev] * MM_SIMS, data=MM_SIMS)
+    ens = MultiMeshEnsemble.build(meshes, dm, np.full(MM_SIMS, GAIT["B1"]), b2s, config=cfg)
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step = make_multimesh_step(ens)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, series = step.run(ens.initial_state(), MM_STEPS)
+    torch.cuda.synchronize()
+    rate = MM_STEPS / (time.perf_counter() - t0)
+    no_kernel_launches("the geometry ensemble")
+    rels = ensemble_gates(meshes, state["u"], b2s)
+    prof = profile_run(lambda: eager_steps(step, state, MM_PROFILE_STEPS), MM_PROFILE_STEPS,
+                       top=12)
+    ops_gb = sum(getattr(ens, k).numel() for k in ("visc_inv", "pressure_inv", "div_x", "div_y")
+                 ) * ens.visc_inv.element_size() / 1e9
+    print(f"[41 geometry ensemble] {MM_SIMS} meshes generate_annulus_mesh{MM_MESH}, pad_hole, "
+          f"jitter 0.15, seeds 0-{MM_SIMS - 1}: {meshes[0].n_nodes} nodes each, "
+          f"{ens.tracer_init.shape[0]} tracers; operators {ops_gb:.2f} GB f32; build "
+          f"{build_s:.1f} s (host); {MM_STEPS} steps from rest {rate:.1f} steps/s; device "
+          f"{prof['device_ms_per_step']:.3f} ms and {prof['kernels_per_step']:.1f} kernels a "
+          f"step, products {100 * matmul_share(prof):.1f} %, busy "
+          f"{100 * prof['device_ms_per_step'] * rate / 1e3:.1f} %; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; eaten {series[-1].tolist()}; "
+          f"div_rel {[f'{r:.4f}' for r in rels]}; {json.dumps(prof['top'][:6])}")
+    pmeshes = [generate_annulus_mesh(*MM_PARITY_MESH, pad_hole=True, jitter=0.15, seed=k)
+               for k in range(4)]
+    for tr in ("dye", "tracers"):
+        kw = dict(solver="inverse", pressure_mode="merge", transport=tr)
+        zero_launches()
+        errs = ensemble_card_and_cpu(
+            dev, lambda d: MultiMeshEnsemble.build(
+                pmeshes, d, np.full(4, GAIT["B1"]), np.array([0.0, 5.0, -5.0, 2.0]),
+                config=stokes.StokesConfig(**kw)), ENS_PARITY_STEPS, tr == "tracers")
+        no_kernel_launches(f"the {tr} geometry ensemble")
+        print(f"[41 geometry ensemble] f64, 4 meshes generate_annulus_mesh{MM_PARITY_MESH}, "
+              f"pad_hole, jitter 0.15, {tr}, {ENS_PARITY_STEPS} steps, card vs CPU: "
+              f"{json.dumps(errs)} (<= {ENS_RTOL:g})")
+        for k, v in errs.items():
+            check(v <= ENS_RTOL, f"geometry ensemble {tr}: card vs CPU {k} {v}")
+
+
+def phase_topk_bf16(dev) -> None:
+    """locator="topk" beside the grid locator on the dense bench
+    configuration, topk f64 card against CPU, and the bf16 fused step."""
+    mesh = bench_mesh()
+    rates = {}
+    for locator in ("grid", "topk"):
+        problem = stokes.StokesProblem.build(mesh, bench_config(locator=locator), device=dev)
+        zero_launches()
+        cold, _, _ = timed_run(problem, TOPK_STEPS)
+        warm, state, _ = timed_run(problem, TOPK_STEPS)
+        counts = launch_counts()
+        check(counts["K1"] == 2 * TOPK_STEPS and sum(counts.values()) == counts["K1"],
+              f"locator={locator}: launches {counts}")
+        check(bool(torch.isfinite(state["tracers"]).all()), f"locator={locator}: tracers finite")
+        rates[locator] = (cold, warm, int(state["tracer_status"].sum()))
+    print(f"[42 topk] bench configuration, {mesh.n_nodes} nodes, "
+          f"{problem.tracer_init.shape[0]} tracers, f32 fused on K1, {TOPK_STEPS} steps cold/warm: "
+          + "; ".join(f"locator={k}: {c:.1f}/{w:.1f} steps/s, eaten {e}"
+                      for k, (c, w, e) in rates.items()))
+    small = generate_annulus_mesh(*ENS_TRACER_MESH)
+    for tr in ("dye", "tracers"):
+        kw = dict(dt=0.01, nu=1.0, solver="inverse", pressure_mode="merge", transport=tr,
+                  tracer_density=15, locator="topk")
+        zero_launches()
+        g, c = card_and_cpu(small, 20, dev, **kw)
+        no_kernel_launches(f"topk {tr}")
+        errs = {k: rel(g[k], c[k]) for k in g}
+        print(f"[42 topk] f64 {tr} on {small.n_nodes} nodes, 20 steps, card vs CPU: "
+              f"{json.dumps(errs)} (<= 1e-10)")
+        for k, v in errs.items():
+            check(v <= 1e-10, f"topk {tr}: card vs CPU {k} {v}")
+    bmesh = generate_annulus_mesh(*BF16_MESH)
+    fused = dict(solver="inverse", pressure_mode="merge", fused=True)
+    zero_launches()
+    p16 = stokes.StokesProblem.build(bmesh, stokes.StokesConfig(precision="bf16", **fused),
+                                     device=dev)
+    s16, m16 = stokes.run(p16, steps=BF16_STEPS)
+    no_kernel_launches("the bf16 fused step")
+    s64, _ = stokes.run(stokes.StokesProblem.build(bmesh, stokes.StokesConfig(**fused),
+                                                   device=dev), steps=BF16_STEPS)
+    check(s16["u"].dtype == torch.bfloat16, "bf16 state")
+    max_u = float(s16["u"].abs().max())
+    err = rel(s16["u"], s64["u"])
+    print(f"[42 bf16] fused step (torch.addmv) on {bmesh.n_nodes} nodes, {BF16_STEPS} steps: "
+          f"max|u| {max_u:.4f} (< {MAX_U_FACTOR * 2.0}), rel L2 from f64 {err:.3e} (<= "
+          f"{BF16_RTOL:g}), final max|div| {float(m16['final_div_max'][-1]):.4f}")
+    check(max_u < MAX_U_FACTOR * 2.0, f"bf16 max|u| {max_u}")
+    check(err <= BF16_RTOL, f"bf16 u {err} from f64")
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -2371,6 +2788,8 @@ def main_cards(n: int) -> None:
     big, _ = built(*SCALE_MESH, scale_problem)
     k6_main, k6_launches = sharded_phases([torch.device("cuda", i) for i in range(n)], big,
                                           build_s)
+    if n >= 3:
+        timed(40, phase_sweep_cards, [torch.device("cuda", i) for i in range(n)])
     print(json.dumps({"kernels": [kernel_entry_k6(k6_launches, k6_main)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2425,7 +2844,7 @@ def main() -> None:
     timed(16, phase_ns_dense_parity, dev)
     del ns_big
     torch.cuda.empty_cache()
-    timed(27, phase_sweep, dev)
+    sequential = timed(27, phase_sweep, dev)
     timed(28, phase_eulerian_scale, scale_mesh)
     timed(29, phase_eulerian_parity, dev)
     timed(30, phase_variants, dev)
@@ -2437,6 +2856,10 @@ def main() -> None:
     timed(36, phase_th_kernels, dev)
     timed(37, phase_th_row, dev)
     timed(38, phase_th_parity, dev)
+    timed(39, phase_ensemble_gates, dev)
+    timed(40, phase_sweep_sharded, dev, sequential)
+    timed(41, phase_multimesh, dev)
+    timed(42, phase_topk_bf16, dev)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",
@@ -2467,11 +2890,12 @@ def main() -> None:
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cards", type=int, default=0,
-                        help="run only phases 1, 2 and 23-26, one shard on each of this many "
-                             "cards (default: every phase on one card)")
-    cards = parser.parse_args().cards
-    if cards:
-        main_cards(cards)
+                        help="run only phases 1, 2 and 23-26 (and 40 with three cards or "
+                             "more), one shard on each of this many cards (default: every "
+                             "phase on one card)")
+    args = parser.parse_args()
+    if args.cards:
+        main_cards(args.cards)
     else:
         main()
     sys.stdout.flush()

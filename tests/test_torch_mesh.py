@@ -112,8 +112,9 @@ def test_tracer_seed_lattice_equal():
 def test_config_dtype_and_device_policy():
     assert tconfig.dtype("f64") is torch.float64
     assert tconfig.dtype("f32") is torch.float32
-    with pytest.raises(NotImplementedError):
-        tconfig.dtype("bf16")
+    assert tconfig.dtype("bf16") is torch.bfloat16
+    with pytest.raises(ValueError):
+        tconfig.dtype("bf16", bf16=False)
     with pytest.raises(ValueError):
         tconfig.dtype("f16")
     assert tconfig.device("cpu").type == "cpu"

@@ -213,7 +213,11 @@ def test_refusals(call, error, match):
 
 
 def test_parallel_imports_no_jax():
-    code = ("import sys, tpufem_torch.parallel; "
+    """The sharded path, the ensembles, the batched transport, the sharded
+    sweep and the metrics and checkpoint modules import neither JAX nor
+    tpufem."""
+    code = ("import sys, tpufem_torch.parallel, tpufem_torch.transport, tpufem_torch.interop, "
+            "tpufem_torch.metrics, tpufem_torch.checkpoint, tpufem_torch.workloads.sweep; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpufem')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"

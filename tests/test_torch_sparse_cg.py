@@ -146,12 +146,13 @@ def _matfree_solvers(precond: str, tol: float):
                             tol=tol)
     tl_j = tl_t = None
     lmax = 0.0
-    if precond == "twolevel":
+    if precond in ("chebyshev", "twolevel"):
         dj, dt = np.asarray(kmj.diag()), kmt.diag()
         inv_j = jnp.where(dj > 0, 1.0 / jnp.where(dj > 0, dj, 1.0), 1.0)
         inv_t = torch.where(dt > 0, 1.0 / torch.where(dt > 0, dt, torch.ones_like(dt)),
                             torch.ones_like(dt))
         lmax = jcg.estimate_lmax(kmj.matvec, inv_j, jm.n_nodes)
+    if precond == "twolevel":
         tl_j = jtwolevel.build_twolevel(kmj, np.asarray(jm.coords), kmj.matvec, inv_j,
                                         target_coarse=64, lmax=lmax)
         tl_t = ttwolevel.build_twolevel(kmt, np.asarray(jm.coords), kmt.matvec, inv_t,
@@ -167,8 +168,11 @@ def _matfree_solvers(precond: str, tol: float):
 
 
 @pytest.mark.parametrize("tol", [0.0, 1e-5])
-@pytest.mark.parametrize("precond", ["jacobi", "twolevel"])
+@pytest.mark.parametrize("precond", ["jacobi", "chebyshev", "twolevel"])
 def test_matfree_solvers_match_tpufem(precond, tol):
+    """60 pressure iterations: Chebyshev with many more fixed iterations
+    iterates on roundoff after convergence, where tpufem's compiled and
+    eager solves part (ROADMAP Queue 3)."""
     jv, tv, jp, tp = _matfree_solvers(precond, tol)
     rng = np.random.default_rng(6)
     n = tv.interior_mask.shape[0]

@@ -137,11 +137,8 @@ def test_f32_port_tracks_tpufem_f64():
     [
         (dict(solver="cg", cg_storage="stencil"), NotImplementedError),
         (dict(solver="cg", cg_precond_bf16="on"), NotImplementedError),
-        (dict(transport="eulerian_dye", locator="topk"), NotImplementedError),
-        (dict(transport="dye", locator="topk"), NotImplementedError),
         (dict(solver="cg", cg_storage="banded"), NotImplementedError),
-        (dict(transport="dye_griddata", locator="topk"), NotImplementedError),
-        (dict(precision="bf16", pressure_mode="merge"), NotImplementedError),
+        (dict(precision="bf16", pressure_mode="merge"), ValueError),
         (dict(precision="f32", pressure_mode="penalty"), ValueError),
         (dict(fused=True), ValueError),
         (dict(matvec_impl="triton"), ValueError),
@@ -177,7 +174,7 @@ DENSE_MERGE = dict(solver="inverse", pressure_mode="merge")
 CSR = dict(solver="cg", cg_storage="csr")
 # The configuration branches of the dense and CSR paths, f64, 10 steps from
 # rest on (12, 16): measured ≤ 3.4e-16 relative in u (tracers 2.8e-16 max
-# abs) on the CPU, held at 1e-12.
+# abs) on the CPU, held at 1e-12; the dye c likewise.
 BRANCHES = {
     "dense-lu-merge": dict(solver="lu", pressure_mode="merge"),
     "dense-rotating-ramp": dict(DENSE_MERGE, bc_kind="rotating", ramp_steps=5),
@@ -192,6 +189,12 @@ BRANCHES = {
     "csr-jacobi": dict(CSR),
     "csr-twolevel-tol": dict(CSR, cg_precond="twolevel", cg_tol_pressure=1e-10),
     "csr-cold-start": dict(CSR, cg_warm_start=False),
+    "csr-chebyshev-tol": dict(CSR, cg_precond="chebyshev", cg_tol_pressure=1e-10),
+    "csr-twolevel-eulerian-dye": dict(CSR, cg_precond="twolevel", transport="eulerian_dye"),
+    "topk-dye": dict(DENSE_MERGE, transport="dye", locator="topk"),
+    "topk-tracers": dict(DENSE_MERGE, fused=True, transport="tracers", tracer_density=15,
+                         locator="topk"),
+    "topk-dye-griddata": dict(DENSE_MERGE, transport="dye_griddata", locator="topk"),
 }
 
 
@@ -212,6 +215,8 @@ def test_configuration_branches_match_tpufem(branch):
         np.testing.assert_allclose(out["tracers"].numpy(), np.asarray(s1["tracers"]), rtol=0,
                                    atol=1e-12)
         np.testing.assert_array_equal(out["tracer_status"].numpy(), np.asarray(s1["tracer_status"]))
+    if "c" in s1:
+        assert rel(out["c"].numpy(), np.asarray(s1["c"])) < 1e-12
 
 
 def test_grid_steps_per_call_ignored_on_csr_storage():

@@ -76,9 +76,3 @@ def test_sweep_matches_tpufem(precision):
 
 def test_sweep_config_defaults_match_tpufem():
     assert tsweep.SweepConfig() == tsweep.SweepConfig(**vars(jsweep.SweepConfig()))
-
-
-def test_sharded_sweep_refused():
-    _, tm = meshes(*MESH)
-    with pytest.raises(NotImplementedError, match=r"item 3 \+ 12"):
-        tsweep.food_capture_sweep_sharded(tm, None)

@@ -16,8 +16,9 @@ import torch
 # meshes, and callers fall back to generated meshes.
 REFERENCE_DIR = os.environ.get("TPUFEM_REFERENCE_DIR")
 
-# "f64" is the parity mode, "f32" the fast mode.
-DTYPES = {"f64": torch.float64, "f32": torch.float32}
+# "f64" is the parity mode, "f32" the fast mode; "bf16" runs the Stokes
+# workload's fused dense step only (``workloads.stokes.check_config``).
+DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def reference_mesh_path(name: str) -> str | None:
@@ -34,16 +35,18 @@ def reference_mesh_path(name: str) -> str | None:
     return None
 
 
-def dtype(precision: str) -> torch.dtype:
-    """The device dtype of a precision name; "bf16" is refused for now."""
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported (tpufem_torch supports 'f64' and 'f32')"
-        )
+def dtype(precision: str, bf16: bool = True) -> torch.dtype:
+    """The device dtype of a precision name.  ``bf16=False`` refuses "bf16":
+    the workloads other than Stokes have no bf16 path (tpufem runs them at
+    f64 under "bf16", which the port does not copy)."""
+    if precision == "bf16" and not bf16:
+        raise ValueError("precision='bf16' runs only the Stokes workload's fused dense step; "
+                         "use 'f64' or 'f32' here")
     try:
         return DTYPES[precision]
     except KeyError:
-        raise ValueError(f"unknown precision {precision!r}; expected 'f64' or 'f32'") from None
+        raise ValueError(f"unknown precision {precision!r}; expected 'f64', 'f32' or "
+                         "'bf16'") from None
 
 
 def device(name: str | torch.device | None = None) -> torch.device:

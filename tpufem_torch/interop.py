@@ -37,8 +37,9 @@ COO list):
     ``gridified.perm``.
 
 Both: ``m_lumped``; ``boundary.<walls|inner|dirichlet|interior|masters|slaves>``;
-``inner_values``; for transport ``locator.<cells|rows|origin|extent|g>``;
-for tracers ``tracer_init``.
+``inner_values``; for transport ``locator.<cells|rows|origin|extent|g>``
+(under ``locator="topk"`` none: that locator is the mesh's centroids); for
+tracers ``tracer_init``.
 
 Navier–Stokes grid path (:func:`ns_problem_from_numpy`, the JAX package's
 ``NSProblem`` layout): ``grid_refill.<dest|order|order_k>`` and the template
@@ -57,6 +58,12 @@ arrays of a dense build, the BC index sets and values):
     :func:`th_problem_from_numpy`: ``e_inv``, ``r_op``, ``bc_dofs``,
     ``bc_values``, ``corners``;
     :func:`stam_state_from_numpy`: Stam's state ``{vx, vy, density, t}``.
+
+Ensembles (:func:`ensemble_from_numpy`, :func:`multimesh_from_numpy`):
+the JAX package's ``ShardedEnsemble`` as its problem's arrays plus
+``ensemble.<inner_values|visc_inv|pressure_inv|smooth_inv>``, and its
+``MultiMeshEnsemble`` as its stacked operators, boundary sets and
+``BatchedGridLocator`` tables (see each function).
 
 Sparse Taylor–Hood problems (:func:`sparse_th_problem_from_numpy`, the JAX
 package's ``SparseTHProblem``): ``<op>.<indptr|indices|data>`` for ``<op>``
@@ -81,6 +88,7 @@ from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.mesh.gridify import Gridified
 from tpufem_torch.ops.gridop import GridOperator, GridRefill
 from tpufem_torch.ops.sparse import CSROperator
+from tpufem_torch.parallel.spmd import MultiMeshEnsemble, ShardedEnsemble
 from tpufem_torch.solve.dense import DenseInverse, DenseLU
 from tpufem_torch.solve.grid_cg import NSGridBiCGStab, PressureGridCG, ViscousGridCG
 from tpufem_torch.solve.grid_step import GridStokesStep, steps_per_call
@@ -189,7 +197,10 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
         for f in dataclasses.fields(bc.ChannelBoundary)
     })
     locator = None
-    if config.transport != "none":
+    if config.transport != "none" and config.locator == "topk":
+        locator = transport.TopKLocator.build(mesh, k=config.locator_k,
+                                              dtype=tconfig.dtype(config.precision), device=dev)
+    elif config.transport != "none":
         locator = transport.GridLocator.from_tables(
             mesh, arrays["locator.cells"], arrays["locator.origin"], arrays["locator.extent"],
             int(arrays["locator.g"]), rows=arrays["locator.rows"],
@@ -239,6 +250,55 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
         eul=tuple(dev_array(k) for k in ("eul_M", "eul_K", "eul_Mg")),
         **common,
     )
+
+
+def ensemble_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, device_mesh,
+                        config: StokesConfig) -> ShardedEnsemble:
+    """A port ``ShardedEnsemble`` holding the given arrays: the problem's, as
+    :func:`problem_from_numpy` takes them (dense ``solver="inverse"``), plus
+    ``ensemble.inner_values`` (B, k, 2), ``ensemble.visc_inv`` and
+    ``ensemble.pressure_inv`` (N_pad, N) and, for the "report" variant with
+    smoothing, ``ensemble.smooth_inv``; all cast to the configuration's
+    precision on the CPU."""
+    kind = config.transport if config.transport in ("dye", "tracers") else "dye"
+    problem = problem_from_numpy(arrays, mesh, dataclasses.replace(config, transport=kind),
+                                 device="cpu")
+
+    def t(key):
+        return None if key not in arrays else torch.as_tensor(np.array(arrays[key]),
+                                                              dtype=problem.dtype)
+
+    visc_inv = t("ensemble.visc_inv")
+    return ShardedEnsemble(problem=problem, device_mesh=device_mesh,
+                           inner_values=t("ensemble.inner_values"), visc_inv=visc_inv,
+                           pressure_inv=t("ensemble.pressure_inv"), n_pad=visc_inv.shape[0],
+                           smooth_inv=t("ensemble.smooth_inv"))
+
+
+def multimesh_from_numpy(arrays: dict[str, np.ndarray], meshes, device_mesh,
+                         config: StokesConfig) -> MultiMeshEnsemble:
+    """A port ``MultiMeshEnsemble`` holding the given stacked arrays:
+    ``inner_values`` (B, k, 2); ``visc_inv``, ``pressure_inv``, ``div_x``,
+    ``div_y`` (B, N_pad, N); ``boundary.<walls|inner|dirichlet|interior|
+    masters|slaves>``; for transport the stacked locator tables
+    ``locator.<rows|origins|extents|coords|g>``; for tracers
+    ``tracer_init``.  Cast to the configuration's precision on the CPU."""
+    dtype = tconfig.dtype(config.precision)
+    boundary = bc.ChannelBoundary(**{
+        f.name: np.asarray(arrays[f"boundary.{f.name}"])
+        for f in dataclasses.fields(bc.ChannelBoundary)
+    })
+    locator = None
+    if config.transport != "none":
+        locator = transport.BatchedGridLocator.from_tables(
+            *(arrays[f"locator.{k}"] for k in ("rows", "origins", "extents", "coords")),
+            int(arrays["locator.g"]), dtype=dtype, device="cpu")
+    return MultiMeshEnsemble(
+        meshes=tuple(meshes), device_mesh=device_mesh, config=config, boundary=boundary,
+        locator=locator, tracer_init=None if "tracer_init" not in arrays
+        else np.asarray(arrays["tracer_init"]),
+        **{k: torch.as_tensor(np.array(arrays[k]), dtype=dtype)
+           for k in ("inner_values", "visc_inv", "pressure_inv", "div_x", "div_y")})
 
 
 def ns_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: NSConfig,

@@ -2,16 +2,26 @@
 
 Same semantics as ``tpufem.transport``:
 
-* a uniform-grid binned point locator whose per-cell candidate lists are
+* two point locators, both "first containing candidate wins" as in the
+  reference's ``PointLocator.find``: :class:`TopKLocator` tests the k
+  triangles with the nearest centroids, nearest first; :class:`GridLocator`
+  bins triangles into a uniform grid whose per-cell candidate lists are
   packed on the host into ONE flat row per cell, so a locate is one row
-  gather plus elementwise containment tests (first containing candidate
-  wins, as in the reference's ``PointLocator.find``),
-* semi-Lagrangian dye advection with periodic-x barycentric weights,
-* passive tracer advection (Euler or RK2) with food-capture statistics,
+  gather plus elementwise containment tests;
+* :class:`BatchedGridLocator`: per-simulation grid tables stacked on a
+  leading batch axis (one mesh a simulation), padded to a common width;
+* semi-Lagrangian dye advection with periodic-x barycentric weights;
+* passive tracer advection (Euler or RK2) with food-capture statistics;
 * the Danckwerts mixing index.
 
-The locator's tables live on the device; every per-step function here is
-a few gathers and elementwise tensor ops with no host synchronisation.
+Every locate takes points with leading batch axes: (P, 2) or (B, P, 2).
+A locator's tables serve every batch entry alike; the stacked tables of a
+:class:`BatchedGridLocator` serve one entry each.  So the batched transport
+(:func:`advect_semilagrange_batched`, :func:`tracer_step_batched`) is the
+single-simulation code on (B, ...) tensors: one launch serves the batch.
+
+The tables live on the device; every per-step function here is a few
+gathers and elementwise tensor ops with no host synchronisation.
 """
 
 from __future__ import annotations
@@ -147,8 +157,101 @@ def _pack_candidate_rows(mesh: Mesh, cells: np.ndarray) -> np.ndarray:
     return np.concatenate(sections, axis=1)
 
 
+def _take(field: torch.Tensor, idx: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``field[idx]`` along the node axis: ``field`` (N, ...) shared by every
+    leading index of ``idx``, or (B, N, ...) with ``idx`` (B, ...), one gather."""
+    if not batched:
+        return field[idx]
+    rest = field.shape[2:]
+    flat = idx.reshape(idx.shape[0], -1)
+    index = flat.reshape(flat.shape + (1,) * len(rest)).expand(flat.shape + rest)
+    return torch.gather(field, 1, index).reshape(idx.shape + rest)
+
+
+def _first_containing(tri_xy: torch.Tensor, points: torch.Tensor, valid: torch.Tensor):
+    """The first containing candidate of each point: ``tri_xy`` (..., P, C,
+    3, 2) candidate corners in order, ``valid`` (..., P, C) the real slots.
+
+    A candidate contains a point where all three barycentric weights are ≥ 0
+    and |det| ≥ 1e-14.  Returns (found (..., P), first (..., P) the slot of
+    the first containing candidate, 0 if none, w (..., P, 3) its weights)."""
+    w, det = _barycentric(tri_xy, points[..., None, :])
+    inside = (w >= 0.0).all(dim=-1) & (torch.abs(det) >= _DEG_TOL) & valid
+    # argmax returns the first maximal index; a bool tensor is cast first
+    first = inside.to(torch.int32).argmax(dim=-1)
+    found = inside.any(dim=-1)
+    w_sel = torch.gather(w, -2, first[..., None, None].expand(*first.shape, 1, 3))[..., 0, :]
+    return found, first, w_sel
+
+
+class _Finds:
+    """``find``/``find_full`` on a locator's ``locate``."""
+
+    def find(self, points: torch.Tensor, return_weights: bool = False):
+        """→ (tri_ids (P,), found (P,) bool[, weights (P, 3)])."""
+        found, w, _, _, tri = self.locate(points)
+        return (tri, found, w) if return_weights else (tri, found)
+
+    def find_full(self, points: torch.Tensor):
+        """→ (tri_ids, found, weights, corner node ids (P, 3))."""
+        found, w, _, corners, tri = self.locate(points)
+        return tri, found, w, corners
+
+
 @dataclasses.dataclass(frozen=True)
-class GridLocator:
+class TopKLocator(_Finds):
+    """The reference's locator: the k triangles with the nearest centroids,
+    tested nearest first; the first containing one wins.
+
+    The k candidates are taken in ``jax.lax.top_k``'s order, as tpufem takes
+    them: a stable sort of the squared centroid distances, so equal
+    distances keep the lower triangle id first (``torch.topk`` orders ties
+    otherwise).  A point whose host triangle is not among the k is not
+    found, as in the reference.  O(P·T) work and memory: meant for meshes
+    below ~10k triangles (refused above 50,000, as tpufem refuses)."""
+
+    mesh: Mesh
+    k: int
+    coords: torch.Tensor  # (N, 2) node coordinates
+    centroids: torch.Tensor  # (T, 2)
+    tri_xy: torch.Tensor  # (T, 3, 2) corner coordinates
+    tris: torch.Tensor  # (T, 3) int64 corner node ids
+
+    @classmethod
+    def build(cls, mesh: Mesh, k: int = 10, dtype=torch.float64, device=None) -> "TopKLocator":
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+
+        return cls(mesh=mesh, k=int(k), coords=t(mesh.coords), centroids=t(mesh.centroids()),
+                   tri_xy=t(_tri_xy_table(mesh)),
+                   tris=torch.as_tensor(mesh.tris, dtype=torch.int64, device=device))
+
+    def to(self, device) -> "TopKLocator":
+        return dataclasses.replace(self, coords=self.coords.to(device),
+                                   centroids=self.centroids.to(device),
+                                   tri_xy=self.tri_xy.to(device), tris=self.tris.to(device))
+
+    def candidates(self, points: torch.Tensor) -> torch.Tensor:
+        """(..., P, k) triangle ids, nearest centroid first, ties by id."""
+        if self.mesh.n_tris > 50_000:
+            raise ValueError(
+                f"TopKLocator materializes a (P, {self.mesh.n_tris}) distance matrix: beyond "
+                "~50k triangles use locator='grid' (GridLocator: same answers, O(P·C) work)")
+        d2 = torch.sum((points[..., :, None, :] - self.centroids) ** 2, dim=-1)
+        return torch.sort(d2, dim=-1, stable=True).indices[..., : self.k]
+
+    def locate(self, points: torch.Tensor):
+        """→ (found, w (..., 3), winner corner xy (..., 3, 2), winner corner
+        node ids (..., 3), tri ids (0 where not found))."""
+        cand = self.candidates(points)
+        found, first, w = _first_containing(self.tri_xy[cand], points,
+                                            torch.ones_like(cand, dtype=torch.bool))
+        tri = torch.where(found, torch.gather(cand, -1, first[..., None])[..., 0], 0)
+        return found, w, self.tri_xy[tri], self.tris[tri], tri
+
+
+@dataclasses.dataclass(frozen=True)
+class GridLocator(_Finds):
     """Uniform-grid binned locator with padded candidate lists.
 
     ``cells`` stays on the host; ``rows`` (the packed candidate table),
@@ -183,86 +286,137 @@ class GridLocator:
         return cls(mesh=mesh, cells=cells, rows=t(rows), origin=t(origin),
                    extent=t(extent), g=int(g), coords=t(mesh.coords))
 
-    def find(self, points: torch.Tensor, return_weights: bool = False):
-        """→ (tri_ids (P,), found (P,) bool[, weights (P, 3)])."""
-        row, c = _gather_flat_rows(self.rows, self.origin, self.extent, self.g, points)
-        cand, found, w, first = _containment_flat(row, c, points)
-        tri_ids = torch.where(found, cand.gather(1, first[:, None])[:, 0], 0)
-        if return_weights:
-            return tri_ids, found, w
-        return tri_ids, found
+    def with_cmax(self, c_max: int) -> "GridLocator":
+        """The same locator with its candidate lists padded to ``c_max``
+        slots of −1 (which never contain a point), so per-mesh tables of one
+        width stack on a batch axis."""
+        cur = self.cells.shape[1]
+        if c_max < cur:
+            raise ValueError(f"cannot pad {cur} candidate slots down to {c_max}")
+        if c_max == cur:
+            return self
+        cells = np.concatenate(
+            [self.cells, np.full((self.cells.shape[0], c_max - cur), -1, dtype=np.int32)], axis=1)
+        rows = _pack_candidate_rows(self.mesh, cells)
+        return dataclasses.replace(self, cells=cells, rows=torch.as_tensor(
+            rows, dtype=self.rows.dtype, device=self.rows.device))
 
-    def find_full(self, points: torch.Tensor):
-        """→ (tri_ids, found, weights, corner node ids (P, 3))."""
-        row, c = _gather_flat_rows(self.rows, self.origin, self.extent, self.g, points)
-        cand, found, w, first = _containment_flat(row, c, points)
-        tri_ids = torch.where(found, cand.gather(1, first[:, None])[:, 0], 0)
-        return tri_ids, found, w, _select_corners_flat(row, c, first)
+    def to(self, device) -> "GridLocator":
+        return dataclasses.replace(self, rows=self.rows.to(device), origin=self.origin.to(device),
+                                   extent=self.extent.to(device), coords=self.coords.to(device))
+
+    def locate(self, points: torch.Tensor):
+        """→ (found, w (..., 3), winner corner xy (..., 3, 2), winner corner
+        node ids (..., 3), tri ids (0 where not found))."""
+        return _locate_winner(self.rows, self.origin, self.extent, self.g, points)
 
 
-def _section(row: torch.Tensor, k: int, cmax: int) -> torch.Tensor:
-    """Section ``k`` of a section-major packed row → (P, C) view."""
-    return row[:, k * cmax : (k + 1) * cmax]
+@dataclasses.dataclass(frozen=True)
+class BatchedGridLocator:
+    """Per-simulation :class:`GridLocator` tables stacked on a batch axis.
+
+    Ensembles with one mesh a simulation (``parallel.spmd.MultiMeshEnsemble``)
+    locate each simulation's points in its own mesh.  ``build`` takes one
+    grid resolution for the fleet and pads every candidate table to the
+    fleet's widest (:meth:`GridLocator.with_cmax`), so the tables stack;
+    the packed rows carry everything transport needs per candidate, so the
+    meshes may differ in triangle count (node counts agree)."""
+
+    rows: torch.Tensor  # (B, G², 10·C_max)
+    origins: torch.Tensor  # (B, 2)
+    extents: torch.Tensor  # (B, 2)
+    coords: torch.Tensor  # (B, N, 2) per-simulation node coordinates
+    g: int
+
+    @classmethod
+    def build(cls, meshes, g: int = 0, exact: bool = True, dtype=torch.float64,
+              device=None) -> "BatchedGridLocator":
+        """``g=0`` takes clip(2·√T_max, 8, 128) cells a side, as tpufem does."""
+        if not g:
+            g = int(np.clip(2 * np.sqrt(max(m.n_tris for m in meshes)), 8, 128))
+        tables = [_bin_triangles(m, g, exact) for m in meshes]
+        c_max = max(cells.shape[1] for cells, _, _ in tables)
+        rows = [_pack_candidate_rows(m, np.concatenate(
+            [cells, np.full((cells.shape[0], c_max - cells.shape[1]), -1, np.int32)], axis=1))
+            for m, (cells, _, _) in zip(meshes, tables)]
+        return cls.from_tables(np.stack(rows), np.stack([t[1] for t in tables]),
+                               np.stack([t[2] for t in tables]),
+                               np.stack([m.coords for m in meshes]), g, dtype=dtype, device=device)
+
+    @classmethod
+    def from_tables(cls, rows, origins, extents, coords, g: int, dtype=torch.float64,
+                    device=None) -> "BatchedGridLocator":
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+
+        return cls(rows=t(rows), origins=t(origins), extents=t(extents), coords=t(coords), g=int(g))
+
+    def tables(self) -> tuple:
+        """(rows, origins, extents, coords): the first arguments of the
+        batched transport functions."""
+        return self.rows, self.origins, self.extents, self.coords
+
+    def select(self, index: torch.Tensor, device) -> "BatchedGridLocator":
+        """The tables of the simulations ``index`` on ``device``."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f)[index.to(getattr(self, f).device)].to(device)
+            for f in ("rows", "origins", "extents", "coords")})
+
+    def locate(self, points: torch.Tensor):
+        """Points (B, P, 2), one simulation's in each batch entry → as
+        :meth:`GridLocator.locate`."""
+        return _locate_winner(self.rows, self.origins, self.extents, self.g, points)
 
 
 def _gather_flat_rows(rows, origin, extent, g: int, points):
-    """ONE flat row gather per query batch → ((P, 10·C) rows, C).
+    """The packed row of each point's cell: (..., P, 10·C).
 
-    Cell indices truncate toward zero, then clip, as in tpufem."""
-    c = rows.shape[1] // 10
+    ``rows`` (G², W) is one table for every leading index of ``points``;
+    (B, G², W) with ``origin``/``extent`` (B, 2) holds one for each entry of
+    points (B, P, 2).  Cell indices truncate toward zero, then clip, as in
+    tpufem."""
+    stacked = rows.ndim == 3
+    if stacked:
+        origin, extent = origin[:, None, :], extent[:, None, :]
     ij = torch.clamp(((points - origin) / extent * g).to(torch.int64), 0, g - 1)
-    cell = ij[:, 0] * g + ij[:, 1]
-    return rows[cell], c
-
-
-def _containment_flat(row: torch.Tensor, cmax: int, points: torch.Tensor):
-    """Containment test of every candidate in the packed rows.
-
-    Returns (cand (P,C) int64, found (P,), w_sel (P,3), first (P,)):
-    ``first`` is the slot of the FIRST containing candidate (0 if none)."""
-    p = row.shape[0]
-    tri_xy = row[:, : 6 * cmax].reshape(p, 3, 2, cmax).permute(0, 3, 1, 2)  # (P,C,3,2) view
-    w, det = _barycentric(tri_xy, points[:, None, :])
-    cand = _section(row, 6, cmax).to(torch.int64)
-    inside = (w >= 0.0).all(dim=-1) & (torch.abs(det) >= _DEG_TOL) & (cand >= 0)
-    # argmax returns the first maximal index; a bool tensor is cast first
-    first = inside.to(torch.int32).argmax(dim=1)
-    found = inside.any(dim=1)
-    w_sel = w.gather(1, first[:, None, None].expand(p, 1, 3))[:, 0]
-    return cand, found, w_sel, first
-
-
-def _select_corners_flat(row: torch.Tensor, cmax: int, first: torch.Tensor) -> torch.Tensor:
-    """Winning candidate's corner node ids (P, 3) from the flat row."""
-    p = row.shape[0]
-    corners = row[:, 7 * cmax : 10 * cmax].reshape(p, 3, cmax)
-    return corners.gather(2, first[:, None, None].expand(p, 3, 1))[..., 0].to(torch.int64)
+    cell = ij[..., 0] * g + ij[..., 1]
+    return _take(rows, cell, stacked)
 
 
 def _locate_winner(rows, origin, extent, g: int, pts):
-    """Locate pts in packed tables → (found (P,), w (P,3), win_xy (P,3,2),
-    corner node ids (P,3)), the winner's data straight from its row."""
-    row, c = _gather_flat_rows(rows, origin, extent, g, pts)
-    _, found, w, first = _containment_flat(row, c, pts)
-    p = row.shape[0]
-    xy = row[:, : 6 * c].reshape(p, 6, c)
-    win_xy = xy.gather(2, first[:, None, None].expand(p, 6, 1))[..., 0].reshape(p, 3, 2)
-    return found, w, win_xy, _select_corners_flat(row, c, first)
+    """Locate ``pts`` in packed tables (see :func:`_gather_flat_rows`) →
+    (found, w (..., 3), win_xy (..., 3, 2), corner node ids (..., 3), tri
+    ids), the winner's data straight from its row (tri id and corners 0
+    where nothing contains the point)."""
+    row = _gather_flat_rows(rows, origin, extent, g, pts)
+    c = row.shape[-1] // 10
+    sections = row.unflatten(-1, (10, c))  # (..., P, 10, C): x1 y1 x2 y2 x3 y3 id c1 c2 c3
+    tri_xy = sections[..., :6, :].unflatten(-2, (3, 2)).movedim(-1, -3)  # (..., P, C, 3, 2)
+    found, first, w = _first_containing(tri_xy, pts, sections[..., 6, :] >= 0)
+    win = torch.gather(sections, -1, first[..., None, None].expand(*first.shape, 10, 1))[..., 0]
+    win_xy = win[..., :6].unflatten(-1, (3, 2))
+    ids = win[..., 6:].to(torch.int64)
+    return found, w, win_xy, ids[..., 1:], torch.where(found, ids[..., 0], 0)
 
 
-def interpolate(mesh: Mesh, field: torch.Tensor, points: torch.Tensor, locator: GridLocator):
+def interpolate(mesh: Mesh, field: torch.Tensor, points: torch.Tensor, locator):
     """Linear (P1) interpolation of a nodal field (N,) or (N, D) at points.
 
     Returns (values, found); values are 0 for points outside the mesh."""
-    _, found, w, corners = locator.find_full(points)
-    f2 = field if field.ndim > 1 else field[:, None]
-    vals = (
-        w[:, 0:1] * f2[corners[:, 0]]
-        + w[:, 1:2] * f2[corners[:, 1]]
-        + w[:, 2:3] * f2[corners[:, 2]]
-    )
-    vals = vals if field.ndim > 1 else vals[:, 0]
-    mask = found if vals.ndim == 1 else found[:, None]
+    found, w, _, corners, _ = locator.locate(points)
+    return _interpolate_at(field, w, corners, found, batched=False)
+
+
+def _interpolate_at(field, w, corners, found, batched: bool):
+    """Σⱼ wⱼ·field[cornerⱼ], 0 where not found.  ``field`` is (N[, D]), or
+    (B, N[, D]) with ``batched``."""
+    vector = field.ndim > (2 if batched else 1)
+    f = field if vector else field[..., None]
+    vals = (w[..., 0:1] * _take(f, corners[..., 0], batched)
+            + w[..., 1:2] * _take(f, corners[..., 1], batched)
+            + w[..., 2:3] * _take(f, corners[..., 2], batched))
+    vals = vals if vector else vals[..., 0]
+    mask = found[..., None] if vector else found
     return torch.where(mask, vals, 0.0), found
 
 
@@ -276,7 +430,7 @@ def _periodic_dx(a, b, L=1.0):
 
 def advect_semilagrange(
     mesh: Mesh,
-    locator: GridLocator,
+    locator,
     c: torch.Tensor,
     u: torch.Tensor,
     dt: float,
@@ -288,26 +442,39 @@ def advect_semilagrange(
     Single Euler back-trace, x wrapped mod L (``torch.remainder``, the sign
     of the divisor), y clamped to (0, H); host triangle located with the
     non-periodic containment test; interpolation weights from periodic x
-    distances; nodes whose departure point is not found keep their value."""
+    distances; nodes whose departure point is not found keep their value.
+    A leading batch axis on ``c`` (B, N) and ``u`` (B, N, 2) advects B dyes
+    through the one ``locator`` in one pass."""
+    return _advect(locator.locate, locator.coords, c, u, dt, L, H)
+
+
+def advect_semilagrange_batched(rows, origins, extents, coords, g: int, c, u, dt: float,
+                                L: float = 1.0, H: float = 1.0):
+    """:func:`advect_semilagrange` over per-simulation meshes: the tables
+    (:meth:`BatchedGridLocator.tables`) carry a leading batch axis, ``c`` is
+    (B, N) and ``u`` (B, N, 2).  One pass serves the whole batch."""
+    return _advect(lambda p: _locate_winner(rows, origins, extents, g, p), coords, c, u, dt, L, H)
+
+
+def _advect(locate, coords, c, u, dt, L, H):
     eps = 1e-12
-    coords = locator.coords
-    xb = torch.remainder(coords[:, 0] - dt * u[:, 0], L)
-    yb = coords[:, 1] - dt * u[:, 1]
+    xb = torch.remainder(coords[..., 0] - dt * u[..., 0], L)
+    yb = coords[..., 1] - dt * u[..., 1]
     yb = torch.where(yb < 0.0, eps, yb)
     yb = torch.where(yb > H, H - eps, yb)
-    pts = torch.stack([xb, yb], dim=1)
-    found, _, pxy, corner = _locate_winner(
-        locator.rows, locator.origin, locator.extent, locator.g, pts
-    )
-    x1, y1 = pxy[:, 0, 0], pxy[:, 0, 1]
-    x2, y2 = pxy[:, 1, 0], pxy[:, 1, 1]
-    x3, y3 = pxy[:, 2, 0], pxy[:, 2, 1]
+    pts = torch.stack([xb, yb], dim=-1)
+    found, _, pxy, corner, _ = locate(pts)
+    x1, y1 = pxy[..., 0, 0], pxy[..., 0, 1]
+    x2, y2 = pxy[..., 1, 0], pxy[..., 1, 1]
+    x3, y3 = pxy[..., 2, 0], pxy[..., 2, 1]
     det = _periodic_dx(x2, x1, L) * (y3 - y1) - _periodic_dx(x3, x1, L) * (y2 - y1)
     safe = torch.where(torch.abs(det) < _DEG_TOL, 1.0, det)
     w1 = (_periodic_dx(x2, xb, L) * (y3 - yb) - _periodic_dx(x3, xb, L) * (y2 - yb)) / safe
     w2 = (_periodic_dx(x3, xb, L) * (y1 - yb) - _periodic_dx(x1, xb, L) * (y3 - yb)) / safe
     w3 = 1.0 - w1 - w2
-    c_new = w1 * c[corner[:, 0]] + w2 * c[corner[:, 1]] + w3 * c[corner[:, 2]]
+    batched = c.ndim == 2
+    c_new = (w1 * _take(c, corner[..., 0], batched) + w2 * _take(c, corner[..., 1], batched)
+             + w3 * _take(c, corner[..., 2], batched))
     return torch.where(found, c_new, c)
 
 
@@ -330,7 +497,7 @@ def init_tracer_grid(
 
 def tracer_step(
     mesh: Mesh,
-    locator: GridLocator,
+    locator,
     points: torch.Tensor,
     u: torch.Tensor,
     dt: float,
@@ -340,14 +507,34 @@ def tracer_step(
     """Advance tracer points one step through nodal velocity u.
 
     ``euler`` samples u at the point, steps explicitly and wraps x (as the
-    reference); ``rk2`` is the midpoint upgrade."""
-    vel, _ = interpolate(mesh, u, points, locator)
+    reference); ``rk2`` is the midpoint upgrade.  A leading batch axis on
+    ``points`` (B, P, 2) and ``u`` (B, N, 2) moves B tracer sets through
+    the one ``locator`` in one pass."""
+    return _tracers(locator.locate, points, u, dt, L, method)
+
+
+def tracer_step_batched(rows, origins, extents, g: int, points, u, dt: float, L: float = 1.0,
+                        method: str = "euler"):
+    """:func:`tracer_step` over per-simulation meshes: ``points`` (B, P, 2),
+    ``u`` (B, N, 2) → new points (B, P, 2), one pass for the batch."""
+    return _tracers(lambda p: _locate_winner(rows, origins, extents, g, p), points, u, dt, L,
+                    method)
+
+
+def _tracers(locate, points, u, dt, L, method):
+    batched = u.ndim == 3
+
+    def velocity(p):
+        found, w, _, corners, _ = locate(p)
+        return _interpolate_at(u, w, corners, found, batched)[0]
+
+    def wrap(p):
+        return torch.stack([torch.remainder(p[..., 0], L), p[..., 1]], dim=-1)
+
+    vel = velocity(points)
     if method == "rk2":
-        mid = points + 0.5 * dt * vel
-        mid = torch.stack([torch.remainder(mid[:, 0], L), mid[:, 1]], dim=1)
-        vel, _ = interpolate(mesh, u, mid, locator)
-    new = points + dt * vel
-    return torch.stack([torch.remainder(new[:, 0], L), new[:, 1]], dim=1)
+        vel = velocity(wrap(points + 0.5 * dt * vel))
+    return wrap(points + dt * vel)
 
 
 def capture_update(
@@ -357,8 +544,8 @@ def capture_update(
     radius: float = 0.28,
 ) -> torch.Tensor:
     """Mark tracers within ``radius`` of ``center`` as eaten (status=1)."""
-    dx = points[:, 0] - center[0]
-    dy = points[:, 1] - center[1]
+    dx = points[..., 0] - center[0]
+    dy = points[..., 1] - center[1]
     d = torch.sqrt(dx * dx + dy * dy)
     return torch.where(d <= radius, 1, status).to(status.dtype)
 

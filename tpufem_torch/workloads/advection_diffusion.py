@@ -64,7 +64,7 @@ class ADProblem:
     @classmethod
     def build(cls, mesh: Mesh, config: ADConfig = ADConfig(), device=None) -> "ADProblem":
         dev = tconfig.device(device)
-        dtype = tconfig.dtype(config.precision)
+        dtype = tconfig.dtype(config.precision, bf16=False)
         K = assembly.assemble_dense(mesh, assembly.element_stiffness(mesh, signed=True)).numpy()
         M = assembly.assemble_dense(mesh, assembly.element_mass(mesh)).numpy()
         u_const = torch.tensor(config.velocity, dtype=torch.float64).repeat(mesh.n_nodes, 1)

@@ -87,7 +87,7 @@ class HeatProblem:
         pcfg = PoissonConfig(g_source=config.g_source, inner_marker=config.inner_marker,
                              outer_value=config.outer_value, inner_value=config.inner_value,
                              L=config.L, H=config.H, tol=config.tol)
-        dtype = tconfig.dtype(config.precision)
+        dtype = tconfig.dtype(config.precision, bf16=False)
         if config.solver == "cg":
             op, _, _, boundary = build_system_csr(mesh, pcfg, dev)
             op = op.astype(dtype)
@@ -118,7 +118,7 @@ def apply_field_bcs(problem: HeatProblem, u: torch.Tensor) -> torch.Tensor:
 
 
 def initial_state(problem: HeatProblem, n: int) -> torch.Tensor:
-    u = torch.zeros(n, dtype=tconfig.dtype(problem.config.precision),
+    u = torch.zeros(n, dtype=tconfig.dtype(problem.config.precision, bf16=False),
                     device=problem.dirichlet_values.device)
     return apply_field_bcs(problem, u)
 

@@ -369,7 +369,7 @@ class TransientTHProblem:
         """The problem from its host arrays, moved to ``device`` in the
         configuration's precision."""
         dev = tconfig.device(device)
-        dtype = tconfig.dtype(config.precision)
+        dtype = tconfig.dtype(config.precision, bf16=False)
         bc_dofs = np.asarray(bc_dofs, dtype=np.int64)
         return cls(
             mesh=mesh,
@@ -455,7 +455,7 @@ def check_config(config: NSConfig) -> None:
         raise ValueError(f"unknown NS solver {config.solver!r}; expected 'dense' or 'cg'")
     if config.pressure_scaling not in ("mass_lumped", "raw"):
         raise ValueError(f"unknown pressure_scaling {config.pressure_scaling!r}")
-    tconfig.dtype(config.precision)
+    tconfig.dtype(config.precision, bf16=False)
     if config.solver != "cg":
         return
     if config.cg_storage not in _NS_STORAGES:
@@ -493,7 +493,7 @@ class NSProblem:
 
     @property
     def dtype(self) -> torch.dtype:
-        return tconfig.dtype(self.config.precision)
+        return tconfig.dtype(self.config.precision, bf16=False)
 
     @property
     def device(self) -> torch.device:
@@ -504,7 +504,7 @@ class NSProblem:
         """Assemble on the host in float64, move to ``device`` (see
         :func:`tpufem_torch.config.device`)."""
         check_config(config)
-        dtype = tconfig.dtype(config.precision)
+        dtype = tconfig.dtype(config.precision, bf16=False)
         dev = tconfig.device(device)
         x, y = mesh.coords[:, 0], mesh.coords[:, 1]
         on_outer = ((np.abs(x) < config.tol) | (np.abs(x - config.L) < config.tol)

@@ -137,7 +137,7 @@ def obstacle_mask(config: StamConfig, t: torch.Tensor) -> torch.Tensor:
 
 def initial_state(config: StamConfig = StamConfig(), device=None) -> dict:
     dev = tconfig.device(device)
-    dtype = tconfig.dtype(config.precision)
+    dtype = tconfig.dtype(config.precision, bf16=False)
     z = torch.zeros((config.size, config.size), dtype=dtype, device=dev)
     return {"vx": z, "vy": z, "density": z, "t": torch.zeros((), dtype=dtype, device=dev)}
 

@@ -120,7 +120,7 @@ class StokesConfig:
     tracer_density: int = 25
     capture_radius: float = 0.28
     tracer_method: str = "euler"
-    locator: str = "grid"  # "grid" | "topk" (not ported)
+    locator: str = "grid"  # "grid" (O(P·C)) | "topk" (the reference's k nearest centroids, O(P·T))
     locator_k: int = 10
     locator_grid: int = 0  # 0 = auto (~2√T cells per side)
 
@@ -146,15 +146,15 @@ def check_config(config: StokesConfig) -> None:
         raise ValueError(f"unknown solver method: {config.solver}")
     if config.variant not in ("color", "report"):
         raise ValueError(f"unknown variant {config.variant!r}")
-    if config.locator == "topk":
-        raise _not_ported("locator='topk' (TopKLocator)", "3")
-    if config.locator != "grid":
+    if config.locator not in ("grid", "topk"):
         raise ValueError(f"unknown locator {config.locator!r}")
     if config.matvec_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown matvec_impl {config.matvec_impl!r}")
     if config.pressure_mode not in ("penalty", "merge"):
         raise ValueError(f"unknown pressure_mode {config.pressure_mode!r}")
-    tconfig.dtype(config.precision)  # refuses bf16 and unknown names
+    tconfig.dtype(config.precision)  # refuses unknown names
+    if config.precision == "bf16":
+        _check_bf16(config)
     if config.solver == "cg":
         _check_cg(config)
         return
@@ -171,6 +171,29 @@ def check_config(config: StokesConfig) -> None:
         raise ValueError("fused step requires pressure_mode='merge' and no BC ramp")
     if config.fused and not config.dense_ops:
         raise ValueError("fused step requires dense_ops=True (it composes the dense div/grad)")
+
+
+def _check_bf16(config: StokesConfig) -> None:
+    """bf16 runs where tpufem's bf16 run stays bounded: the fused dense step
+    with the ``"xla"`` matvec (``torch.addmv``) and no transport."""
+    if config.solver == "cg":
+        raise ValueError(
+            "precision='bf16' with solver='cg': tpufem's CSR CG blows up in bf16 (max|u| 2.56, "
+            "27 and 508 after 1, 3 and 10 steps) and its grid storage raises a TypeError; "
+            "bf16 runs the fused dense step only")
+    if not config.fused:
+        raise ValueError(
+            "precision='bf16' unfused: tpufem's unfused bf16 step blows up (max|u| 130 after "
+            "1 step, 8.5e19 after 10); bf16 runs the fused dense step only (fused=True)")
+    if config.matvec_impl != "xla":
+        raise ValueError(
+            "precision='bf16' with matvec_impl='pallas': kernel K1 has no bf16 instance, nor "
+            "has tpufem's Pallas matvec (with tracers it raises); use matvec_impl='xla'")
+    if config.transport != "none":
+        raise ValueError(
+            f"precision='bf16' with transport={config.transport!r}: the locator tables carry "
+            "triangle and node ids as floats, exact in bf16 only below 256; bf16 runs the "
+            "flow alone (transport='none')")
 
 
 def _check_cg(config: StokesConfig) -> None:
@@ -202,7 +225,7 @@ class StokesProblem:
     pressure_solver: Any  # DenseLU | DenseInverse | PressureGridCG | PressureCG
     inner_values: torch.Tensor  # (k,2) squirmer / rotation surface velocities
     m_lumped: torch.Tensor
-    locator: transport.GridLocator | None
+    locator: transport.GridLocator | transport.TopKLocator | None
     tracer_init: np.ndarray | None
     config: StokesConfig
     bidx: dict[str, torch.Tensor]  # boundary index sets on the device
@@ -575,10 +598,13 @@ def _inner_values(mesh, boundary, config) -> np.ndarray:
     raise ValueError(f"unknown bc_kind: {config.bc_kind}")
 
 
-def _make_locator(mesh, config, dtype, device) -> transport.GridLocator:
-    """The grid locator; with ``locator_grid=0`` it probes a few grid
-    resolutions around 2√T and keeps the narrowest candidate table (ties →
-    the coarser grid), as tpufem does."""
+def _make_locator(mesh, config, dtype, device):
+    """The k-nearest-centroid locator under ``locator="topk"``; else the grid
+    locator, which with ``locator_grid=0`` probes a few grid resolutions
+    around 2√T and keeps the narrowest candidate table (ties → the coarser
+    grid), as tpufem does."""
+    if config.locator == "topk":
+        return transport.TopKLocator.build(mesh, k=config.locator_k, dtype=dtype, device=device)
     if config.locator_grid:
         return transport.GridLocator.build(mesh, g=config.locator_grid, dtype=dtype, device=device)
     base = np.sqrt(mesh.n_tris)
@@ -784,7 +810,15 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
     return u_new, p, metrics, warm_out
 
 
-def _report_projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale, warm=None):
+def _put_nodes(x: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
+    """``x`` with the nodes ``idx`` of its node axis (dim −2 of a vector
+    field (..., N, 2)) set to ``values``, out of place."""
+    out = x.clone()
+    out[..., idx, :] = values
+    return out
+
+
+def _report_projection_step(problem, u: torch.Tensor, bc_scale, warm=None):
     """The "report" step: BC values written into the viscous right-hand
     side, the periodic copy on u* only, the pinned pressure solve of the
     de-meaned right-hand side, the optional (I+αK) smoothing of the pinned
@@ -792,7 +826,12 @@ def _report_projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale, w
     again in walls → periodic → inner order; ``final_div`` is measured
     before that.  ``warm`` (CG solvers) warm-starts the viscous
     (``"u_star"``), raw-pressure (``"p"``) and smoothed-pressure (``"p2"``)
-    solves."""
+    solves.
+
+    ``u`` may carry a leading batch axis (B, N, 2): ``problem`` then holds
+    (B, k, 2) inner values, its div/grad and solvers act on batches, and
+    ``bc_scale`` broadcasts against the inner values; the means and the
+    metrics are per batch entry (``parallel.spmd``'s report ensemble)."""
     cfg = problem.config
     b = problem.bidx
     periodic = len(problem.boundary.masters) > 0
@@ -803,20 +842,20 @@ def _report_projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale, w
     rhs = u + dt * problem.body_force
     if problem.visc_lift is not None:
         rhs = rhs + bc_scale * problem.visc_lift
-    rhs = rhs.index_put((b["walls"],), problem.outer_value)
-    rhs = rhs.index_put((b["inner"],), vals)
+    rhs = _put_nodes(rhs, b["walls"], problem.outer_value)
+    rhs = _put_nodes(rhs, b["inner"], vals)
     if warm is not None and "u_star" in warm:
         u_star_raw = problem.visc_solver.solve(rhs, x0=warm["u_star"])
     else:
         u_star_raw = problem.visc_solver.solve(rhs)
     u_star = u_star_raw
     if periodic:
-        u_star = bc.apply_periodic_field(u_star, b["masters"], b["slaves"])
+        u_star = _put_nodes(u_star, b["slaves"], u_star[..., b["masters"], :])
 
     div_star = problem.div(u_star)
     b_p = -div_star / dt
-    b_p = b_p - torch.mean(b_p)
-    b_p[pin] = 0.0
+    b_p = b_p - torch.mean(b_p, dim=-1, keepdim=True)
+    b_p[..., pin].fill_(0.0)
     if warm is not None:
         p_raw = problem.pressure_solver.solve(b_p, x0=warm["p"])
     else:
@@ -824,23 +863,23 @@ def _report_projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale, w
     p = p_raw
     if problem.smooth_solver is not None:
         p = p_raw.clone()
-        p[pin] = 0.0
+        p[..., pin].fill_(0.0)
         if warm is not None:
             p = problem.smooth_solver.solve(p, x0=warm["p2"])
         else:
             p = problem.smooth_solver.solve(p)
-        p = p - torch.mean(p)
+        p = p - torch.mean(p, dim=-1, keepdim=True)
 
     u_new = u_star - dt * problem.grad(p)
     final_div = problem.div(u_new)  # measured before the BCs are applied again
-    u_new = u_new.index_put((b["walls"],), problem.outer_value)
+    u_new = _put_nodes(u_new, b["walls"], problem.outer_value)
     if periodic:
-        u_new = bc.apply_periodic_field(u_new, b["masters"], b["slaves"])
-    u_new = u_new.index_put((b["inner"],), vals)
+        u_new = _put_nodes(u_new, b["slaves"], u_new[..., b["masters"], :])
+    u_new = _put_nodes(u_new, b["inner"], vals)
     metrics = {
-        "div_star_max": torch.max(torch.abs(div_star)),
-        "final_div_max": torch.max(torch.abs(final_div)),
-        "max_u": torch.max(torch.abs(u_new)),
+        "div_star_max": torch.amax(torch.abs(div_star), dim=-1),
+        "final_div_max": torch.amax(torch.abs(final_div), dim=-1),
+        "max_u": torch.amax(torch.abs(u_new), dim=(-2, -1)),
     }
     warm_out = None
     if warm is not None:

@@ -181,7 +181,7 @@ class SparseTHProblem:
         builds the two-level velocity preconditioner for
         ``precond_inner="twolevel"`` from the float64 values."""
         dev = tconfig.device(device)
-        dtype = tconfig.dtype(config.precision)
+        dtype = tconfig.dtype(config.precision, bf16=False)
         corners = np.asarray(corners, dtype=np.int64)
         if pmesh is None:
             p_of_node = -np.ones(mesh.coords.shape[0], dtype=np.int64)
