@@ -229,6 +229,34 @@ Phases 39–42, the ensembles, the one-program gait campaign, TopK and bf16
     step (``torch.addmv``) on (12, 16), 10 steps: max|u| < 1.25·(|B1| +
     |B2|), within 1e-2 of f64.
 
+Phases 43–46, the support modules and the CLI (no new kernel; each counts
+the launches of K1–K6 on its path):
+
+43. ``diag`` on the card, run after phase 26 on phase 9's problem: Tests
+    A–J, preflight, the stiffness's eigenvalue census, ``vorticity`` and
+    ``gradient_matrices`` at f64 on ``generate_annulus_mesh(40, 48)`` and
+    on the jittered ``(24, 28, jitter=0.25, seed=3)``, each value within
+    1e-10 of the port's CPU result (relative, absolute below 1) and under
+    tpufem's gates; on the 1,048,576-node problem
+    ``single_step_diagnostics`` (one K2 and one K3 launch), the projection
+    oracle on a compatible field, and ``run_guarded`` over 200 steps in
+    chunks of 50: "ok", then "aborted" at step 0 with ``max_div`` below the
+    first chunk's ``final_div_max``;
+44. the convergence studies through ``cli.main``, in process: ``converge
+    --study self`` at 1.6k, 6.5k and 26k nodes (grid f32: K2, K3), ``ns``
+    at 2k, 6.5k and 26k (K4, K3) and ``th`` at 0.5k, 0.8k and 1.2k to its
+    steady horizon (CSR and dense Taylor–Hood: no kernel), under tpufem's
+    monotone gates and, for ``self``, the Stokes ``div_rel`` gate;
+45. ``roofline.measure`` at 160,000 nodes: µs an iteration of K2 and K3
+    at fixed counts, GB/s and the share of the byte bound
+    (``roofline.iteration_bound``, the one source of every bound here),
+    beside phase 8's difference-of-two-solves figure on the same
+    operators;
+46. every subcommand of ``python -m tpufem_torch`` in process on
+    ``--mesh generated`` (``--help``; ``food --precision f32`` on K1,
+    ``sweep`` on K1, ``bench --large --sizes 160k`` on K2 and K3), each JSON
+    line held to the gates of tpufem's CLI tests and workloads.
+
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
 the other cards through peer access, and its times there are taken by the
@@ -239,15 +267,18 @@ Each phase prints its seconds.  Any failed check raises, so the exit code
 is not 0.  The line before the last is a JSON summary of the kernels (each
 with its bound: the larger of its bytes, each input read once and each
 output written once, over the HBM rate, and its operations over the
-float32 rate); the last line is
+float32 rate, ``tpufem_torch.roofline``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import re
 import sys
 import time
@@ -255,7 +286,7 @@ import time
 import numpy as np
 import torch
 
-from tpufem_torch import bench_large
+from tpufem_torch import bench_large, cli, diag, roofline
 from tpufem_torch.bench import bench_config, bench_mesh, card, profile_run, timed_run
 from tpufem_torch.mesh import generate_annulus_mesh
 from tpufem_torch.ops import _nvcc, assembly, calculus
@@ -268,6 +299,10 @@ from tpufem_torch.parallel import (MultiMeshEnsemble, ShardedEnsemble, build_dev
                                    make_sharded_viscous_solver, run_sharded)
 from tpufem_torch.parallel import grid_remote_dma as rdma
 from tpufem_torch.parallel.grid_sharded import _signed_dy
+# the card's peaks and the kernels' byte model (their one source), importable
+# from here as before
+from tpufem_torch.roofline import (APPLIES, F32_FLOPS, HBM_BYTES_PER_S, bound,  # noqa: F401
+                                   iteration_bound, solve_bound)
 from tpufem_torch.solve import grid_cg
 from tpufem_torch.solve import grid_step as gs
 from tpufem_torch.solve.matfree import ViscousCG
@@ -310,10 +345,6 @@ GRIDIFY_STEPS = 200
 MID_MESH = (400, 448)  # pad_hole: 160,000 nodes, below tpufem's 360k streaming threshold
 ITER_PROBE = 40  # a kernel's ms an iteration: solves of 40 and 20 fixed iterations, the difference
 CPU = torch.device("cpu")
-# the card's peaks (H100 SXM data sheet, at its 700 W limit): HBM3 rate and
-# float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 
 def zero_launches() -> None:
@@ -438,13 +469,6 @@ def instance_report(path, blocks: dict, entry: str = "") -> list[str]:
                      f"stores, {smem.group(1) if smem else 0} B smem, "
                      f"{blocks.get(label, '?')} blocks/SM")
     return lines
-
-
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    HBM rate and the operations over the float32 rate, in ms."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_build() -> float:
@@ -695,60 +719,6 @@ def check_grid_kernels(label: str, problem, dev, calls: int, plain_calls: int) -
                                                               getattr(solver, "ac_inv", None)),
                                      "library_ms": None}
     return at_main
-
-
-def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
-    """The bound of one whole solve of K2, K3 or K4: its inputs read once
-    (operator planes, masks and diagonals, right-hand sides, warm starts,
-    K3's coarse inverse) and its solutions written once, against the flops
-    of this run's iterations (two a plane entry for each apply; the vector
-    updates: K2 21 a point and column, K3 30, K4 15; K3's coarse
-    product)."""
-    n, n_off, item = K.n, len(K.offsets), K.diags.element_size()
-    planes = (n_off * n + 3 * K.n_rest) * item
-    if kernel == "K2":
-        # a column's point, an iteration: p = D⁻¹r + βp 3, m·p 1, the
-        # operator's m(p + dtν·Kmp) + (1 − m)p 6, p·q 2, x and r 4, r·D⁻¹r
-        # 3, r·r 2
-        nbytes = planes + (2 + 3 * cols) * n * item
-        flops = (iters + 1) * cols * (2 * n_off + 21) * n
-    elif kernel == "K3":
-        m = ac_inv.shape[0]
-        nbytes = planes + 5 * n * item + m * m * ac_inv.element_size()
-        flops = (iters + 1) * ((3 * 2 * n_off + 30) * n + 2 * m * m)
-    else:
-        nbytes = planes + (2 + 3 * cols) * n * item
-        flops = (2 * iters + 1) * cols * (2 * n_off + 15) * n
-    return bound(nbytes, flops)
-
-
-# Vector passes an iteration makes at least: K2 the shared mask and inverse
-# diagonal three times and 10 a column (its two fused phases, csrc/
-# grid_cg.cu: A reads r and p_old and writes p and q, 4 a column, plus the
-# mask and D⁻¹; B reads x, p, r and q and writes x and r, 6, plus D⁻¹; the
-# three-phase first version made 11 a column), K3 and K5's
-# pressure solve 17 (the fused iteration of csrc/grid_common.cuh), K4 17 a
-# column and 5 shared (its three fused phases, csrc/grid_cg.cu: P reads r,
-# p_old, v_old and r̂ and writes p and v, 6 a column, plus the mask and D⁻¹;
-# S reads r and v and writes t, 3, plus the mask and D⁻¹; X reads x, p, r,
-# v, t and r̂ and writes x and r, 8, plus D⁻¹); each apply reads the
-# operator's planes and remainder once.  (K4's five-phase first version
-# made 27 a column.)
-APPLIES = {"K2": 1, "K3": 3, "K4": 2}
-
-
-def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None,
-                    passes: int | None = None) -> float:
-    """ms of one iteration's least HBM traffic at the card's peak rate
-    (``passes``: the vector passes, if not the kernel's own count)."""
-    n, item = K.n, K.diags.element_size()
-    op = (len(K.offsets) * n + 3 * K.n_rest) * item
-    if passes is None:
-        passes = {"K2": 3 + 10 * cols, "K3": 17, "K4": 17 * cols + 5}[kernel]
-    nbytes = APPLIES[kernel] * op + passes * n * item
-    if ac_inv is not None:
-        nbytes += ac_inv.numel() * ac_inv.element_size()
-    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def per_iteration_ms(fn, solver, b, calls: int) -> float:
@@ -2750,6 +2720,274 @@ def phase_topk_bf16(dev) -> None:
     check(err <= BF16_RTOL, f"bf16 u {err} from f64")
 
 
+# (label, mesh, the Laplacian-against-div∘grad gate): tpufem's 0.9 is for the
+# reference mesh.1; on generated meshes it holds its jittered-mesh 0.5
+# (tpufem itself reads 0.734 on the regular (40, 48) annulus)
+DIAG_MESHES = (("(40, 48)", dict(n_side=40, n_circle=48), 0.5),
+               ("jittered (24, 28)", dict(n_side=24, n_circle=28, jitter=0.25, seed=3), 0.5))
+# card against the port's CPU: |card − cpu| ≤ 1e-10·max(|cpu|, 1), so values
+# that are themselves roundoff (adjointness, RHS handling, the stiffness's
+# smallest eigenvalue) are held absolutely
+DIAG_TOL = 1e-10
+# tpufem's gates (tests/test_diag.py): (name, gate on the value; the
+# Laplacian's correlation gate is the mesh's own)
+DIAG_TESTS = (
+    ("gradient_test", lambda g, _: float((g - torch.tensor([2.0, 3.0])).abs().max()) <= 0.1),
+    ("divergence_test", lambda d, _: abs(float(d) - 5.0) < 0.1),
+    ("adjointness_test", lambda v, _: float(v) < 1e-6),
+    ("laplacian_vs_divgrad_test", lambda v, lap: v > lap),
+    ("checkerboard_response", lambda v, _: float(v) > 1.0),
+    ("laplacian_blind_spot_test", lambda v, _: float(v) > 1.0),
+    ("gradient_of_checkerboard_test", lambda v, _: float(v) > 0.1),
+    ("projection_consistency_test", lambda v, _: v > 0.9),
+    ("rhs_handling_test", lambda v, _: v < 1e-12),
+)
+GUARD_STEPS, GUARD_CHUNK = 200, 50
+
+
+def diag_close(card_value, cpu_value) -> float:
+    """max |card − cpu| / max(|cpu|, 1) over a value's entries."""
+    a = torch.as_tensor(card_value, dtype=torch.float64).cpu()
+    b = torch.as_tensor(cpu_value, dtype=torch.float64)
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def diag_mesh(dev, label: str, kw: dict, lap_gate: float) -> None:
+    """Tests A–J, preflight, the eigenvalue census, vorticity and
+    gradient_matrices on one mesh: f64 card against the port's CPU, and
+    tpufem's gates."""
+    mesh = generate_annulus_mesh(**kw)
+    parts = []
+    for name, gate in DIAG_TESTS:
+        fn = getattr(diag, name)
+        got, want = fn(mesh, device=dev), fn(mesh, device=CPU)
+        err = diag_close(got, want)
+        value = torch.as_tensor(got).cpu()
+        parts.append(f"{name} {value.tolist()} (cpu {err:.1e})")
+        check(err <= DIAG_TOL, f"diag {name} on {label}: card {got} cpu {want}")
+        check(gate(value, lap_gate), f"diag {name} on {label}: {value.tolist()} fails tpufem's gate")
+    rep = diag.preflight(mesh)
+    check(rep.ok and rep.n_degenerate == 0 and rep.min_area > 1e-6
+          and rep.viscous_cfl_dt(0.1) > 0, f"preflight on {label}: {rep}")
+    K = assembly.assemble_dense(mesh, assembly.element_stiffness(mesh, device=dev))
+    eig = diag.pressure_matrix_eigen_check(K)
+    eig_cpu = diag.pressure_matrix_eigen_check(K.cpu())
+    check(eig[2] == eig_cpu[2] == 0 and eig[1] > 0 and diag_close(eig[:2], eig_cpu[:2]) <= DIAG_TOL,
+          f"eigenvalues on {label}: card {eig} cpu {eig_cpu}")
+    rng = np.random.default_rng(13)
+    u = rng.standard_normal((mesh.n_nodes, 2))
+    p = rng.standard_normal(mesh.n_nodes)
+    w_err = rel(calculus.vorticity(mesh, torch.as_tensor(u, device=dev)),
+                calculus.vorticity(mesh, torch.as_tensor(u)))
+    gx, gy = (torch.as_tensor(g, device=dev) for g in calculus.gradient_matrices(mesh))
+    pt = torch.as_tensor(p, device=dev)
+    g_err = rel(torch.stack([gx @ pt, gy @ pt], dim=1), calculus.gradient(mesh, pt))
+    check(w_err <= DIAG_TOL and g_err <= DIAG_TOL,
+          f"vorticity {w_err} / gradient_matrices {g_err} on {label}")
+    print(f"[43 diag] {label}, {mesh.n_nodes} nodes, f64, card (cpu: max |card − cpu| / "
+          f"max(|cpu|, 1)): " + "; ".join(parts))
+    print(f"[43 diag] {label}: preflight ok, min area {rep.min_area:.3e}, min edge "
+          f"{rep.min_edge:.4f}, {rep.n_cw} clockwise; stiffness eigenvalues [{eig[0]:.3e}, "
+          f"{eig[1]:.4f}], {eig[2]} negative (cpu {eig_cpu}); vorticity rel L2 from cpu "
+          f"{w_err:.1e}, gradient_matrices applied on the card against gradient {g_err:.1e}")
+
+
+def phase_diag(dev, big) -> None:
+    """Phase 43: the port's diag on the card, then its step diagnostics and
+    run guard on phase 9's 1,048,576-node grid problem (K2, K3)."""
+    for label, kw, lap_gate in DIAG_MESHES:
+        diag_mesh(dev, label, kw, lap_gate)
+    zero_launches()
+    d = diag.single_step_diagnostics(big)
+    counts = launch_counts()
+    check(counts == {"K1": 0, "K2": 1, "K3": 1, "K4": 0, "K5": 0, "K6": 0},
+          f"single_step_diagnostics launched {counts} (want K2 once, K3 once)")
+    check(d["max_u_star"] > 0 and np.isfinite(d["max_p"])
+          and d["div_after_max"] < d["div_star_max"], f"single-step diagnostics {d}")
+    # the projection oracle as tests/test_diag.py applies it: a bare
+    # pressure projection of a compatible field (div = 2π cos 2πx), mean
+    # |div| over the interior
+    coords = torch.as_tensor(big.mesh.coords, dtype=big.dtype, device=dev)
+    u0 = torch.stack([torch.sin(2 * np.pi * coords[:, 0]), torch.zeros_like(coords[:, 0])], dim=1)
+    dt = big.config.dt
+    interior = torch.as_tensor(big.mesh.markers == 0, device=dev)
+    d0 = big.div(u0)
+    d1 = big.div(u0 - dt * big.grad(big.pressure_solver.solve(-d0 / dt)))
+    proj = {"initial_div": float(d0[interior].abs().mean()),
+            "final_div": float(d1[interior].abs().mean())}
+    check(diag.projection_reduces_divergence(proj), f"projection oracle {proj}")
+    print(f"[43 diag] {big.mesh.n_nodes} nodes, grid storage f32: single_step_diagnostics "
+          f"{json.dumps(d)} with launches {counts} (max-norm ratio "
+          f"{d['div_after_max'] / d['div_star_max']:.3f}); projection of (sin 2πx, 0): mean "
+          f"interior |div| {proj['initial_div']:.4f} → {proj['final_div']:.4f}")
+    _, first = stokes.run(big, steps=GUARD_CHUNK)
+    first_div = float(first["final_div_max"].max())
+    t0 = time.perf_counter()
+    _, ok = diag.run_guarded(big, GUARD_STEPS, chunk=GUARD_CHUNK)
+    ok_s = time.perf_counter() - t0
+    check(ok == {"status": "ok", "completed_steps": GUARD_STEPS, "reason": None},
+          f"run_guarded {ok}")
+    _, bad = diag.run_guarded(big, GUARD_STEPS, chunk=GUARD_CHUNK, max_div=0.5 * first_div)
+    check(bad["status"] == "aborted" and bad["completed_steps"] == 0, f"run_guarded {bad}")
+    print(f"[43 diag] run_guarded({GUARD_STEPS} steps, chunk {GUARD_CHUNK}): {ok} in {ok_s:.2f} "
+          f"s; with max_div {0.5 * first_div:.4f} (half the first chunk's final_div_max "
+          f"{first_div:.4f}): {bad}")
+
+
+# (study, CLI flags, the kernels its path launches).  th runs to T_STEADY
+# (--steps0 1200, T = 12): at the CLI's default T = 1.5 the flow is not yet
+# steady, and both packages read 0.2255 then 0.3074 on the first two rungs
+CONVERGE_RUNS = (("self", ["--sizes", "1.6k,6.5k,26k"], ("K2", "K3")),
+                 ("ns", ["--sizes", "2k,6.5k,26k"], ("K4", "K3")),
+                 ("th", ["--sizes", "0.5k,0.8k,1.2k", "--steps0", "1200"], ()))
+
+
+def phase_converge() -> None:
+    """Phase 44: the convergence studies through the CLI, in process; each
+    raises on a failed monotone gate (and ``self`` on the Stokes div_rel
+    gate)."""
+    for study, flags, kernels in CONVERGE_RUNS:
+        zero_launches()
+        t0 = time.perf_counter()
+        rows = cli.main(["converge", "--study", study] + flags)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check(all(counts[k] > 0 for k in kernels)
+              and not any(v for k, v in counts.items() if k not in kernels),
+              f"converge {study} launched {counts} (want {kernels or 'none'})")
+        err = "err_vs_taylor_hood" if study == "th" else "err_vs_finest"
+        summary = "; ".join(f"{r['label']} {r['n_nodes']} nodes {r['steps']} steps {err} "
+                            f"{r[err]}" + (f" div_rel {r['div_rel']}" if "div_rel" in r else "")
+                            for r in rows)
+        print(f"[44 converge] {study} in {seconds:.1f} s, launches {counts}: {summary}")
+
+
+def phase_roofline(dev) -> None:
+    """Phase 45: ``roofline.measure`` at 160k; its bound is
+    ``iteration_bound``'s, and its K2/K3 µs an iteration beside phase 8's
+    figure (``per_iteration_ms``) on the same operators."""
+    label, n_side, n_circle = roofline.SIZES[0]
+    problem, build_s = roofline.build_problem(n_side, n_circle, device=dev)
+    zero_launches()
+    row = roofline.measure_problem(problem, label=label)
+    counts = launch_counts()
+    check(counts["K2"] > 0 and counts["K3"] > 0, f"roofline launched {counts}")
+    ps, vs = problem.pressure_solver, problem.visc_solver
+    ac = ps.ac_inv if ps.use_coarse else None
+    check(math.isclose(row["bound_us_p"], iteration_bound("K3", ps.K, 1, ac) * 1e3, rel_tol=1e-12)
+          and math.isclose(row["bound_us_v"], iteration_bound("K2", vs.K, 2) * 1e3,
+                           rel_tol=1e-12), "roofline bounds are iteration_bound's")
+    for k in ("us_per_p_iter", "us_per_v_iter", "gbps_pressure", "gbps_viscous"):
+        check(np.isfinite(row[k]) and row[k] > 0, f"roofline {k} {row[k]}")
+    print(json.dumps(row))
+    rng = np.random.default_rng(8)
+    ns = ps.K.ns
+    b = torch.as_tensor(rng.standard_normal((ns, ns)), dtype=problem.dtype, device=dev) * ps.act_grid
+    b2 = torch.as_tensor(rng.standard_normal((2, ns, ns)), dtype=problem.dtype, device=dev)
+    p8 = {"K3": per_iteration_ms(grid_cg.pressure_cg, ps, b, calls=5) * 1e3,
+          "K2": per_iteration_ms(grid_cg.viscous_cg, vs, b2, calls=5) * 1e3}
+    mine = {"K3": row["us_per_p_iter"], "K2": row["us_per_v_iter"]}
+    parts = []
+    for k in ("K2", "K3"):
+        diff = mine[k] / p8[k] - 1
+        parts.append(f"{k} {mine[k]:.2f} µs an iteration (phase 8's difference of "
+                     f"{ITER_PROBE}- and {ITER_PROBE // 2}-iteration solves: {p8[k]:.2f}, "
+                     f"{100 * diff:+.1f} %)")
+    print(f"[45 roofline] {row['label']} ({row['n_nodes']} nodes, built in {build_s:.1f} s), "
+          f"{row['device']}: " + "; ".join(parts) + f"; bound K2 {row['bound_us_v']:.2f} µs "
+          f"({row['pct_bound_viscous']:.1f} %), K3 {row['bound_us_p']:.2f} µs "
+          f"({row['pct_bound_pressure']:.1f} %), GB/s K2 {row['gbps_viscous']:.1f} K3 "
+          f"{row['gbps_pressure']:.1f}")
+    if abs(mine["K3"] / p8["K3"] - 1) > 0.15:
+        print("[45 roofline] K3 differs from phase 8's figure by more than 15 %: the roofline "
+              "divides a whole solve, its set-up and the glue of solve() included, by its "
+              f"{row['iters_p']} iterations; phase 8 takes the difference of two solves, which "
+              "leaves the fixed cost out")
+
+
+def cli_json(argv: list) -> list:
+    """Run ``python -m tpufem_torch`` in process on ``argv``: echo its
+    output, return its JSON lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    out = buf.getvalue()
+    print("\n".join(f"[46 cli]   {line}" for line in out.splitlines() if line.strip()))
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(finite(v) for v in tree.values())
+    return bool(np.isfinite(tree))
+
+
+def phase_cli() -> None:
+    """Phase 46: every subcommand of the CLI on the card, in process, on
+    ``--mesh generated``; each JSON line held to the gates of tpufem's CLI
+    tests and workloads."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(["--help"])
+        except SystemExit as e:
+            check(e.code == 0, f"--help exits {e.code}")
+    check("usage" in buf.getvalue().lower(), "--help prints its usage")
+    gen = ["--mesh", "generated"]
+    squirmer = MAX_U_FACTOR * 2.0  # max|u| < 1.25·(|B1| + |B2|), B1 = −2, B2 = 0
+    mesh = generate_annulus_mesh()
+    inner = mesh.markers == 2
+    omega_r = 5.0 * float(np.hypot(*(mesh.coords[inner] - 0.5).T).max())  # rotating surface speed
+    gates = {
+        "poisson": (["poisson"], lambda j: j["residual"] < 1e-8),
+        "heat": (["heat", "--steps", "20"],
+                 lambda j: -1e-2 <= j["max_u"]["min"] and j["max_u"]["max"] <= 1 + 1e-2),
+        "stokes": (["stokes", "--steps", "20"],
+                   lambda j: j["max_u"]["max"] < squirmer
+                   and 0 <= j["mixing_progress"]["final"] <= 1),
+        "food": (["food", "--steps", "20", "--precision", "f32"],
+                 lambda j: j["max_u"]["max"] < squirmer and j["eaten"]["min"] >= 0),
+        "report": (["report", "--steps", "20"], lambda j: j["max_u"]["max"] <= omega_r),
+        "ns": (["ns", "--steps", "20"], lambda j: j["max_u"]["max"] < 1.0),
+        "monolithic": (["monolithic"], lambda j: j["residual"] < 1e-8),
+        "taylorhood": (["taylorhood"], lambda j: j["residual"] < 1e-8 and j["max_u"] < squirmer),
+        "taylorhood transient": (["taylorhood", "--steps", "20"],
+                                 lambda j: j["max_u"] < squirmer),
+        "taylorhood_sparse": (["taylorhood", "--sparse", "--steps", "5"],
+                              lambda j: j["max_u"] < squirmer and j["div_weak_max"] < 1e-3),
+        "ad": (["ad", "--steps", "20"], lambda j: j["max_f"]["min"] >= 0),
+        "graph": (["graph"], lambda j: j["residual"] < 1e-8),
+        "sweep": (["sweep", "--steps", "100"], lambda j: all(0 <= v <= 100 for v in j.values())),
+    }
+    parts = []
+    for label, (argv, gate) in gates.items():
+        zero_launches()
+        t0 = time.perf_counter()
+        lines = cli_json(argv[:1] + gen + argv[1:])
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        check(len(lines) == 1, f"{label}: {len(lines)} JSON lines")
+        (key, value), = lines[0].items()
+        check(finite(value) and gate(value), f"{label}: {value} fails its gate")
+        if label == "food":
+            check(counts.get("K1", 0) == 20, f"food --precision f32 launched {counts} (K1 20)")
+        parts.append(f"{label} {seconds:.1f} s{f' {counts}' if counts else ''}")
+    zero_launches()
+    t0 = time.perf_counter()
+    lines = cli_json(["stam", "--frames", "20"])
+    check(len(lines) == 1 and np.isfinite(lines[0]["stam"]["final_max_speed"]), f"stam {lines}")
+    parts.append(f"stam {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lines = cli_json(["bench", "--large", "--sizes", "160k", "--steps", "20"])
+    counts = launch_counts()
+    check(len(lines) == 1 and lines[0]["n_nodes"] == 160_000 and counts["K2"] > 0
+          and counts["K3"] > 0, f"bench --large: {counts}")
+    parts.append(f"bench --large 160k {time.perf_counter() - t0:.1f} s (warm "
+                 f"{lines[0]['warm_steps_per_sec']:.1f} steps/s, div_rel {lines[0]['div_rel']}) "
+                 f"{ {k: v for k, v in counts.items() if v} }")
+    print("[46 cli] --help exits 0; " + "; ".join(parts))
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -2833,6 +3071,7 @@ def main() -> None:
     timed(21, phase_k5_tracers, dev)
     timed(22, phase_gridify, dev)
     k6_main, k6_launches = sharded_phases([dev] * SHARDS, big, build_s)
+    timed(43, phase_diag, dev, big)
     scale_mesh = big.mesh
     del big, k5_problems, unfused, old_ops
     torch.cuda.empty_cache()
@@ -2860,6 +3099,9 @@ def main() -> None:
     timed(40, phase_sweep_sharded, dev, sequential)
     timed(41, phase_multimesh, dev)
     timed(42, phase_topk_bf16, dev)
+    timed(44, phase_converge)
+    timed(45, phase_roofline, dev)
+    timed(46, phase_cli)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",

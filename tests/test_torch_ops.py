@@ -67,6 +67,34 @@ def test_divergence_and_gradient(n_side, n_circle):
 
 
 @pytest.mark.parametrize("n_side,n_circle", MESHES)
+def test_vorticity_and_gradient_matrices(n_side, n_circle):
+    """The lumped vorticity, and ``gradient_matrices``: the dense gradient
+    operators, equal to the segment-sum gradient."""
+    jm, tm = meshes(n_side, n_circle)
+    rng = np.random.default_rng(n_side + 1)
+    u = rng.standard_normal((jm.n_nodes, 2))
+    p = rng.standard_normal(jm.n_nodes)
+    w_t = tcalc.vorticity(tm, torch.as_tensor(u))
+    assert w_t.dtype == torch.float64
+    assert rel(w_t.numpy(), jcalc.vorticity(jm, jnp.asarray(u))) < 1e-13
+    gx, gy = tcalc.gradient_matrices(tm)
+    jgx, jgy = jcalc.gradient_matrices(jm)
+    assert rel(gx, jgx) < 1e-13 and rel(gy, jgy) < 1e-13
+    g_t = tcalc.gradient(tm, torch.as_tensor(p)).numpy()
+    np.testing.assert_allclose(np.stack([gx @ p, gy @ p], axis=1), g_t, atol=1e-11)
+
+
+def test_ops_namespace_exports_tpufems_names():
+    """``tpufem_torch.ops`` exports tpufem's ``ops`` names, all but
+    ``BandedOperator`` (the banded storage, not ported yet)."""
+    import tpufem.ops as jops
+    import tpufem_torch.ops as tops
+
+    assert set(jops.__all__) - set(tops.__all__) == {"BandedOperator"}
+    assert all(callable(getattr(tops, name)) for name in tops.__all__)
+
+
+@pytest.mark.parametrize("n_side,n_circle", MESHES)
 def test_merged_pressure_matrix(n_side, n_circle):
     jm, tm = meshes(n_side, n_circle)
     b = jbc.ChannelBoundary.build(jm)

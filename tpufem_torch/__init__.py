@@ -8,7 +8,11 @@ the dense Taylor–Hood solvers, the sparse and grid Taylor–Hood engines
 (``workloads.th_sparse``; ``p2_refine`` makes their P2 meshes),
 Poisson, heat and the small workloads, and the space-sharded grid path on
 a device mesh (``tpufem_torch.parallel``); the TPU kernels on those paths
-are hand-written CUDA kernels (``csrc/``).
+are hand-written CUDA kernels (``csrc/``).  The support modules mirror
+tpufem's: ``diag`` (the reference's Tests A–J and run guards),
+``convergence`` (accuracy ladders), ``roofline`` (the grid kernels against
+the card's byte bound), ``viz`` (host-side matplotlib) and the CLI,
+``python -m tpufem_torch``.
 
 Quick start::
 
@@ -26,6 +30,7 @@ Quick start::
 from tpufem_torch.mesh import Mesh, generate_annulus_mesh, load_mesh, mesh_from_arrays
 from tpufem_torch.mesh.gridify import Gridified, gridify_mesh
 from tpufem_torch.mesh.p2 import p2_refine
+from tpufem_torch import ops, bc, solve, transport, diag
 
 __all__ = ["Mesh", "generate_annulus_mesh", "load_mesh", "mesh_from_arrays", "Gridified",
-           "gridify_mesh", "p2_refine"]
+           "gridify_mesh", "p2_refine", "ops", "bc", "solve", "transport", "diag"]

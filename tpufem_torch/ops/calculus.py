@@ -1,4 +1,4 @@
-"""Discrete nodal vector calculus: divergence and gradient.
+"""Discrete nodal vector calculus: divergence, gradient, vorticity.
 
 Same semantics as ``tpufem.ops.calculus``:
 
@@ -67,6 +67,15 @@ def element_divergence(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
 def divergence(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
     """(N,) lumped nodal divergence."""
     return _lump(mesh, element_divergence(mesh, u))
+
+
+def vorticity(mesh: Mesh, u: torch.Tensor) -> torch.Tensor:
+    """(N,) lumped nodal vorticity ω = ∂u_y/∂x − ∂u_x/∂y."""
+    geo = mesh.tensors(u.dtype, u.device)
+    u_loc, grads = u[geo["tris"]], geo["grads"]  # (T, 3, 2) each
+    duy_dx = torch.sum(u_loc[..., 1] * grads[..., 0], dim=1)
+    dux_dy = torch.sum(u_loc[..., 0] * grads[..., 1], dim=1)
+    return _lump(mesh, duy_dx - dux_dy)
 
 
 def mass_apply(mesh: Mesh, c: torch.Tensor) -> torch.Tensor:
@@ -158,3 +167,11 @@ def divergence_csr_operators(mesh: Mesh):
     dy = assembly.assemble_csr(mesh, torch.as_tensor(np.ascontiguousarray(ey)))
     scale = torch.as_tensor(inv_area[dx.row_ids])
     return dx.with_data(dx.data * scale), dy.with_data(dy.data * scale)
+
+
+def gradient_matrices(mesh: Mesh):
+    """(Gx, Gy) host NumPy (N, N) with ∇p = (Gx p, Gy p): the lumped nodal
+    gradient as dense operators.  The same per-dof coefficients as
+    :func:`divergence_matrices` (∂x from ``grads[..., 0]``, ∂y from
+    ``grads[..., 1]``), so the same matrices."""
+    return divergence_matrices(mesh)
