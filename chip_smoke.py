@@ -35,8 +35,9 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
    ``generate_annulus_mesh(1024, 1088, pad_hole=True)`` (1,048,576 nodes,
    f32, two-level, tol 1e-5, bf16 coarse) through ``StokesProblem.build``
    and ``stokes.run``: 200 steps from rest, then 200 steps of steady
-   continuation; K2 must run once a step and K3 twice; tpufem's physics
-   gates; the operators' plane and remainder counts;
+   continuation, div/grad on the stencil between the kernels; K2 must run
+   once a step and K3 twice; tpufem's physics gates; the operators' plane
+   and remainder counts;
 10. the grid path at f64 on the card (kernels) against the port's CPU path
     (plain versions) at ``n_side=40`` over 10 steps, fixed iterations and
     then tol 1e-5 with warm starts; f32 on the card against f64;
@@ -153,13 +154,14 @@ solvers (no kernel: each checks that none of K1–K6 launches on its path),
 run last:
 
 31. Poisson at scale: ``bench_large.run_poisson_large`` (tpufem's
-    configuration: f32, two-level BiCGStab on the CSR surgery operator, at
-    most 2000 iterations, tol 1e-6) on phase 9's mesh; tpufem's gates
-    (relative residual < 1e-4, Dirichlet values within 1e-3); build, first
-    and second solve seconds, iterations, device ms and kernels an
-    iteration, the index kernels' share and the busy share (profiler);
-    then the same operator on the card's grid split (plain apply) beside
-    CSR: ms an apply against each one's byte bound, and the solve on each;
+    configuration: f32, two-level BiCGStab on the surgery operator, on the
+    stencil, at most 2000 iterations, tol 1e-6) on phase 9's mesh;
+    tpufem's gates (relative residual < 1e-4, Dirichlet values within
+    1e-3); build, first and second solve seconds, iterations, device ms and
+    kernels an iteration, the index kernels' share and the busy share
+    (profiler); then the same operator as CSR, on the stencil and on the
+    card's grid split (plain apply): ms an apply against each one's byte
+    bound, and the solve on each in turns (phase 47's item 4);
 32. heat at scale: ``bench_large.run_heat_large`` (f32, 50 steps) at
     160,000 nodes and on phase 9's mesh; u in [−1e-2, 1 + 1e-2]; cold and
     warm steps/s, iterations and device ms a step;
@@ -257,6 +259,31 @@ the launches of K1–K6 on its path):
     ``sweep`` on K1, ``bench --large --sizes 160k`` on K2 and K3), each JSON
     line held to the gates of tpufem's CLI tests and workloads.
 
+Phase 47, the stencil and banded storages (``ops/stencil.py``,
+``ops/banded.py``, ``parallel/halo.py``, ``parallel/halo_stencil.py``; no
+kernel of their own), run after phase 43 on phase 9's problem:
+
+47. (1) phase 9's four operators (stiffness, merged pressure, Dx, Dy) as
+    CSR, on the stencil and on the card's grid split (plain apply): the
+    stencil's build seconds, offsets and remainder; device ms an apply
+    (CUDA-graph replay) beside each one's byte bound
+    (``roofline.apply_bound``) and kernels an apply; f32 rel L2 against
+    CSR ≤ 1e-5; (2) the Scale step with its div/grad on the stencil (Dx
+    and Dy in one pass, as built), on the stencil as two applies and on
+    CSR, in turns A B C C B A, twice, of 400 warm steps: steps/s, device ms
+    and kernels a step, the busy share, K2 1 and K3 2 launches a step in every
+    turn, u within 1e-5 after 20 steps from rest; (3) at 160,000 nodes
+    (``bench_config``) Stokes on the stencil, CSR and banded (warm steps/s,
+    iterations a solve; the band's width, bytes and ms an apply) and NS on
+    the stencil and CSR (``bench_large.ns_config``, tpufem's gates: warm
+    steps/s, device ms and kernels a step over 3 profiled steps); (4) in phase 31; (5) f64 card against the port's CPU, fixed
+    iterations, on ``generate_annulus_mesh(40, 48)``: Stokes on the stencil
+    (with and without the hole) and banded, NS on the stencil (pad_hole),
+    the sharded step's stencil and banded branches on 4 strips of one card
+    over 3 steps, each within 1e-10; (6) the sharded step on the stencil
+    at 160,000 nodes, 4 strips on one card, 3 steps: steps/s, kernels a
+    step, the busy share.
+
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
 the other cards through peer access, and its times there are taken by the
@@ -287,12 +314,14 @@ import numpy as np
 import torch
 
 from tpufem_torch import bench_large, cli, diag, roofline
-from tpufem_torch.bench import bench_config, bench_mesh, card, profile_run, timed_run
+from tpufem_torch.bench import (bench_config, bench_mesh, card, profile_run, profile_steps,
+                                timed_run)
 from tpufem_torch.mesh import generate_annulus_mesh
 from tpufem_torch.ops import _nvcc, assembly, calculus
 from tpufem_torch.ops import fused_matvec as fm
 from tpufem_torch.ops.gridop import (STREAMED_NODES, GridDecompositionError, GridOperator,
                                      GridRefill, _PatternCSR)
+from tpufem_torch.ops.stencil import StencilOperator
 from tpufem_torch.parallel import (MultiMeshEnsemble, ShardedEnsemble, build_device_mesh,
                                    make_multimesh_step, make_sharded_grid_solvers,
                                    make_sharded_matfree_step, make_sharded_step,
@@ -1874,7 +1903,8 @@ def no_kernel_launches(label: str) -> None:
 
 def phase_poisson_scale(dev, mesh) -> None:
     """tpufem's ``run_poisson_large`` on phase 9's mesh: f32, two-level
-    BiCGStab on the CSR surgery operator, at most 2000 iterations, tol 1e-6;
+    BiCGStab on the surgery operator (on the stencil, as tpufem's), at
+    most 2000 iterations, tol 1e-6;
     its gates; build, first and second solve seconds, iterations, and the
     profiler's device time an iteration (the index kernels' share, the
     device's busy share of the second solve)."""
@@ -1898,41 +1928,46 @@ def phase_poisson_scale(dev, mesh) -> None:
 
 
 def poisson_storages(dev, mesh) -> None:
-    """Phase 31's operator as CSR and on the card's grid split
-    (``GridOperator.dense_split``, its plain apply: rolls and a remainder
-    ``index_add_``), the storage the grid kernels use: device ms an apply of
-    each beside its byte bound, and the two-level BiCGStab solve (f32, tol
-    1e-6, ``poisson.cg_solver_on`` each storage) timed CSR, grid, grid, CSR."""
+    """Phase 31's operator as CSR, on the stencil (``op`` of
+    ``build_system_csr``, the storage ``run_poisson_large`` solves on) and
+    on the card's grid split (``GridOperator.dense_split``, its plain apply:
+    rolls and a remainder ``index_add_``), the storage the grid kernels
+    use: device ms an apply of each beside its byte bound
+    (``roofline.apply_bound``), and the two-level BiCGStab solve (f32, tol
+    1e-6, ``poisson.cg_solver_on`` each storage) timed CSR, grid, stencil,
+    stencil, grid, CSR (phase 47's item 4)."""
     from tpufem_torch.workloads import poisson
 
     cfg = poisson.PoissonConfig(solver="cg", precision="f32", cg_iters=2000, cg_tol=1e-6)
     op, K, b, _ = poisson.build_system_csr(mesh, cfg, dev)
-    csr, b = op.astype(torch.float32), b.to(torch.float32)
-    grid = GridOperator.dense_split(K, int(round(mesh.n_nodes ** 0.5)), device=dev)
+    check(isinstance(op, StencilOperator), f"the Poisson operator is a {type(op).__name__}")
+    ops = {"csr": K.astype(torch.float32), "stencil": op.astype(torch.float32),
+           "grid": GridOperator.dense_split(K, int(round(mesh.n_nodes ** 0.5)), device=dev)}
+    b = b.to(torch.float32)
     x = torch.randn(mesh.n_nodes, generator=torch.Generator(device=dev).manual_seed(5),
                     device=dev)
-    err = rel(grid.matvec(x), csr.matvec(x))
-    n, nnz = mesh.n_nodes, len(csr.indices)
-    bytes_ = {"csr": nnz * (4 + 16) + 8 * n,  # values, int64 rows and columns; x, y
-              "grid": 4 * n * len(grid.offsets) + 20 * grid.n_rest + 8 * n}
-    ms = {k: device_ms(m, x, calls=20) for k, m in (("csr", csr.matvec), ("grid", grid.matvec))}
-    runs = {name: poisson.cg_solver_on(o, K, mesh, cfg) for name, o in (("csr", csr),
-                                                                        ("grid", grid))}
+    errs = {k: rel(o.matvec(x), ops["csr"].matvec(x)) for k, o in ops.items() if k != "csr"}
+    ms = {k: device_ms(o.matvec, x, calls=20) for k, o in ops.items()}
+    runs = {k: poisson.cg_solver_on(o, K, mesh, cfg) for k, o in ops.items()}
     solves = {}
-    for name in ("csr", "grid", "grid", "csr"):
+    for name in ("csr", "grid", "stencil", "stencil", "grid", "csr"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         f, res = runs[name](b)
         torch.cuda.synchronize()
         solves.setdefault(name, []).append((time.perf_counter() - t0, runs[name].iterations,
                                             float(res) / float(torch.linalg.norm(b))))
-    print(f"[31 storage] the Poisson operator ({nnz} CSR entries; grid split "
-          f"{len(grid.offsets)} planes, {grid.n_rest} remainder entries): apply rel {err:.3e} "
-          f"(<= 1e-5); device ms an apply CSR {ms['csr']:.4f} (bound "
-          f"{bytes_['csr'] / HBM_BYTES_PER_S * 1e3:.4f}), grid plain {ms['grid']:.4f} (bound "
-          f"{bytes_['grid'] / HBM_BYTES_PER_S * 1e3:.4f}); solves (s, iterations, res_rel) "
-          f"{json.dumps(solves)}")
-    check(err <= 1e-5, f"grid split apply vs CSR rel {err}")
+    grid, st = ops["grid"], ops["stencil"]
+    print(f"[31 storage] the Poisson operator ({len(K.indices)} CSR entries; stencil "
+          f"{len(st.offsets)} offsets, {st.n_rest} remainder entries; grid split "
+          f"{len(grid.offsets)} planes, {grid.n_rest} remainder entries): apply rel vs CSR "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (<= 1e-5); device ms an "
+          "apply " + ", ".join(f"{k} {ms[k]:.4f} (bound {roofline.apply_bound(o)['bound_ms']:.4f})"
+                               for k, o in ops.items()))
+    print(f"[47 Poisson] {mesh.n_nodes} nodes, f32, tol 1e-6, turns CSR grid stencil stencil "
+          f"grid CSR, (s, iterations, res_rel) a solve: {json.dumps(solves)}")
+    for name, err in errs.items():
+        check(err <= 1e-5, f"{name} apply vs CSR rel {err}")
     for name, runs_ in solves.items():
         check(all(r[2] < 1e-4 for r in runs_), f"{name} Poisson solve res_rel {runs_}")
 
@@ -2905,6 +2940,344 @@ def phase_roofline(dev) -> None:
               "leaves the fixed cost out")
 
 
+# ---------------------------------------------------------------------------
+# Phase 47: the stencil and banded storages (no kernel of their own)
+# ---------------------------------------------------------------------------
+
+STORAGE_APPLY_RTOL = 1e-5  # f32 applies against CSR, relative L2
+STORAGE_AB_STEPS = 400  # warm steps a turn of the Scale step
+STORAGE_PARITY_STEPS = 20  # the two div/grad forms from rest, u within 1e-5
+STORAGE_PROFILE_STEPS = 100  # the Scale A/B's profiled warm steps
+STORAGE_MID_STEPS = 20  # the 160,000-node runs (banded: at most 20)
+STORAGE_NS_PROFILE_STEPS = 3  # ~8,000 kernels a step: the profiler's own cost grows with them
+STORAGE_F64_MESH = (40, 48)
+STORAGE_F64_STEPS = 10
+STORAGE_F64_RTOL = 1e-10  # card against the port's CPU at f64, fixed iterations
+STORAGE_SHARDED_STEPS = 3
+# the sharded step's banded and stencil branches run fixed iteration counts
+# (no tolerance exit, as in tpufem)
+SHARDED_HALO = dict(solver="cg", cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=False,
+                    transport="none", precision="f64")
+
+
+def kernels_an_apply(fn, *args, calls: int = 20) -> float:
+    """Device kernels a call of ``fn``: the profiler's count over ``calls``
+    calls.  (Late in a long process the profiler was seen to drop a
+    window's first few device events: over 20 calls that costs a fraction
+    of a kernel a call, not the count of a single call.)"""
+    fn(*args)
+    return profile_run(lambda: [fn(*args) for _ in range(calls)], calls)["kernels_per_step"]
+
+
+def storage_operators(problem) -> dict:
+    """Phase 9's four operators as CSR, in the problem's dtype on its
+    device: the stiffness, the merged periodic pressure operator, Dx and
+    Dy."""
+    mesh, boundary = problem.mesh, problem.boundary
+    ke = assembly.element_stiffness(mesh)
+    owner = owner_map(mesh.n_nodes, boundary.masters, boundary.slaves)
+    merged = dataclasses.replace(mesh, tris=owner[mesh.tris].astype(np.int32))
+    dx, dy = calculus.divergence_csr_operators(mesh)
+    ops = {"K": assembly.assemble_csr(mesh, ke), "K_merged": assembly.assemble_csr(merged, ke),
+           "Dx": dx, "Dy": dy}
+    return {k: op.astype(problem.dtype, problem.device) for k, op in ops.items()}
+
+
+def storage_applies(dev, big) -> None:
+    """Item 1: each operator on CSR, the stencil and the card's grid split
+    (plain apply): build seconds, offsets and remainder of the stencil;
+    device ms an apply beside the byte bound, kernels an apply; f32 rel L2
+    against CSR."""
+    n = big.mesh.n_nodes
+    ns = int(round(n ** 0.5))
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    for name, csr in storage_operators(big).items():
+        t0 = time.perf_counter()
+        st = StencilOperator.build(csr, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        grid = GridOperator.dense_split(csr, ns, device=dev)
+        parts, errs = [], {}
+        want = csr.matvec(x)
+        for label, op in (("csr", csr), ("stencil", st), ("grid plain", grid)):
+            if label != "csr":
+                errs[label] = rel(op.matvec(x), want)
+                check(errs[label] <= STORAGE_APPLY_RTOL, f"{name} {label} apply vs CSR rel "
+                      f"{errs[label]}")
+            ms = device_ms(op.matvec, x, calls=20)
+            b = roofline.apply_bound(op)
+            parts.append(f"{label} {ms:.4f} ms (bound {b['bound_ms']:.4f}, "
+                         f"{kernels_an_apply(op.matvec, x):.1f} kernels)")
+        print(f"[47 storage] {name}: stencil built in {build_s:.2f} s, offsets {list(st.offsets)}, "
+              f"{st.n_rest} remainder entries, coverage {st.coverage:.5f}; device ms an apply "
+              + ", ".join(parts) + f"; rel L2 vs CSR " + ", ".join(f"{k} {v:.2e}"
+                                                                    for k, v in errs.items()))
+
+
+def scale_divgrad_ab(big) -> None:
+    """Item 2: the Scale step (phase 9's problem) with its div/grad on the
+    stencil (A: the problem as built, Dx and Dy in one pass), on the
+    stencil as two applies (C) and on CSR (B): u after 20 steps from rest
+    within 1e-5 of B's; then from each one's state after 200 steps, turns A
+    B C C B A, twice, of 400 warm steps (steps/s, K2 once and K3 twice a
+    step in every turn) and 100 steps under the profiler (device ms and kernels a
+    step; the busy share against the turns' median): the host's share of a
+    step is large and varies from turn to turn, so the turns run twice."""
+    dx, dy = calculus.divergence_csr_operators(big.mesh)
+    check(type(big.mf_pair).__name__ == "StencilPair", f"phase 9's div/grad: {big.mf_pair}")
+    unpaired = dataclasses.replace(big)
+    unpaired.__dict__["mf_pair"] = None  # the cached pair, left out
+    variants = {"stencil": big, "stencil unpaired": unpaired,
+                "csr": dataclasses.replace(big, mf_dx=dx.astype(big.dtype, big.device),
+                                           mf_dy=dy.astype(big.dtype, big.device))}
+    fields, warm = {}, {}
+    for label, problem in variants.items():
+        state, _ = stokes.run(problem, steps=STORAGE_PARITY_STEPS)
+        fields[label] = state["u"]
+        warm[label], _ = stokes.run(problem, steps=SCALE_STEPS - STORAGE_PARITY_STEPS, state=state)
+    du = {k: rel(fields[k], fields["csr"]) for k in ("stencil", "stencil unpaired")}
+    check(max(du.values()) <= 1e-5, f"stencil against CSR div/grad after "
+          f"{STORAGE_PARITY_STEPS} steps: u rel {du}")
+    turns = {}
+    for label in ("stencil", "csr", "stencil unpaired", "stencil unpaired", "csr", "stencil") * 2:
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stokes.run(variants[label], steps=STORAGE_AB_STEPS, state=warm[label])
+        torch.cuda.synchronize()
+        turns.setdefault(label, []).append(STORAGE_AB_STEPS / (time.perf_counter() - t0))
+        counts = launch_counts()
+        check(counts == {"K1": 0, "K2": STORAGE_AB_STEPS, "K3": 2 * STORAGE_AB_STEPS, "K4": 0,
+                         "K5": 0, "K6": 0}, f"{label} div/grad launched {counts}")
+    parts, top = [], {}
+    for label, problem in variants.items():
+        prof = profile_steps(problem, STORAGE_PROFILE_STEPS, state=warm[label])
+        busy = prof["device_ms_per_step"] * float(np.median(turns[label])) / 1e3
+        top[label] = [(k["name"][:48], round(k["ms_per_step"], 4)) for k in prof["top"][:6]]
+        parts.append(f"{label}: warm {', '.join(f'{v:.2f}' for v in turns[label])} steps/s, "
+                     f"{prof['device_ms_per_step']:.4f} device ms and "
+                     f"{prof['kernels_per_step']:.1f} kernels a step, busy {100 * busy:.1f} %")
+    print(f"[47 scale div/grad] {big.mesh.n_nodes} nodes, turns (A B C C B A) × 2 of "
+          f"{STORAGE_AB_STEPS} warm steps from step {SCALE_STEPS}, K2 1 and K3 2 a step in every "
+          "turn: " + "; ".join(parts) + f"; u rel vs CSR after {STORAGE_PARITY_STEPS} steps "
+          + ", ".join(f"{k} {v:.3e}" for k, v in du.items()) + " (<= 1e-5)")
+    print(f"[47 scale div/grad] device ms a step by kernel (top 6): {json.dumps(top)}")
+
+
+class CountedOperator:
+    """An operator that counts its applies (the plain CG's iterations)."""
+
+    def __init__(self, op):
+        self.op, self.applies = op, 0
+
+    def matvec(self, x):
+        self.applies += 1
+        return self.op.matvec(x)
+
+    def diag(self):
+        return self.op.diag()
+
+
+def plain_cg_iterations(problem, steps: int) -> tuple:
+    """(viscous, pressure) iterations a solve, and the end state, of
+    ``steps`` steps from rest and ``steps`` more on the plain CG path: the
+    viscous (N, 2) solve applies the operator to both columns once to
+    start and once an iteration; the pressure solves' counts come from
+    ``matfree.cg``."""
+    from tpufem_torch.solve import matfree
+
+    state, _ = stokes.run(problem, steps=steps)
+    counted = CountedOperator(problem.visc_solver.K)
+    probe = dataclasses.replace(problem, visc_solver=dataclasses.replace(problem.visc_solver,
+                                                                         K=counted))
+    iters, cg = [], matfree.cg
+
+    def counting_cg(*args, **kwargs):
+        x, info = cg(*args, **kwargs)
+        iters.append(info[0])
+        return x, info
+
+    matfree.cg = counting_cg
+    try:
+        state, _ = stokes.run(probe, steps=steps, state=state)
+    finally:
+        matfree.cg = cg
+    return counted.applies / (2 * steps) - 1, float(np.mean(iters)) if iters else 0.0, state
+
+
+def timed_turns(runs: dict, order, steps: int) -> dict:
+    """Steps/s of each label's ``runs[label]()``, a run of ``steps`` steps,
+    in the order of turns given."""
+    out = {}
+    for label in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label]()
+        torch.cuda.synchronize()
+        out.setdefault(label, []).append(steps / (time.perf_counter() - t0))
+    return out
+
+
+def turns_text(turns: dict) -> str:
+    return "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs) for k, vs in turns.items())
+
+
+def storage_mid(dev) -> None:
+    """Item 3, at 160,000 nodes (``bench_large.bench_config``): Stokes on
+    the stencil against CSR (warm steps/s in turns S C C S, twice;
+    iterations a solve), banded (bandwidth, stored bytes, ms an apply, warm
+    steps/s), and NS on the stencil against CSR (``ns_config``, tpufem's
+    gates; warm steps/s in turns, device ms and kernels a step).  The
+    plain CG paths read their stop test on the host every iteration, so
+    a step's time varies from turn to turn."""
+    mesh = generate_annulus_mesh(*MID_MESH, pad_hole=True)
+    steps, order = STORAGE_MID_STEPS, ("stencil", "csr", "csr", "stencil") * 2
+    problems, warm, parts = {}, {}, []
+    for storage in ("stencil", "csr", "banded"):
+        t0 = time.perf_counter()
+        cfg = bench_large.bench_config(n_nodes=mesh.n_nodes, storage=storage)
+        problem = stokes.StokesProblem.build(mesh, cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        zero_launches()
+        it_v, it_p, warm[storage] = plain_cg_iterations(problem, steps)
+        no_kernel_launches(f"Stokes {storage}")
+        for k, v in warm[storage].items():
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"Stokes {storage} {k} is finite")
+        K = problem.visc_solver.K
+        text = (f"Stokes {type(K).__name__} built in {build_s:.1f} s, iterations a solve viscous "
+                f"{it_v:.2f} pressure {it_p:.2f}")
+        if storage == "banded":
+            x = torch.randn(mesh.n_nodes, device=dev)
+            sps = timed_turns({storage: lambda: stokes.run(problem, steps=steps,
+                                                           state=warm[storage])},
+                              (storage,), steps)[storage][0]
+            text += (f", warm {sps:.2f} steps/s; bandwidth {K.bandwidth}, "
+                     f"{K.diags.numel() * K.diags.element_size()} stored bytes an operator, "
+                     f"{device_ms(K.matvec, x, calls=5):.4f} ms an apply (bound "
+                     f"{roofline.apply_bound(K)['bound_ms']:.4f}, "
+                     f"{kernels_an_apply(K.matvec, x):.1f} kernels)")
+            del problem, K
+            torch.cuda.empty_cache()
+        else:
+            problems[storage] = problem
+        parts.append(text)
+    turns = timed_turns({k: (lambda p=p, k=k: stokes.run(p, steps=steps, state=warm[k]))
+                         for k, p in problems.items()}, order, steps)
+    parts.insert(2, f"Stokes warm steps/s in turns: {turns_text(turns)}")
+    del problems
+    torch.cuda.empty_cache()
+    ns, state, text = {}, {}, []
+    for storage in ("stencil", "csr"):
+        problem = ns[storage] = navier_stokes.NSProblem.build(
+            mesh, bench_large.ns_config(storage=storage), device=dev)
+        zero_launches()
+        runs = bench_large.run_ns_problem(problem, steps)  # tpufem's NS gates
+        no_kernel_launches(f"NS {storage}")
+        state[storage] = runs["state"]
+        prof = profile_run(lambda: navier_stokes.run(problem, steps=STORAGE_NS_PROFILE_STEPS,
+                                                     state=runs["state"]),
+                           STORAGE_NS_PROFILE_STEPS)
+        text.append(f"NS {type(problem.K_csr).__name__}: {prof['device_ms_per_step']:.3f} device "
+                    f"ms and {prof['kernels_per_step']:.0f} kernels a step, busy "
+                    f"{100 * prof['device_ms_per_step'] * runs['warm_steps_per_sec'] / 1e3:.1f} "
+                    f"%, div_rel {runs['warm']['div_rel']:.4f}")
+    turns = timed_turns({k: (lambda p=p, k=k: navier_stokes.run(p, steps=steps, state=state[k]))
+                         for k, p in ns.items()}, order, steps)
+    parts += text + [f"NS warm steps/s in turns: {turns_text(turns)}"]
+    print(f"[47 160k] {mesh.n_nodes} nodes, {steps} warm steps a turn: " + "; ".join(parts))
+
+
+def storage_f64_parity(dev) -> None:
+    """Item 5: card f64 against the port's CPU f64, fixed iterations: the
+    Stokes stencil (with and without the hole) and banded runs, NS on the
+    stencil, and the sharded step's stencil and banded branches on 4
+    strips of one card."""
+    n_side, n_circle = STORAGE_F64_MESH
+    fixed = dict(solver="cg", precision="f64", cg_tol_pressure=0.0, cg_tol_visc=0.0,
+                 cg_precond="twolevel", cg_iters_visc=30, cg_iters_pressure=60)
+    errs = {}
+    for label, storage, pad in (("Stokes stencil pad_hole", "stencil", True),
+                                ("Stokes stencil", "stencil", False),
+                                ("Stokes banded", "banded", False)):
+        mesh = generate_annulus_mesh(n_side, n_circle, pad_hole=pad)
+        g, c = card_and_cpu(mesh, STORAGE_F64_STEPS, dev, cg_storage=storage, **fixed)
+        errs[label] = rel(g["u"], c["u"])
+    mesh = generate_annulus_mesh(n_side, n_circle, pad_hole=True)
+    us = []
+    for device in (dev, CPU):
+        cfg = navier_stokes.NSConfig(dt=1e-4, solver="cg", precision="f64", cg_storage="stencil",
+                                     cg_tol=0.0, cg_iters_visc=30, cg_iters_pressure=120)
+        problem = navier_stokes.NSProblem.build(mesh, cfg, device=device)
+        check(type(problem.K_csr).__name__ == "StencilOperator" and problem.conv_refill is not None,
+              "NS stencil holds K and the C(u) refill on the stencil")
+        u, _ = navier_stokes.run(problem, steps=STORAGE_F64_STEPS)
+        us.append(u.double().cpu())
+    errs["NS stencil pad_hole"] = rel(*us)
+    for storage, pad in (("stencil", True), ("banded", False)):
+        mesh = generate_annulus_mesh(n_side, n_circle, pad_hole=pad)
+        out = []
+        for devices in ([dev] * 4, ["cpu"] * 4):
+            dm = build_device_mesh(devices=devices, data=1)
+            problem = stokes.StokesProblem.build(
+                mesh, stokes.StokesConfig(cg_storage=storage, **SHARDED_HALO),
+                device=dm.axis_devices()[0])
+            zero_launches()
+            u, _ = run_matfree_sharded(make_sharded_matfree_step(dm, problem),
+                                       stokes.initial_state(problem)["u"], STORAGE_SHARDED_STEPS)
+            no_kernel_launches(f"the sharded {storage} step")
+            out.append(u.double().cpu())
+        errs[f"sharded {storage}"] = rel(*out)
+    print(f"[47 f64 parity] generate_annulus_mesh{STORAGE_F64_MESH}, card against CPU, u rel L2 "
+          f"(<= {STORAGE_F64_RTOL:g}; {STORAGE_F64_STEPS} steps, the sharded "
+          f"{STORAGE_SHARDED_STEPS} on 4 strips): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= STORAGE_F64_RTOL, f"{k}: card against CPU u rel {v}")
+
+
+def storage_sharded_mid(dev) -> None:
+    """Item 6: the sharded step on the stencil branch at 160,000 nodes, 4
+    strips on one card (bench_config, f32): steps/s, kernels a step and
+    the busy share."""
+    mesh = generate_annulus_mesh(*MID_MESH, pad_hole=True)
+    problem = stokes.StokesProblem.build(
+        mesh, bench_large.bench_config(n_nodes=mesh.n_nodes, storage="stencil"), device=dev)
+    dm = build_device_mesh(devices=[dev] * SHARDS, data=1)
+    step = make_sharded_matfree_step(dm, problem)
+    u = stokes.initial_state(problem)["u"]
+    u, _ = step(u)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, series = run_matfree_sharded(step, u, STORAGE_SHARDED_STEPS)
+    torch.cuda.synchronize()
+    sps = STORAGE_SHARDED_STEPS / (time.perf_counter() - t0)
+    no_kernel_launches("the sharded stencil step")
+    check(bool(torch.isfinite(u).all()), "the sharded stencil step is finite")
+    prof = profile_run(lambda: step(u), 1)
+    print(f"[47 sharded stencil] {mesh.n_nodes} nodes, {SHARDS} strips on one card, f32, "
+          f"{STORAGE_SHARDED_STEPS} steps: {sps:.3f} steps/s, {prof['kernels_per_step']:.0f} "
+          f"kernels and {prof['device_ms_per_step']:.2f} device ms a step, busy "
+          f"{100 * prof['device_ms_per_step'] * sps / 1e3:.1f} %; final_div_max "
+          f"{float(series['final_div_max'][-1]):.4f}")
+
+
+def phase_storages(dev, big) -> None:
+    """Phase 47 (items 1, 2, 3, 5, 6; item 4 is phase 31's Poisson
+    storages): no kernel of its own; the Scale A/B counts K2 and K3."""
+    seconds = {}
+    for item, run in ((1, lambda: storage_applies(dev, big)), (2, lambda: scale_divgrad_ab(big)),
+                      (3, lambda: storage_mid(dev)), (5, lambda: storage_f64_parity(dev)),
+                      (6, lambda: storage_sharded_mid(dev))):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds[item] = round(time.perf_counter() - t0, 1)
+    print(f"[47 seconds] by item: {seconds}")
+
+
 def cli_json(argv: list) -> list:
     """Run ``python -m tpufem_torch`` in process on ``argv``: echo its
     output, return its JSON lines."""
@@ -3072,6 +3445,7 @@ def main() -> None:
     timed(22, phase_gridify, dev)
     k6_main, k6_launches = sharded_phases([dev] * SHARDS, big, build_s)
     timed(43, phase_diag, dev, big)
+    timed(47, phase_storages, dev, big)
     scale_mesh = big.mesh
     del big, k5_problems, unfused, old_ops
     torch.cuda.empty_cache()

@@ -123,11 +123,22 @@ def ns_problem_arrays(problem) -> dict[str, np.ndarray]:
     return arrays
 
 
+def operator_arrays(op, prefix: str) -> dict[str, np.ndarray]:
+    """A tpufem CSR, stencil or banded operator as the arrays
+    ``interop.operator_from_numpy`` reads under ``prefix``."""
+    if hasattr(op, "bandwidth"):
+        keys = ("diags", "perm", "inv_perm", "bandwidth")
+    elif hasattr(op, "rest_data"):
+        keys = ("diags", "offsets", "rest_rows_j", "rest_cols_j", "rest_data", "coverage")
+    else:
+        keys = ("indptr", "indices", "data")
+    return {f"{prefix}.{k}": np.asarray(getattr(op, k)) for k in keys}
+
+
 def _grid_extras(problem) -> dict[str, np.ndarray]:
     """What ``_extract_arrays`` leaves out of a grid-storage problem: the
-    operators' static fields, ω, the pairing axis and CSR div/grad."""
-    from tpufem.ops import calculus
-
+    operators' static fields, ω, the pairing axis, and div/grad in their
+    own storage (the stencil at ≥ 90 % coverage)."""
     out = {}
     ops = [("visc_solver.K", problem.visc_solver.K),
            ("pressure_solver.K", problem.pressure_solver.K)]
@@ -141,10 +152,8 @@ def _grid_extras(problem) -> dict[str, np.ndarray]:
         out[f"{prefix}.coverage"] = np.asarray(op.coverage)
     out["pressure_solver.omega"] = np.asarray(problem.pressure_solver.omega)
     out["pressure_solver.pair_axis"] = np.asarray(problem.pressure_solver.pair_axis)
-    for key, op in zip(("mf_dx", "mf_dy"), calculus.divergence_csr_operators(problem.mesh)):
-        out[f"{key}.indptr"] = np.asarray(op.indptr)
-        out[f"{key}.indices"] = np.asarray(op.indices)
-        out[f"{key}.data"] = np.asarray(op.data)
+    for key in ("mf_dx", "mf_dy"):
+        out.update(operator_arrays(getattr(problem, key), key))
     return out
 
 

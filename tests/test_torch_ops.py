@@ -85,12 +85,11 @@ def test_vorticity_and_gradient_matrices(n_side, n_circle):
 
 
 def test_ops_namespace_exports_tpufems_names():
-    """``tpufem_torch.ops`` exports tpufem's ``ops`` names, all but
-    ``BandedOperator`` (the banded storage, not ported yet)."""
+    """``tpufem_torch.ops`` exports every name of tpufem's ``ops``."""
     import tpufem.ops as jops
     import tpufem_torch.ops as tops
 
-    assert set(jops.__all__) - set(tops.__all__) == {"BandedOperator"}
+    assert set(jops.__all__) - set(tops.__all__) == set()
     assert all(callable(getattr(tops, name)) for name in tops.__all__)
 
 

@@ -202,7 +202,7 @@ def _csr_problem():
     (lambda: grid_sharded.make_sharded_grid_solvers(_cpu_mesh(14, ("space",)), _problems()[1]),
      ValueError, "halo depth"),
     (lambda: stokes_sharded.make_sharded_matfree_step(_cpu_mesh(4), _csr_problem()),
-     NotImplementedError, "Queue 1 item 5"),
+     ValueError, "needs cg_storage"),
     (lambda: spmd.build_device_mesh(4) if not torch.cuda.is_available() else pytest.skip("a card"),
      RuntimeError, "CUDA is not available"),
     (lambda: spmd.build_device_mesh(devices=["cpu", "meta"]), ValueError, "one kind of device"),

@@ -1,5 +1,6 @@
 """tpufem_torch.roofline: the Hopper byte model against a hand count on a
-small operator (the one source of the bounds ``chip_smoke.py`` prints), and
+small operator and on each sparse storage's apply (the one source of the
+bounds ``chip_smoke.py`` prints), and
 the measuring machinery through the kernels' plain versions on the CPU,
 which must give finite, self-consistent rows (times and rates mean
 something only on the card)."""
@@ -44,6 +45,37 @@ def test_bounds_match_a_hand_count():
     assert roofline.solve_bound("K2", K, 2, 10) == roofline.bound(
         op + 8 * 400 * 4, 11 * 2 * (2 * 5 + 21) * 400)
     assert roofline.bound(0.0, 67e12)["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("storage", ["csr", "stencil", "banded", "grid"])
+def test_apply_bound_matches_a_hand_count(storage):
+    """One apply of each storage (f32, two columns): x and y once, the
+    stored values once, the index arrays it reads (int64; the grid
+    remainder's three int32), two operations a value and column."""
+    from tpufem_torch.mesh.generate import generate_annulus_mesh
+    from tpufem_torch.ops import assembly
+    from tpufem_torch.ops.banded import BandedOperator
+    from tpufem_torch.ops.gridop import GridOperator
+    from tpufem_torch.ops.stencil import StencilOperator
+
+    mesh = generate_annulus_mesh(12, 16, pad_hole=True)
+    n = mesh.n_nodes
+    K = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh)).astype(torch.float32)
+    op = {"csr": lambda: K, "stencil": lambda: StencilOperator.build(K, device="cpu"),
+          "banded": lambda: BandedOperator.build(K, device="cpu"),
+          "grid": lambda: GridOperator.dense_split(K, 12, device="cpu")}[storage]()
+    vectors = 2 * n * 4 * 2
+    if storage == "csr":
+        stored, extra = len(K.indices), 16 * len(K.indices)
+    elif storage == "banded":
+        stored, extra = op.diags.numel(), 16 * n
+    else:
+        stored = op.diags.numel() + op.n_rest
+        extra = op.n_rest * (16 if storage == "stencil" else 12)
+    assert roofline.apply_bytes(op, cols=2) == stored * 4 + extra + vectors
+    assert roofline.apply_flops(op, cols=2) == 2 * stored * 2
+    assert roofline.apply_bound(op, cols=2) == roofline.bound(stored * 4 + extra + vectors,
+                                                             4 * stored)
 
 
 def test_chip_smoke_takes_its_bounds_from_here():

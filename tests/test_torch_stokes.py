@@ -135,9 +135,7 @@ def test_f32_port_tracks_tpufem_f64():
 @pytest.mark.parametrize(
     "kw,error",
     [
-        (dict(solver="cg", cg_storage="stencil"), NotImplementedError),
         (dict(solver="cg", cg_precond_bf16="on"), NotImplementedError),
-        (dict(solver="cg", cg_storage="banded"), NotImplementedError),
         (dict(precision="bf16", pressure_mode="merge"), ValueError),
         (dict(precision="f32", pressure_mode="penalty"), ValueError),
         (dict(fused=True), ValueError),
@@ -172,9 +170,9 @@ def test_invalid_variant_config_refused_as_tpufem(kw):
 
 DENSE_MERGE = dict(solver="inverse", pressure_mode="merge")
 CSR = dict(solver="cg", cg_storage="csr")
-# The configuration branches of the dense and CSR paths, f64, 10 steps from
-# rest on (12, 16): measured ≤ 3.4e-16 relative in u (tracers 2.8e-16 max
-# abs) on the CPU, held at 1e-12; the dye c likewise.
+# The configuration branches of the dense, CSR, stencil and banded paths,
+# f64, 10 steps from rest on (12, 16): measured ≤ 3.4e-16 relative in u
+# (tracers 2.8e-16 max abs) on the CPU, held at 1e-12; the dye c likewise.
 BRANCHES = {
     "dense-lu-merge": dict(solver="lu", pressure_mode="merge"),
     "dense-rotating-ramp": dict(DENSE_MERGE, bc_kind="rotating", ramp_steps=5),
@@ -191,6 +189,13 @@ BRANCHES = {
     "csr-cold-start": dict(CSR, cg_warm_start=False),
     "csr-chebyshev-tol": dict(CSR, cg_precond="chebyshev", cg_tol_pressure=1e-10),
     "csr-twolevel-eulerian-dye": dict(CSR, cg_precond="twolevel", transport="eulerian_dye"),
+    # by name on a mesh without the hole: 16 offsets, 88 % coverage
+    "stencil-jacobi": dict(CSR, cg_storage="stencil"),
+    "stencil-twolevel-tol": dict(CSR, cg_storage="stencil", cg_precond="twolevel",
+                                 cg_tol_pressure=1e-10),
+    "banded-jacobi": dict(CSR, cg_storage="banded"),
+    "banded-chebyshev-tracers": dict(CSR, cg_storage="banded", cg_precond="chebyshev",
+                                     transport="tracers", tracer_density=15),
     "topk-dye": dict(DENSE_MERGE, transport="dye", locator="topk"),
     "topk-tracers": dict(DENSE_MERGE, fused=True, transport="tracers", tracer_density=15,
                          locator="topk"),

@@ -2,8 +2,9 @@
 ``generate_annulus_mesh(20, 24, pad_hole=True)`` against tpufem's, from the
 port's own build and from tpufem's operators carried across by
 ``tpufem_torch.interop``; the grid storage (kernels K2/K3 through their
-plain versions on the CPU) against tpufem's ``grid_interpret``, and the CSR
-storage against tpufem's CSR storage."""
+plain versions on the CPU, div/grad on the stencil) against tpufem's
+``grid_interpret``, and the CSR, stencil and banded storages against
+tpufem's."""
 
 import functools
 
@@ -13,6 +14,7 @@ import torch
 
 from tpufem.workloads import stokes as jstokes
 from tpufem_torch import interop
+from tpufem_torch.ops import assembly as tassembly
 from tpufem_torch.solve import grid_cg
 from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
 from tpufem_torch.solve.grid_step import GridStokesStep
@@ -86,6 +88,50 @@ def test_csr_path_matches_tpufem_csr():
     _compare(state, metrics, s1, m1, 1e-12, 1e-10)
 
 
+@pytest.mark.parametrize("storage", ["stencil", "banded"])
+def test_stencil_and_banded_paths_match_tpufem(storage):
+    """tpufem's storages by name: every operator (viscous, merged pressure,
+    div/grad) in that storage in both packages, 5 steps within 1e-12."""
+    jp, s1, m1 = jax_run(storage, 5)
+    tp = _port_problem(storage)
+    assert isinstance(tp.visc_solver, ViscousCG) and isinstance(tp.pressure_solver, PressureCG)
+    for t, j in ((tp.visc_solver.K, jp.visc_solver.K), (tp.pressure_solver.K_merged,
+                                                        jp.pressure_solver.K_merged),
+                 (tp.mf_dx, jp.mf_dx), (tp.mf_dy, jp.mf_dy)):
+        assert type(t).__name__ == type(j).__name__ == {"stencil": "StencilOperator",
+                                                        "banded": "BandedOperator"}[storage]
+    state, metrics = tstokes.run(tp, steps=5)
+    _compare(state, metrics, s1, m1, 1e-12, 1e-10)
+
+
+def test_grid_div_grad_on_tpufems_stencil():
+    """Under grid storage the div/grad applied between K2 and K3 are
+    stencils, as tpufem's are: the same offsets, diagonals and remainder."""
+    jp, _, _ = jax_run("grid_interpret", 3)
+    for storage in ("grid", "grid_interpret"):
+        tp = _port_problem(storage)
+        for t, j in ((tp.mf_dx, jp.mf_dx), (tp.mf_dy, jp.mf_dy)):
+            assert type(t).__name__ == type(j).__name__ == "StencilOperator"
+            assert t.offsets == j.offsets and t.coverage == j.coverage >= 0.9
+            np.testing.assert_array_equal(t.diags.numpy(), np.asarray(j.diags))
+            np.testing.assert_array_equal(t.rest_cols, np.asarray(j.rest_cols_j))
+            np.testing.assert_array_equal(t.rest_data.numpy(), np.asarray(j.rest_data))
+
+
+@pytest.mark.parametrize("pad_hole,kind", [(True, "StencilOperator"), (False, "CSROperator")])
+def test_auto_off_the_grid_on_cuda_is_stencil_else_csr(pad_hole, kind):
+    """``"auto"`` on CUDA off the grid (``"auto_accel"``): the stencil at ≥ 90 %
+    coverage, as tpufem; below it CSR, where tpufem takes banded (the band
+    lost to CSR on the card, ``chip_smoke.py`` phase 47).  The rule runs
+    here on CPU tensors."""
+    _, tm = meshes(12, 16, pad_hole=pad_hole)
+    materialize = tstokes._materializer("auto_accel", torch.float64, torch.device("cpu"))
+    K = tassembly.assemble_csr(tm, tassembly.element_stiffness(tm))
+    assert type(materialize(K)).__name__ == kind
+    banded = tstokes._materializer("banded", torch.float64, torch.device("cpu"))(K)
+    assert type(banded).__name__ == "BandedOperator"
+
+
 def test_auto_storage_is_csr_on_the_cpu():
     tp = _port_problem("auto", precision="f32")
     assert isinstance(tp.visc_solver, ViscousCG)
@@ -126,8 +172,6 @@ def test_grid_steps_per_call_builds_k5():
 @pytest.mark.parametrize(
     "storage,kw,item",
     [
-        ("stencil", {}, "item 5"),
-        ("banded", {}, "item 5"),
         ("grid", dict(cg_precond_bf16="on"), "item 6"),
     ],
 )

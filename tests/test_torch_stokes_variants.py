@@ -34,9 +34,8 @@ CASES = {
     "report_dense": (dict(REPORT, double_projection=False), (12, 16), 20, 1e-8, 1e-7),
     "report_csr": (dict(REPORT, **CSR, cg_tol_visc=1e-12), (12, 16), 10, 1e-12, 1e-10),
     # "grid" storage: both packages renumber the mesh and take the plain CG
-    # solvers, as the grid kernels do not implement the pin (tpufem's
-    # operators in stencil storage, the port's CSR: the same sums in
-    # another order)
+    # solvers, as the grid kernels do not implement the pin, with tpufem's
+    # storage rule for their operators (the stencil at ≥ 90 % coverage)
     "report_grid": (dict(REPORT, solver="cg", cg_storage="grid", cg_iters_pressure=100),
                     (12, 16), 10, 1e-12, 1e-10),
     "eulerian_dense": (dict(transport="eulerian_dye"), (12, 16), 20, 1e-8, 1e-7),  # c: C_TOL
@@ -127,6 +126,10 @@ def test_report_paths_as_tpufem():
     assert type(jp.visc_solver).__name__ == "ViscousCG"
     assert type(jp.pressure_solver).__name__ == "PressureCG"
     assert tp.pressure_solver.pin == jp.pressure_solver.pin
+    for t, j in ((tp.visc_solver.K, jp.visc_solver.K), (tp.pressure_solver.K_merged,
+                                                        jp.pressure_solver.K_merged),
+                 (tp.mf_dx, jp.mf_dx), (tp.mf_dy, jp.mf_dy)):
+        assert type(t).__name__ == type(j).__name__
 
 
 def test_eulerian_f32_merge_tracks_tpufem_f64():

@@ -6,7 +6,7 @@ the viscous solve and K3 (two-level PCG, warm start, tolerance exit) for
 both pressure solves, f32 fields, bf16 coarse inverse.
 
     python -m tpufem_torch.bench_large --size 1.05M [--steps 200] [--transport tracers]
-        [--steps-per-call K] [--no-pad-hole] [--storage grid]
+        [--steps-per-call K] [--no-pad-hole] [--storage grid|stencil|banded|csr]
     python -m tpufem_torch.bench_large --poisson | --heat [--size L] [--precision f64]
     python -m tpufem_torch.bench_large --th [--n-side 96] [--engine csr|grid]
         [--precision f64|f32] [--restarts R] [--steps 50]
@@ -22,7 +22,8 @@ tpufem's "imported" gate) instead of the generated sizes.  ``--ns`` runs
 tpufem's Navier–Stokes row instead (:func:`run_ns`: f32, the grid path's K4
 velocity and K3 pressure solves on CUDA).  ``--poisson`` and ``--heat`` run
 tpufem's matrix-free Poisson and heat rows (:func:`run_poisson_large`,
-:func:`run_heat_large`: f32, BiCGStab on the CSR surgery operator, at
+:func:`run_heat_large`: f32, BiCGStab on the surgery operator, on the
+stencil at ≥ 90 % coverage as in tpufem, at
 1,048,576 and 160,000 nodes by default).  ``--th`` runs tpufem's sparse
 Taylor–Hood row (:func:`run_th_sparse`: f64 by default, the CSR engine or
 the grid engine on K2 and K3, beside the same mesh's P1/P1 projection).
@@ -270,7 +271,7 @@ def run_mesh(mesh, steps: int, t0: float, precond: str = "twolevel", transport: 
         "renumbered": problem.gridified is not None,
         "build_s": t_build,
     }
-    if hasattr(problem.visc_solver.K, "offsets"):
+    if hasattr(problem.visc_solver.K, "ns"):  # the grid storage
         row["planes"] = {"visc": len(problem.visc_solver.K.offsets),
                          "pressure": len(problem.pressure_solver.K.offsets)}
         row["remainder"] = {"visc": problem.visc_solver.K.n_rest,
@@ -389,7 +390,7 @@ def run_ns(n_side: int, n_circle: int, steps: int, precision: str = "f32",
         "steps": steps,
         "precision": precision,
         "precond": precond,
-        "storage": "grid" if grid else "csr",
+        "storage": "grid" if grid else type(problem.K_csr).__name__,
         "build_s": t_build,
         **runs,
     }
@@ -419,10 +420,19 @@ def index_share(prof: dict) -> float:
     return index_ms / prof["device_ms_per_step"]
 
 
+def stored_values(op) -> int:
+    """The values an operator stores: CSR entries, or a stencil's diagonals
+    and remainder."""
+    if hasattr(op, "indices"):
+        return len(op.indices)
+    return int(op.diags.numel()) + op.n_rest
+
+
 def run_poisson_large(n_side: int, n_circle: int, precision: str = "f32", device="cuda",
                       mesh=None) -> dict:
     """tpufem's ``run_poisson_large``: the matrix-free Poisson solve (the
-    row-surgery operator as CSR, two-level BiCGStab, at most 2000
+    row-surgery operator on the stencil, or as CSR where the stencil covers
+    under 90 % of it, two-level BiCGStab, at most 2000
     iterations, tol 1e-6 at f32 or 1e-10 at f64) on the pad_hole annulus
     (or ``mesh``), timed twice (the first call and a second, warm one),
     under tpufem's gates: relative residual below 1e-4 and the Dirichlet
@@ -468,7 +478,7 @@ def run_poisson_large(n_side: int, n_circle: int, precision: str = "f32", device
         "n_tris": int(mesh.n_tris),
         "precision": precision,
         "storage": type(op).__name__,
-        "nnz": len(op.indices),
+        "nnz": stored_values(op),
         "build_s": t_build,
         "compile_plus_solve_s": first_s,  # the first call (the port compiles nothing)
         "solve_s": solve_s,
@@ -493,7 +503,7 @@ def run_poisson_large(n_side: int, n_circle: int, precision: str = "f32", device
 def run_heat_large(n_side: int, n_circle: int, steps: int = 50, precision: str = "f32",
                    device="cuda", mesh=None) -> dict:
     """tpufem's ``run_heat_large``: the matrix-free implicit-Euler heat run
-    (BiCGStab on I + dt·K_mod as CSR, warm-started, at most 60 iterations a
+    (BiCGStab on I + dt·K_mod, on the stencil at ≥ 90 % coverage, warm-started, at most 60 iterations a
     step, tol 1e-6 at f32 or 1e-10 at f64) on the pad_hole annulus (or
     ``mesh``), ``steps`` steps from the initial state twice (the first run
     cold, the second warm), under tpufem's gate: u within [−1e-2, 1 + 1e-2].
@@ -709,7 +719,9 @@ def main(argv=None) -> list[dict]:
                         help="steps a run (default 200; 50 with --heat)")
     parser.add_argument("--precond", default="twolevel", choices=["twolevel", "jacobi"])
     parser.add_argument("--transport", default="none", choices=["none", "tracers", "dye"])
-    parser.add_argument("--storage", default="auto", help="cg_storage: auto | grid | csr")
+    parser.add_argument("--storage", default="auto",
+                        help="cg_storage: auto | grid | stencil | banded | csr (NS: auto | "
+                             "grid | stencil | csr)")
     parser.add_argument("--steps-per-call", type=int, default=0,
                         help="grid_steps_per_call: K ≥ 1 runs kernel K5, K steps a launch")
     parser.add_argument("--no-pad-hole", action="store_true",

@@ -135,7 +135,7 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--bench-transport", default=None,
                    help="large sweep transport: none | tracers | dye")
     s.add_argument("--bench-storage", default=None,
-                   help="large sweep cg_storage: auto | grid | csr")
+                   help="large sweep cg_storage: auto | grid | stencil | banded | csr")
     s.add_argument("--bench-mesh", default=None,
                    help="imported mesh stem (e.g. mesh_fine.1) for --large")
     s.add_argument("--no-pad-hole", action="store_true")

@@ -29,12 +29,18 @@ COO list):
     ``pressure_solver.<m_lumped|active_mask|master_mask|slave_mask|ac_inv>``,
     ``pressure_solver.Pr`` (the block size and count are read off it),
     ``pressure_solver.omega`` (taken as is) and ``pressure_solver.pair_axis``;
-    ``mf_dx.<indptr|indices|data>`` and the same under ``mf_dy.`` for
-    div/grad.  Under ``grid_steps_per_call ≥ 1`` (kernel K5), the JAX
-    package's ``GridStokesStep``: ``grid_step.Gdx`` and ``grid_step.Gdy`` (as
-    ``<op>`` above) and ``grid_step.<wall_mask|inner_mask|inner_vals|interior2>``.
+    ``mf_dx`` and ``mf_dy`` for div/grad, as any operator below.  Under
+    ``grid_steps_per_call ≥ 1`` (kernel K5), the JAX package's
+    ``GridStokesStep``: ``grid_step.Gdx`` and ``grid_step.Gdy`` (as ``<op>``
+    above) and ``grid_step.<wall_mask|inner_mask|inner_vals|interior2>``.
     A renumbered mesh (``mesh.gridify``) comes as the renumbered mesh plus
     ``gridified.perm``.
+
+Operators off the grid (:func:`operator_from_numpy`), by the keys under
+their prefix: CSR ``<op>.<indptr|indices|data>``; the JAX package's
+stencil layout ``<op>.<diags|offsets|rest_rows_j|rest_cols_j|rest_data>``
+and optionally ``<op>.coverage``; its banded layout
+``<op>.<diags|perm|inv_perm|bandwidth>``.
 
 Both: ``m_lumped``; ``boundary.<walls|inner|dirichlet|interior|masters|slaves>``;
 ``inner_values``; for transport ``locator.<cells|rows|origin|extent|g>``
@@ -86,8 +92,10 @@ from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.mesh.gridify import Gridified
+from tpufem_torch.ops.banded import BandedOperator
 from tpufem_torch.ops.gridop import GridOperator, GridRefill
 from tpufem_torch.ops.sparse import CSROperator
+from tpufem_torch.ops.stencil import StencilOperator
 from tpufem_torch.parallel.spmd import MultiMeshEnsemble, ShardedEnsemble
 from tpufem_torch.solve.dense import DenseInverse, DenseLU
 from tpufem_torch.solve.grid_cg import NSGridBiCGStab, PressureGridCG, ViscousGridCG
@@ -179,6 +187,34 @@ def _csr(arrays: dict, prefix: str, n: int, dtype, device) -> CSROperator:
     )
 
 
+def _stencil(arrays: dict, prefix: str, dtype, device) -> StencilOperator:
+    get = lambda key: np.array(arrays[f"{prefix}.{key}"])
+    coverage = float(arrays.get(f"{prefix}.coverage", np.nan))
+    return StencilOperator.from_parts(get("offsets").tolist(), get("diags"), get("rest_rows_j"),
+                                      get("rest_cols_j"), get("rest_data"), coverage,
+                                      dtype=dtype, device=device)
+
+
+def _banded(arrays: dict, prefix: str, dtype, device) -> BandedOperator:
+    get = lambda key: np.array(arrays[f"{prefix}.{key}"])
+    return BandedOperator.from_parts(get("diags"), get("perm"), get("inv_perm"),
+                                     int(get("bandwidth")), dtype=dtype, device=device)
+
+
+def operator_from_numpy(arrays: dict, prefix: str, n: int, dtype=None, device=None):
+    """The operator under ``prefix``: banded, stencil or CSR by its keys (see
+    the module docstring), in ``dtype`` (None: the arrays' own) on
+    ``device``."""
+    dev = tconfig.device(device)
+    if f"{prefix}.bandwidth" in arrays:
+        return _banded(arrays, prefix, dtype, dev)
+    if f"{prefix}.rest_data" in arrays:
+        return _stencil(arrays, prefix, dtype, dev)
+    if dtype is None:
+        dtype = torch.as_tensor(np.array(arrays[f"{prefix}.data"])).dtype
+    return _csr(arrays, prefix, n, dtype, dev)
+
+
 def _solver(arrays: dict, prefix: str, device):
     if f"{prefix}.inv" in arrays:
         return DenseInverse(inv=torch.as_tensor(np.array(arrays[f"{prefix}.inv"]), device=device))
@@ -223,7 +259,8 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
             raise ValueError("grid-storage arrays need a solver='cg' configuration")
         visc, pressure = _grid_solvers(arrays, config, dev)
         dtype = tconfig.dtype(config.precision)
-        mf = tuple(_csr(arrays, k, mesh.n_nodes, dtype, dev) for k in ("mf_dx", "mf_dy"))
+        mf = tuple(operator_from_numpy(arrays, k, mesh.n_nodes, dtype, dev)
+                   for k in ("mf_dx", "mf_dy"))
         problem = StokesProblem.from_host(mesh, config, dev, visc_solver=visc,
                                           pressure_solver=pressure, div_xy=(None, None),
                                           mf_dxy=mf, **common)

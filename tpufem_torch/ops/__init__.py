@@ -19,10 +19,8 @@ from tpufem_torch.ops.calculus import (
     mass_apply,
     convection_apply,
 )
+from tpufem_torch.ops.banded import BandedOperator
 from tpufem_torch.ops.sparse import CSROperator, csr_matvec
-
-# tpufem's ``BandedOperator`` waits for the stencil and banded storages
-# (ROADMAP Queue 1 item 5).
 
 __all__ = [
     "element_stiffness",
@@ -44,4 +42,5 @@ __all__ = [
     "convection_apply",
     "CSROperator",
     "csr_matvec",
+    "BandedOperator",
 ]

@@ -102,6 +102,46 @@ def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None,
     return iteration_bytes(kernel, K, cols, ac_inv, passes) / HBM_BYTES_PER_S * 1e3
 
 
+def apply_bytes(op, cols: int = 1) -> float:
+    """The least HBM bytes of one apply y = A x of a sparse operator on
+    ``cols`` columns, each input read once and y written once: x and y, the
+    stored values, and the index arrays the storage reads (the port keeps
+    them as int64 tensors; the grid remainder's target, source and lane as
+    int32).
+
+    * CSR: nnz values, a row and a column index each;
+    * stencil (``ops/stencil.py``): s·N diagonal values, a remainder of m
+      entries with a row and a column index each;
+    * banded (``ops/banded.py``): the (2b + 1)·N band and the permutation
+      in and out (two int64 N-vectors);
+    * grid split (``ops/gridop.py``): the planes and the remainder."""
+    item = _values(op).element_size()
+    vectors = 2 * (op.n if hasattr(op, "n") else op.shape[0]) * item * cols
+    if hasattr(op, "ns"):  # GridOperator
+        return float(len(op.offsets) * op.n * item + op.n_rest * (item + 12) + vectors)
+    if hasattr(op, "bandwidth"):
+        return float(op.diags.numel() * item + 16 * op.n + vectors)
+    if hasattr(op, "rest_data"):
+        return float(op.diags.numel() * item + op.n_rest * (item + 16) + vectors)
+    return float(len(op.indices) * (item + 16) + vectors)
+
+
+def apply_flops(op, cols: int = 1) -> float:
+    """Two operations a stored value and column."""
+    stored = (op.diags.numel() + getattr(op, "n_rest", 0) if hasattr(op, "diags")
+              else len(op.indices))
+    return float(2 * stored * cols)
+
+
+def apply_bound(op, cols: int = 1) -> dict:
+    """The bound (ms, and what binds it) of one apply of ``op``."""
+    return bound(apply_bytes(op, cols), apply_flops(op, cols))
+
+
+def _values(op) -> torch.Tensor:
+    return op.diags if hasattr(op, "diags") else op.data
+
+
 SIZES = [
     ("160k", 400, 448),
     ("410k", 640, 720),

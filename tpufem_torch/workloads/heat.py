@@ -9,7 +9,8 @@ right-hand side is uⁿ itself.
 
 The system is factored once on the host (dense LU, or at f32 the inverse
 applied as one matvec), or solved each step by a BiCGStab on
-I + dt·K_mod with K_mod as CSR (``solver="cg"``), warm-started from the
+I + dt·K_mod with K_mod on the stencil at ≥ 90 % coverage, else as CSR
+(``solver="cg"``, Poisson's ``build_system_csr``), warm-started from the
 right-hand side.  ``run`` is a Python loop of device steps.
 """
 
@@ -41,7 +42,7 @@ class HeatConfig:
     L: float = 1.0
     H: float = 1.0
     tol: float = 1e-6
-    solver: str = "lu"  # "lu" | "inverse" (dense) | "cg" (BiCGStab on I + dt·K_mod, CSR)
+    solver: str = "lu"  # "lu" | "inverse" (dense) | "cg" (BiCGStab on I + dt·K_mod)
     precision: str = "f64"  # "f32": the host inverse applied in float32 (dense), or f32 CG
     cg_iters: int = 100
     cg_tol: float = 1e-10
@@ -54,7 +55,7 @@ class _MatfreeHeatSolver:
     system is close to the identity).  ``applications[0]`` counts the
     preconditioner's applications, two an iteration."""
 
-    op: object  # K_mod, CSR
+    op: object  # K_mod: StencilOperator or CSROperator
     inv_diag: torch.Tensor
     dt: float
     iters: int

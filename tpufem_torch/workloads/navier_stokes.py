@@ -15,7 +15,9 @@ Three solver paths:
 
 * ``solver="dense"``: the parity path, a dense C(u) and ``torch.linalg.solve``
   every step, the pressure factored once (N up to a few thousand);
-* ``solver="cg"`` on CSR storage: C(u)·x applied matrix-free, a
+* ``solver="cg"`` off the grid: K and the pressure operator on the
+  stencil (``ops.stencil``) at ≥ 90 % coverage, C(u) refilled onto it once
+  a step (``StencilRefill``), else CSR and C(u)·x applied matrix-free; a
   Jacobi-BiCGStab per velocity column, the node-0-pinned pressure PCG; the
   only path for ``mass_consistent=True``;
 * ``solver="cg"`` on grid storage (ring-in-grid pad_hole meshes, N = ns²):
@@ -23,9 +25,10 @@ Three solver paths:
   for both velocity columns and one of K3 for the pressure.
 
 ``cg_storage``: ``"auto"`` takes the grid on CUDA at f32 when N = ns² and
-``GridRefill`` decomposes, else CSR; ``"grid"`` runs K4/K3 at f32 and f64;
-``"grid_interpret"`` runs their plain versions on any device; ``"csr"`` asks
-for CSR.
+``GridRefill`` decomposes, else tpufem's stencil rule, as ``"stencil"``
+does; ``"grid"`` runs K4/K3 at f32 and f64; ``"grid_interpret"`` runs their
+plain versions on any device; ``"csr"`` asks for CSR and the matrix-free
+C(u), the port's own storage (tpufem has none of that name).
 
 The dense P2/P1 Taylor–Hood solvers (:func:`solve_taylor_hood`, the
 θ-scheme :class:`TransientTHProblem`) assemble and factor on the host in
@@ -460,10 +463,6 @@ def check_config(config: NSConfig) -> None:
         return
     if config.cg_storage not in _NS_STORAGES:
         raise ValueError(f"unknown cg_storage {config.cg_storage!r}; expected one of {_NS_STORAGES}")
-    if config.cg_storage == "stencil":
-        raise NotImplementedError(
-            "cg_storage='stencil' is not ported to tpufem_torch yet (ROADMAP Queue 1 item 5); "
-            "use 'csr' or 'grid'")
     if config.cg_precond not in ("jacobi", "twolevel"):
         raise ValueError(f"unknown cg_precond {config.cg_precond!r} for NS")
 
@@ -481,7 +480,8 @@ class NSProblem:
     # dense path
     k_signed: torch.Tensor | None = None  # signed-det stiffness (N, N)
     # CSR path
-    K_csr: Any = None  # signed-det stiffness, CSROperator
+    K_csr: Any = None  # signed-det stiffness: CSROperator, or StencilOperator by tpufem's rule
+    conv_refill: Any = None  # stencil.StencilRefill of C(u), or None: C(u)·x matrix-free
     inv_diag_visc: torch.Tensor | None = None  # Jacobi for the velocity solves
     inv_ml: torch.Tensor | None = None  # 1/M_L (mass_consistent=True)
     # grid path
@@ -532,7 +532,10 @@ class NSProblem:
         """``solver="cg"``: O(nnz) operators and iterative solves.  As in
         tpufem, the pressure uses the unsigned-det stiffness (equal to the
         signed one on counter-clockwise meshes), and inert nodes (pad_hole
-        dummies, no valid triangle) are held at u = 0."""
+        dummies, no valid triangle) are held at u = 0.  Off the grid every
+        storage but ``"csr"`` takes tpufem's stencil rule (``_mat``,
+        ``ops.stencil.stencil_or_csr``) for K, the pressure operator and
+        C(u)."""
         from tpufem_torch.ops.gridop import GridDecompositionError, GridRefill
 
         n = mesh.n_nodes
@@ -576,7 +579,21 @@ class NSProblem:
             if refill is not None:
                 return cls(**common, **_grid_fields(mesh, config, refill, K_p, m_l, deg, dtype, dev))
 
-        K_p_op = K_p.astype(dtype, dev)
+        # every storage but the port's own "csr" takes tpufem's stencil rule
+        # (its matrix-free path has no other): K and the pressure operator
+        # on the stencil at ≥ 90 % coverage, C(u) refilled onto it likewise
+        stencil = storage != "csr"
+        conv_refill = None
+        if stencil:
+            from tpufem_torch.ops.stencil import COVERAGE, StencilRefill, stencil_or_csr
+
+            _mat = lambda csr: stencil_or_csr(csr, dtype, dev)
+            conv_refill = StencilRefill.build(mesh, dtype=dtype, device=dev)
+            if conv_refill.template.coverage < COVERAGE:
+                conv_refill = None
+        else:
+            _mat = lambda csr: csr.astype(dtype, dev)
+        K_p_op = _mat(K_p)
         lmax, tl = 0.0, None
         if config.cg_precond == "twolevel":
             from tpufem_torch.solve.cg import estimate_lmax
@@ -597,7 +614,8 @@ class NSProblem:
             iters=config.cg_iters_pressure, precond=config.cg_precond, lmax=lmax, twolevel=tl,
             tol=config.cg_tol, pin=0,
         )
-        return cls(**common, pressure_solver=pressure, K_csr=K_signed.astype(dtype, dev))
+        return cls(**common, pressure_solver=pressure, K_csr=_mat(K_signed),
+                   conv_refill=conv_refill)
 
 
 def _grid_fields(mesh, config, refill, K_p, m_l, deg, dtype, dev) -> dict:
@@ -663,14 +681,19 @@ def _ns_step_grid(problem: NSProblem, u: torch.Tensor, p0: torch.Tensor):
 
 
 def _ns_step_matfree(problem: NSProblem, u: torch.Tensor, p0: torch.Tensor):
-    """One step on the CSR path: a Jacobi-BiCGStab of fixed length per
-    velocity column (warm start uⁿ) with C(u)·x applied matrix-free, the
+    """One step off the grid: a Jacobi-BiCGStab of fixed length per
+    velocity column (warm start uⁿ), C(u) refilled onto the stencil once a
+    step where the problem holds a refill, else applied matrix-free, the
     pinned pressure PCG warm-started from the previous pressure."""
     cfg = problem.config
     dt = cfg.dt
 
-    def conv(x):
-        return calculus.convection_apply(problem.mesh, u, x, variant="opsplit")
+    if problem.conv_refill is not None:
+        conv = problem.conv_refill.refill_flat(
+            assembly.element_convection_flat(problem.mesh, u, "opsplit")).matvec
+    else:
+        def conv(x):
+            return calculus.convection_apply(problem.mesh, u, x, variant="opsplit")
 
     K = problem.K_csr
     if cfg.mass_consistent:

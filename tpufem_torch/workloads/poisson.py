@@ -9,8 +9,9 @@ Set-up runs on the host in float64.  The dense paths (``solver="lu"`` or
 ``"inverse"``) factor there and solve on the device.  ``solver="cg"``
 builds the same row-surgery operator as CSR (``bc.bc_surgery_csr``) and
 runs a Jacobi or two-level right-preconditioned BiCGStab on the device,
-with the tolerance exit read on the host each iteration.  Where tpufem
-takes its stencil storage at ≥ 90 % coverage, the port keeps CSR.
+with the tolerance exit read on the host each iteration; as in tpufem,
+the operator is applied on the stencil (``ops.stencil``) where that covers
+≥ 90 % of its entries.
 
 A callable ``g_source`` is called with the centroid coordinates as torch
 tensors (tpufem passes NumPy arrays to its ``jnp`` sources).
@@ -28,6 +29,7 @@ from tpufem_torch import bc
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.ops import assembly
+from tpufem_torch.ops.stencil import stencil_or_csr
 from tpufem_torch.solve.cg import bicgstab_fixed
 from tpufem_torch.solve.dense import make_dense_solver
 
@@ -104,9 +106,10 @@ def solve(mesh: Mesh, config: PoissonConfig = PoissonConfig(), device=None):
 
 def build_system_csr(mesh: Mesh, config: PoissonConfig = PoissonConfig(), device=None):
     """The matrix-free twin of :func:`build_system`: (op, K_mod, b,
-    boundary) with the row-surgery operator as CSR, float64 on ``device``
-    (``op`` is ``K_mod``: the port has no stencil storage) and the
-    BC-applied load, O(nnz) host work."""
+    boundary) with the row-surgery operator ``K_mod`` as CSR, float64 on
+    ``device``, ``op`` the same operator on the stencil where that covers
+    ≥ 90 % of its entries (else ``K_mod``), and the BC-applied load, O(nnz)
+    host work."""
     dev = tconfig.device(device)
     K = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=config.signed_det))
     boundary = _boundary(mesh, config)
@@ -117,7 +120,7 @@ def build_system_csr(mesh: Mesh, config: PoissonConfig = PoissonConfig(), device
     b[torch.as_tensor(boundary.dirichlet, dtype=torch.int64)] = torch.as_tensor(
         dirichlet_values(boundary, config.outer_value, config.inner_value))
     K_mod = K_mod.astype(torch.float64, device=dev)
-    return K_mod, K_mod, b.to(dev), boundary
+    return stencil_or_csr(K_mod, torch.float64, dev), K_mod, b.to(dev), boundary
 
 
 def make_cg_solver(mesh: Mesh, config: PoissonConfig = PoissonConfig(), device=None):

@@ -25,9 +25,10 @@ Scale regime: sparse operators only.  With ``cg_storage="grid"`` (ring-in-
 grid pad_hole meshes, N = n_side², or any other mesh renumbered onto a
 raster by ``mesh.gridify``) each step is one whole viscous solve (kernel K2)
 and two whole pressure solves (kernel K3), warm-started from the previous
-step, with CSR div/grad; ``grid_steps_per_call=K ≥ 1`` runs K whole steps
-in one launch of kernel K5 instead (``solve/grid_step.py``).  With ``"csr"``
-the same solves run as plain tensor CG.
+step, with div/grad on the stencil (``ops/stencil.py``) between them, as in
+tpufem; ``grid_steps_per_call=K ≥ 1`` runs K whole steps in one launch of
+kernel K5 instead (``solve/grid_step.py``).  With ``"csr"``, ``"stencil"``
+or ``"banded"`` the same solves run as plain tensor CG on that storage.
 
 :func:`run` is a Python loop on the device that keeps every per-step metric
 in preallocated device tensors: on the dense and grid paths it never waits
@@ -38,6 +39,7 @@ on the host).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -47,7 +49,9 @@ from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.ops import assembly, calculus
+from tpufem_torch.ops.banded import BandedOperator
 from tpufem_torch.ops.fused_matvec import fused_step_matvec, fused_step_matvec_ref
+from tpufem_torch.ops.stencil import StencilOperator, StencilPair, stencil_or_csr
 from tpufem_torch.solve.dense import DenseInverse, make_dense_solver
 from tpufem_torch.solve.grid_cg import PressureGridCG, ViscousGridCG
 from tpufem_torch.solve.grid_step import GridStokesStep
@@ -87,8 +91,10 @@ class StokesConfig:
     cg_iters_visc: int = 60
     cg_iters_pressure: int = 300
     cg_iters_dye: int = 40
-    cg_storage: str = "auto"  # "grid" (K2/K3) | "csr" | "grid_interpret" (grid, plain
-    # versions) | "auto" (grid on CUDA when f32 and grid-numbered, else csr)
+    cg_storage: str = "auto"  # "grid" (K2/K3) | "csr" | "stencil" | "banded" |
+    # "grid_interpret" (grid, plain versions) | "auto" (on CUDA the grid when f32
+    # and grid-numbered, else the stencil at ≥ 90 % coverage, else CSR; CSR on
+    # the CPU)
     cg_warm_start: bool = True
     cg_tol_pressure: float = 0.0
     cg_tol_visc: float = 0.0
@@ -204,8 +210,6 @@ def _check_cg(config: StokesConfig) -> None:
         raise ValueError("fused and cg are mutually exclusive")
     if config.cg_storage not in _STORAGES:
         raise ValueError(f"unknown cg_storage {config.cg_storage!r}; expected one of {_STORAGES}")
-    if config.cg_storage in ("stencil", "banded"):
-        raise _not_ported(f"cg_storage={config.cg_storage!r}", "5")
     if config.cg_precond_bf16 == "on":
         raise _not_ported("cg_precond_bf16='on'", "6")
     if config.cg_precond not in ("jacobi", "chebyshev", "twolevel"):
@@ -238,7 +242,7 @@ class StokesProblem:
     fused_Dstar: torch.Tensor | None = None  # (N,2N) u → div(u*) map
     fused_dstar0: torch.Tensor | None = None  # (N,)
     visc_lift: torch.Tensor | None = None  # (N,2) −Δt·ν·K[:, D]·u_D lift
-    mf_dx: Any = None  # CSR div/grad operators (scale regime)
+    mf_dx: Any = None  # div/grad operators (scale regime): CSR, stencil or banded
     mf_dy: Any = None
     grid_step: GridStokesStep | None = None  # K5, under grid_steps_per_call ≥ 1
     gridified: Any = None  # mesh.gridify.Gridified when the mesh was renumbered
@@ -256,9 +260,16 @@ class StokesProblem:
     def device(self) -> torch.device:
         return self.m_lumped.device
 
+    @functools.cached_property
+    def mf_pair(self) -> StencilPair | None:
+        """Dx and Dy in one pass where both are stencils of one pattern."""
+        return StencilPair.of(self.mf_dx, self.mf_dy)
+
     def div(self, u: torch.Tensor) -> torch.Tensor:
         if self.div_x is not None:
             return self.div_x @ u[:, 0] + self.div_y @ u[:, 1]
+        if self.mf_pair is not None:
+            return self.mf_pair.combine(u)
         if self.mf_dx is not None:
             return self.mf_dx.matvec(u[:, 0]) + self.mf_dy.matvec(u[:, 1])
         return calculus.divergence(self.mesh, u)  # dense solvers, dense_ops=False
@@ -266,6 +277,8 @@ class StokesProblem:
     def grad(self, p: torch.Tensor) -> torch.Tensor:
         if self.div_x is not None:
             return torch.stack([self.div_x @ p, self.div_y @ p], dim=1)
+        if self.mf_pair is not None:
+            return self.mf_pair.split(p)
         if self.mf_dx is not None:
             return torch.stack([self.mf_dx.matvec(p), self.mf_dy.matvec(p)], dim=1)
         return calculus.gradient(self.mesh, p)
@@ -448,7 +461,8 @@ class StokesProblem:
 
 def _storage(config: StokesConfig, dev: torch.device) -> str:
     """The storage to try: ``"auto"`` becomes ``"auto_accel"`` (the grid
-    where the operator fits it, else CSR) on CUDA and ``"csr"`` elsewhere."""
+    where the operator fits it, else the stencil at ≥ 90 % coverage, else
+    CSR) on CUDA and ``"csr"`` elsewhere."""
     if config.cg_storage == "auto":
         return "auto_accel" if dev.type == "cuda" else "csr"
     return config.cg_storage
@@ -462,28 +476,52 @@ def _pressure_pin(mesh, config: StokesConfig) -> int:
     return int(np.nonzero(mesh.markers == 0)[0][0])
 
 
+def _materializer(storage: str, dtype, dev):
+    """tpufem's ``materialize`` (``tpufem/workloads/stokes.py:593-611``): the
+    storage of a CSR operator off the grid kernels.  ``"stencil"`` and
+    ``"banded"`` by name; the grid storages' operators outside the kernels
+    (div/grad, and the "report" variant's solves) on the stencil at ≥ 90 %
+    coverage, else CSR; ``"auto_accel"`` (``"auto"`` on CUDA) the stencil at
+    ≥ 90 %, else CSR where tpufem takes banded: on the H100 the band's
+    whole envelope made the 160,000-node Stokes step 3.1× slower than CSR
+    (``chip_smoke.py`` phase 47); anything else CSR."""
+    def materialize(csr):
+        if storage == "banded":
+            return BandedOperator.build(csr, dtype=dtype, device=dev)
+        if storage == "stencil":
+            return StencilOperator.build(csr, dtype=dtype, device=dev)
+        if storage in ("grid", "grid_interpret", "auto_accel"):
+            return stencil_or_csr(csr, dtype, dev)
+        return csr.astype(dtype, dev)
+
+    return materialize
+
+
 def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     """(viscous solver, pressure solver, Dx, Dy, smoothing solver, pressure
     pin) of the scale regime.
 
     Storage, as tpufem decides it (``tpufem/workloads/stokes.py:589-670``):
     ``"auto"`` takes the grid on CUDA when the run is f32, N = ns² and the
-    operator covers ≥ 90 % of its entries with grid planes, else CSR (tpufem
-    falls back to stencil or banded storage there, which are not ported).
-    ``"grid"`` runs the kernels at f32 and f64; ``"grid_interpret"`` takes
-    the grid storage with the kernels' plain versions on every device (the
-    mesh is grid-numbered by then: ``StokesProblem.build`` renumbers it).
-    The operators take the card kernels' split
-    (:meth:`~tpufem_torch.ops.gridop.GridOperator.dense_split`) on every
-    device, so the kernels and their plain versions apply one split; it is
-    tpufem's wherever tpufem's TPU caps on the remainder do not bind.
+    operator covers ≥ 90 % of its entries with grid planes, else the
+    stencil at ≥ 90 % coverage, else CSR where tpufem takes banded
+    (:func:`_materializer`); on the CPU it is CSR.  ``"stencil"``,
+    ``"banded"`` and ``"csr"`` take their storage for every operator.
+    ``"grid"`` runs the kernels at f32 and f64; ``"grid_interpret"`` takes the grid storage with the kernels' plain
+    versions on every device (the mesh is grid-numbered by then:
+    ``StokesProblem.build`` renumbers it).  The operators take the card
+    kernels' split (:meth:`~tpufem_torch.ops.gridop.GridOperator.dense_split`)
+    on every device, so the kernels and their plain versions apply one
+    split; it is tpufem's wherever tpufem's TPU caps on the remainder do not
+    bind.  The div/grad operators the step applies between the kernels take
+    :func:`_materializer`'s rule: the stencil at ≥ 90 % coverage.
 
     The "report" variant pins the pressure, which the grid kernels do not
-    implement: as in tpufem, it takes CSR under every storage (the mesh
-    stays renumbered where ``"grid"`` asked for it), with a pinned
-    :class:`PressureCG` and, for ``pressure_smoothing > 0``, the (I + αK)
-    smoothing as a :class:`ViscousCG` masked at the pin (α for Δt·ν, the
-    viscous iteration cap and the pressure tolerance)."""
+    implement: as in tpufem, it takes the matrix-free solvers under every
+    storage (the mesh stays renumbered where ``"grid"`` asked for it), with
+    a pinned :class:`PressureCG` and, for ``pressure_smoothing > 0``, the
+    (I + αK) smoothing as a :class:`ViscousCG` masked at the pin (α for
+    Δt·ν, the viscous iteration cap and the pressure tolerance)."""
     from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
     from tpufem_torch.solve.pressure import owner_map
 
@@ -499,8 +537,8 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     # active: owns its dof and is carried by an element (pad_hole dummies are not)
     active_mask = ((owner == np.arange(n)) & (np.asarray(m_lumped) > 0)).astype(np.float64)
     coarse_dtype = torch.bfloat16 if config.cg_coarse_dtype == "bf16" else None
+    materialize = _materializer(storage, dtype, dev)
     dx_csr, dy_csr = calculus.divergence_csr_operators(mesh)
-    mf = (dx_csr.astype(dtype, dev), dy_csr.astype(dtype, dev))
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -535,15 +573,15 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
                     use_coarse=config.cg_precond == "twolevel", coarse_dtype=coarse_dtype,
                     plain=storage == "grid_interpret", **tpu_fields,
                 )
-                return visc, pressure, *mf, None, -1
+                return visc, pressure, materialize(dx_csr), materialize(dy_csr), None, -1
         except GridDecompositionError:
             if explicit:
                 raise  # asked for by name: say why it cannot be had
 
-    visc = ViscousCG(K=K_csr.astype(dtype, dev), interior_mask=t(interior_mask),
+    visc = ViscousCG(K=materialize(K_csr), interior_mask=t(interior_mask),
                      dt_nu=config.dt * config.nu, iters=config.cg_iters_visc,
                      tol=config.cg_tol_visc)
-    km = Km_csr.astype(dtype, dev)
+    km = materialize(Km_csr)
     lmax, tl = 0.0, None
     if config.cg_precond in ("chebyshev", "twolevel"):
         from tpufem_torch.solve.cg import estimate_lmax
@@ -570,7 +608,7 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
         pin_mask[pin] = 0.0
         smooth = ViscousCG(K=visc.K, interior_mask=t(pin_mask), dt_nu=config.pressure_smoothing,
                            iters=config.cg_iters_visc, tol=config.cg_tol_pressure)
-    return visc, pressure, *mf, smooth, pin
+    return visc, pressure, materialize(dx_csr), materialize(dy_csr), smooth, pin
 
 
 def _bc_field(mesh, boundary, inner_values, config) -> np.ndarray:
