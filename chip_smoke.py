@@ -5,7 +5,8 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 
 1. device: the card's name and power limit; TF32 off;
 2. build: kernels K1 (``tpufem_torch/csrc/fused_step_matvec.cu``),
-   K2/K3/K4 (``tpufem_torch/csrc/grid_cg.cu``), K5
+   K2/K3/K4 (``tpufem_torch/csrc/grid_cg.cu``, K3's bf16-plane variant
+   and its probes too), K5
    (``tpufem_torch/csrc/grid_step.cu``) and K6
    (``tpufem_torch/csrc/halo_rdma.cu``), one nvcc for each source, started
    together; K1's build report;
@@ -22,7 +23,8 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 7. the K2/K3 build report: seconds, registers and spills per instance, and
    for each instance its registers, spill stores, shared memory and blocks
    per SM (K2's f32 instances for an iteration that streams from HBM and
-   for one that fits in L2);
+   for one that fits in L2; K3's with bf16 preconditioner planes,
+   ``pressure_pb16``, and its probes);
 8. K2 and K3 against their plain versions on the card: f32 and f64 (and a
    bf16 coarse inverse for K3), fixed iterations and ``tol=1e-5`` from a
    warm start, at ``n_side=20`` (ragged 3×3 coarse blocks) and on the
@@ -124,16 +126,16 @@ all shards on the one card:
 Phases 27–30, the rest of the Stokes workload (no new kernel), run last:
 
 27. the gait campaign: ``sweep.food_capture_sweep`` on
-    ``generate_annulus_mesh(33, 48)`` (3 gaits × 6000 steps, f32 fused on
-    K1, 488 tracers), cold, then warm at 1000 steps a gait: wall seconds of
-    each gait and of the campaign, eaten counts and fractions (recorded, not
-    gated); K1 must run once a step of every gait and no other kernel; then
-    the f32 campaign on the card against the f64 one (LU, penalty) on the
-    CPU at 300 steps, fractions within 0.05;
+    ``generate_annulus_mesh(33, 48)`` (3 gaits × 3000 of their 6000 steps,
+    f32 fused on K1, 488 tracers), cold, then warm at 1000 steps a gait:
+    wall seconds of each gait and of the campaign, eaten counts and
+    fractions (recorded, not gated); K1 must run once a step of every gait
+    and no other kernel; then the f32 campaign on the card against the f64
+    one (LU, penalty) on the CPU at 300 steps, fractions within 0.05;
 28. Eulerian dye at scale: ``bench_large.bench_config(transport=
     "eulerian_dye")`` on phase 9's 1,048,576-node mesh, grid storage,
-    through ``StokesProblem.build`` and ``stokes.run``: 50 steps from rest
-    and 50 continued; K2 once and K3 twice a step; tpufem's scale gates,
+    through ``StokesProblem.build`` and ``stokes.run``: 25 steps from rest
+    and 25 continued; K2 once and K3 twice a step; tpufem's scale gates,
     c in [0, 1], mixing progress > 0; build seconds, steps/s, device ms a
     step by kernel and the dye solve's share;
 29. Eulerian dye at f64, card against CPU: the dense penalty path on
@@ -213,11 +215,12 @@ Phases 39–42, the ensembles, the one-program gait campaign, TopK and bf16
 40. the gait campaign as one sharded program:
     ``sweep.food_capture_sweep_sharded`` on phase 27's mesh, one gait a
     "data" position on the card (``run_sharded`` replays one CUDA graph a
-    step), cold and warm: campaign seconds, fractions within 0.05 of phase
-    27's; at B = 3 and 8 gaits, steps/s of the graph run and of the eager
-    steps, kernels and device ms a step and the busy share (profiler), the
-    count at B = 8 no more than 5 % above B = 3; eaten counts at 300 steps
-    within 2 of phase 27's f32 campaign (tpufem's own gate);
+    step), cold and warm at phase 27's 3000 steps a gait: campaign
+    seconds, fractions within 0.05 of phase 27's; at B = 3 and 8 gaits,
+    steps/s of the graph run and of the eager steps, kernels and device ms
+    a step and the busy share (profiler), the count at B = 8 no more than
+    5 % above B = 3; eaten counts at 300 steps within 2 of phase 27's f32
+    campaign (tpufem's own gate);
 41. the geometry ensemble: ``MultiMeshEnsemble`` over 8
     ``generate_annulus_mesh(64, 72, pad_hole=True, jitter=0.15, seed=k)``
     (4,096 nodes each), tracers, f32 merge, 8 data positions on the card,
@@ -283,6 +286,29 @@ kernel of their own), run after phase 43 on phase 9's problem:
     over 3 steps, each within 1e-10; (6) the sharded step on the stencil
     at 160,000 nodes, 4 strips on one card, 3 steps: steps/s, kernels a
     step, the busy share.
+
+Phase 48, K3's bf16 preconditioner planes (``cg_precond_bf16="on"``) and
+its probes (``probe="nofma"|"nodma"``, ``roofline.probes``), run after
+phase 47 on phase 9's problem and on the same mesh built with ``"on"``:
+
+48. (a) the bf16-plane K3 against its plain version at ``n_side=20`` (64
+    coarse nodes, streamed) and at 1,048,576 nodes: f64 (≤ 1e-9 at fixed
+    iterations) and f32, fixed 60 iterations and tol 1e-5 from a warm
+    start, repeats bit-equal; at 10 fixed iterations, short of
+    convergence, the f64 kernel within 1e-9 of its plain version and 100
+    times farther from the full-plane one, the f32 kernel within 5e-3 of
+    the f64 one; K3's ms an iteration with full and bf16 planes in turns
+    against both bounds; (b) each probe kernel against its plain probe
+    (f32, f32 and bf16 coarse inverses, 10 iterations) at both sizes; (c)
+    at f64 on ``n_side=20``, u ``"on"`` against ``"off"`` after 20 steps
+    from rest above 1e-12; the Scale cell ``"off"`` against ``"on"``: u
+    apart (not equal) after 20 steps from rest, 200 steps
+    from rest under tpufem's gates (scale divergence < 0.05), then turns
+    off on on off, twice, of 200 warm steps: steps/s, pressure iterations a
+    solve, K2 1 and K3 2 launches a step, the bf16-plane K3 2 a step "on";
+    device ms a step (profiler); (d) ``roofline.probes`` at 1,048,576,
+    160,000 and on the 192² raster: µs an iteration of real, nofma and
+    nodma.
 
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
@@ -380,6 +406,7 @@ def zero_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
     fm.fused_step_matvec.launches = 0
     grid_cg.viscous_cg.launches = grid_cg.pressure_cg.launches = grid_cg.ns_bicgstab.launches = 0
+    grid_cg.pressure_cg.variant_launches = dict.fromkeys(grid_cg.pressure_cg.variant_launches, 0)
     gs.grid_step.launches = 0
     rdma.halo_rdma.launches = 0
 
@@ -465,8 +492,12 @@ def instance_label(mangled: str) -> str:
     field type equal to the first left out; the first integer is the
     columns, a second the blocks per SM of the register budget:
     ``viscous_cg f32 C=2 5/SM`` for viscous_cg_kernel<float, 2, 5>)."""
-    m = re.search(r"\d+([a-z][a-z_]*?)_kernelI(.*?)EEv", mangled)
-    if m is None:
+    # after the anonymous namespace, whose length-prefixed name holds digits
+    # and letters: _ZN43_GLOBAL__N__0a55d2b6_10_grid_cg_cu_fbf26e8a20pressure_…
+    ns = re.match(r"_ZN(\d+)", mangled)
+    m = ns and re.match(r"\d+([a-z][a-z0-9_]*?)_kernelI(.*?)EEv",
+                        mangled[ns.end() + int(ns.group(1)):])
+    if not m:
         return mangled
     args = []
     for t in re.finditer(r"\d+__nv_bfloat16|Li(\d+)E|[fd]", m.group(2)):
@@ -637,7 +668,7 @@ def phase_grid_build(seconds: float) -> None:
     blocks = grid_cg.blocks_per_sm()
     print(f"[7 build] K2/K3 ({grid_cg.library_path().name}) within the {seconds:.2f} s "
           f"parallel build: {ptxas_report(grid_cg.library_path())}")
-    for entry in ("viscous_cg", "pressure_cg"):
+    for entry in ("viscous_cg", "pressure_"):
         for line in instance_report(grid_cg.library_path(), blocks, entry):
             print(f"[7 build]   {line}")
 
@@ -1695,8 +1726,10 @@ def phase_sharded_parity(devs, steps: int = SHARDED_PARITY_STEPS) -> None:
 
 SWEEP_MESH = (33, 48)  # 852 nodes, tracer_density 25: 488 tracers
 SWEEP_PARITY_STEPS = 300
-SWEEP_WARM_STEPS = 1000  # the warm campaign's steps a gait (the cold one runs all 6000)
-EUL_STEPS = 50
+SWEEP_WARM_STEPS = 1000  # the warm campaign's steps a gait
+# the cold campaign's steps a gait (of its 6000), phase 40's sharded one's too
+SWEEP_COLD_STEPS = 3000
+EUL_STEPS = 25
 EUL_PROFILE_STEPS = 5
 EUL_DENSE_MESH = (12, 16)
 EUL_DENSE_STEPS = 20
@@ -1715,13 +1748,13 @@ EUL_PENALTY_C_RTOL = 5e-3
 
 
 def phase_sweep(dev) -> tuple:
-    """The port's gait campaign cold (6000 steps a gait) and warm
+    """The port's gait campaign cold (SWEEP_COLD_STEPS a gait) and warm
     (SWEEP_WARM_STEPS), K1 on every step of every gait; then its f32
     fractions on the card against the f64 ones on the CPU at
     SWEEP_PARITY_STEPS.  Returns (the cold campaign's results, the f32 card
     campaign's at SWEEP_PARITY_STEPS) for phase 40."""
     mesh = generate_annulus_mesh(*SWEEP_MESH)
-    full = sweep.SweepConfig()
+    full = dataclasses.replace(sweep.SweepConfig(), steps=SWEEP_COLD_STEPS)
     results = {}
     for run, cfg in (("cold", full), ("warm", dataclasses.replace(full, steps=SWEEP_WARM_STEPS))):
         zero_launches()
@@ -2571,7 +2604,7 @@ def phase_sweep_sharded(dev, sequential) -> None:
     "data" position), cold and warm, beside phase 27's sequential one."""
     seq_full, seq_short = sequential
     mesh = generate_annulus_mesh(*SWEEP_MESH)
-    cfg = sweep.SweepConfig()
+    cfg = dataclasses.replace(sweep.SweepConfig(), steps=SWEEP_COLD_STEPS)
     dm = build_device_mesh(devices=[dev] * len(cfg.b2_values), data=len(cfg.b2_values))
     for run in ("cold", "warm"):
         zero_launches()
@@ -3278,6 +3311,297 @@ def phase_storages(dev, big) -> None:
     print(f"[47 seconds] by item: {seconds}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 48: K3's bf16 preconditioner planes and its probes
+# ---------------------------------------------------------------------------
+
+PB16_SMALL = (20, 24)  # phase 8's small size, with 64 coarse nodes, streamed
+PB16_F32_RTOL = 5e-3  # the f32 kernel against the f64 one, fixed iterations
+# (a) is held short of convergence, where the answer still depends on the
+# preconditioner: PB16_SHORT_ITERS fixed iterations from zero, as the
+# probes'.  There the f64 kernel must sit PB16_GAP times farther from the
+# full-plane plain version than from its own, so that a kernel that reads
+# the full planes, or misreads K̃, fails
+PB16_SHORT_ITERS = 10
+PB16_GAP = 100
+# (c) at f64 on PB16_SMALL: u "on" against "off" after PB16_PARITY_STEPS
+# must exceed this, ~4500 f64 ε (a whole f64 K3 solve and its plain
+# version part by ~3e-16 there; the plain versions' u gap is 4.1e-9 on the
+# CPU)
+PB16_F64_U_GAP = 1e-12
+# the probes against their plain versions: f64 over PROBE_ITERS fixed
+# iterations (as GRID_RTOL's f64), f32 over PROBE_F32_ITERS (GRID_RTOL's
+# f32): nofma's CG on the remainder alone grows its iterate ~10⁶× in 10
+# iterations at n_side=20 and its f32 kernel and plain version part by
+# 1.6e-3 there (measured on the card)
+PROBE_ITERS = 10
+PROBE_F32_ITERS = 3
+PB16_TIMED_ITERS = 120  # K3's ms an iteration: fixed solves of this many, in turns
+PB16_TIMED_REPS = 5
+PB16_PARITY_STEPS = 20  # "on" against "off" from rest: u apart
+PB16_TURN_STEPS = 200  # warm steps a turn
+PB16_PROFILE_STEPS = 50
+PROBE_SIZES = (("160k", 400, 448), ("192²", 192, 208))  # besides phase 9's 1.05M
+PROBE_REPS = 5
+
+
+def pb16_cast(pres, dtype, coarse_dtype):
+    """``k3_cast`` of a solver with bf16 preconditioner planes: K̃'s
+    remainder cast with the fields, its planes left in bf16."""
+    out = k3_cast(pres, dtype, coarse_dtype)
+    Kp = pres.K_pre
+    return dataclasses.replace(out, K_pre=dataclasses.replace(Kp, rest_vals=Kp.rest_vals.to(dtype)))
+
+
+def full_planes(pres):
+    """``pres`` with the full planes in its preconditioner ("off")."""
+    return dataclasses.replace(pres, K_pre=None)
+
+
+def pb16_kernel_checks(label: str, pres, dev, calls: int, plain_calls: int) -> dict:
+    """(a) the bf16-plane K3 against its plain version: f64 and f32 (the
+    problem's coarse inverse), fixed iterations from zero and tol 1e-5
+    from a warm start (GRID_RTOL), repeats bit-equal, its variant launched;
+    then PB16_SHORT_ITERS fixed iterations from zero: the f64 kernel
+    within GRID_RTOL of its plain version and PB16_GAP times farther from
+    the full-plane one, the f32 kernel within PB16_F32_RTOL of the f64 one.
+    Returns the f32 tol 1e-5 numbers."""
+    rng = np.random.default_rng(48)
+    ns = pres.K.ns
+    b64 = torch.as_tensor(rng.standard_normal((ns, ns)), dtype=torch.float64, device=dev)
+    short, out = {}, {}
+    for dtype, coarse in ((torch.float64, torch.float64), (torch.float32, pres.ac_inv.dtype)):
+        s = pb16_cast(pres, dtype, coarse)
+        b = b64.to(dtype) * s.act_grid
+        n0 = grid_cg.pressure_cg.variant_launches["pb16"]
+        out = check_cg_cases(48, f"K3 bf16 planes {str(dtype)[6:]} coarse {str(coarse)[6:]} at "
+                             f"{label}", grid_cg.pressure_cg, grid_cg.pressure_cg_ref, s, b, calls,
+                             plain_calls)
+        check(grid_cg.pressure_cg.variant_launches["pb16"] > n0,
+              f"the bf16-plane K3 did not launch at {label}")
+        short[dtype] = (dataclasses.replace(s, tol=0.0, iters=PB16_SHORT_ITERS), b)
+    s, b = short[torch.float64]
+    x0 = torch.zeros_like(b)
+    got = grid_cg.pressure_cg(s, b, x0)
+    err = rel(got, grid_cg.pressure_cg_ref(s, b, x0))
+    gap = rel(got, grid_cg.pressure_cg_ref(full_planes(s), b, x0))
+    s32, b32 = short[torch.float32]
+    d = rel(grid_cg.pressure_cg(s32, b32, torch.zeros_like(b32)), got)
+    print(f"[48 kernel] K3 bf16 planes at {label}, {PB16_SHORT_ITERS} fixed iterations from "
+          f"zero: f64 kernel against its plain version rel L2 {err:.3e} (<= "
+          f"{GRID_RTOL[(torch.float64, 0.0)]:g}), against the full-plane plain version "
+          f"{gap:.3e} (>= {PB16_GAP} x); f32 against f64 {d:.3e} (<= {PB16_F32_RTOL:g})")
+    check(err <= GRID_RTOL[(torch.float64, 0.0)], f"bf16-plane K3 f64 at {label}: rel {err}")
+    check(gap >= PB16_GAP * err and gap > 0,
+          f"bf16-plane K3 f64 at {label}: {gap} from the full-plane solve, {err} from K̃'s")
+    check(d <= PB16_F32_RTOL, f"bf16-plane K3 f32 against f64 at {label}: {d}")
+    return out
+
+
+def probe_kernel_checks(label: str, pres, dev) -> None:
+    """(b) each probe kernel against its plain probe, repeats bit-equal:
+    f64 (f64 coarse inverse) over PROBE_ITERS fixed iterations, f32 with
+    the f32 and bf16 coarse inverses over PROBE_F32_ITERS."""
+    rng = np.random.default_rng(49)
+    ns = pres.K.ns
+    b64 = torch.as_tensor(rng.standard_normal((ns, ns)), dtype=torch.float64, device=dev)
+    parts = []
+    for dtype, coarse, iters in ((torch.float64, torch.float64, PROBE_ITERS),
+                                 (torch.float32, torch.float32, PROBE_F32_ITERS),
+                                 (torch.float32, torch.bfloat16, PROBE_F32_ITERS)):
+        base = dataclasses.replace(k3_cast(full_planes(pres), dtype, coarse), tol=0.0,
+                                   iters=iters)
+        b = b64.to(dtype)
+        rtol = GRID_RTOL[(dtype, 0.0)]
+        bb = b * base.act_grid
+        real = grid_cg.pressure_cg(base, bb, torch.zeros_like(bb))
+        for probe in ("nofma", "nodma"):
+            s = dataclasses.replace(base, probe=probe)
+            n0 = grid_cg.pressure_cg.variant_launches[probe]
+            y1 = grid_cg.pressure_cg(s, bb, torch.zeros_like(bb))
+            y2 = grid_cg.pressure_cg(s, bb, torch.zeros_like(bb))
+            want = grid_cg.pressure_cg_ref(s, bb, torch.zeros_like(bb))
+            torch.cuda.synchronize()
+            err = rel(y1, want)
+            parts.append(f"{probe} {str(dtype)[6:]} coarse {str(coarse)[6:]}, {iters} it.: rel "
+                         f"{err:.3e} (<= {rtol:g}; from the real solve {rel(y1, real):.2e})")
+            check(grid_cg.pressure_cg.variant_launches[probe] == n0 + 2,
+                  f"{probe} launched {grid_cg.pressure_cg.variant_launches[probe] - n0} times")
+            check(torch.equal(y1, y2), f"{probe} at {label}: repeats differ")
+            check(bool(torch.isfinite(y1).all()) and err <= rtol,
+                  f"{probe} {dtype} coarse {coarse} at {label}: rel {err}")
+    print(f"[48 probes] {label}, kernel against plain from zero, repeats bit-equal: "
+          + "; ".join(parts))
+
+
+def pb16_iteration_ms(big_on, dev) -> dict:
+    """K3's ms an iteration (f32, the problem's coarse inverse) with full
+    planes and with bf16 preconditioner planes: fixed solves of
+    PB16_TIMED_ITERS from zero, off and on in turns, PB16_TIMED_REPS
+    each, against both bounds (roofline.iteration_bound)."""
+    rng = np.random.default_rng(50)
+    on = dataclasses.replace(big_on.pressure_solver, tol=0.0, iters=PB16_TIMED_ITERS)
+    solvers = {"off": full_planes(on), "on": on}
+    b = torch.as_tensor(rng.standard_normal((on.K.ns, on.K.ns)), dtype=torch.float32,
+                        device=dev) * on.act_grid
+    x0 = torch.zeros_like(b)
+    for sv in solvers.values():
+        grid_cg.pressure_cg(sv, b, x0)
+    ms = {"off": [], "on": []}
+    for _ in range(PB16_TIMED_REPS):
+        for label, sv in solvers.items():
+            ms[label].append(solve_timed_ms(grid_cg.pressure_cg, sv, b, x0, 1) / PB16_TIMED_ITERS)
+    bounds = {"off": iteration_bound("K3", on.K, 1, on.ac_inv),
+              "on": iteration_bound("K3", on.K, 1, on.ac_inv, K_pre=on.K_pre)}
+    print(f"[48 iteration] K3 f32 at {big_on.mesh.n_nodes} nodes ({len(on.K.offsets)} planes, "
+          f"K̃ {on.K_pre.n_rest - on.K.n_rest} entries moved to its remainder), ms an iteration "
+          f"({PB16_TIMED_ITERS}-iteration solves in turns): full planes "
+          f"{min(ms['off']):.4f}–{max(ms['off']):.4f} (bound {bounds['off']:.4f}), bf16 planes "
+          f"{min(ms['on']):.4f}–{max(ms['on']):.4f} (bound {bounds['on']:.4f})")
+    return {"ms": ms, "bounds": bounds}
+
+
+def pb16_scale_ab(big, big_on) -> int:
+    """(c) the Scale cell "off" (phase 9's problem) against "on": u apart
+    after PB16_PARITY_STEPS from rest; each SCALE_STEPS from rest under
+    tpufem's gates; then turns off on on off, twice, of PB16_TURN_STEPS warm
+    steps (steps/s, pressure iterations a solve, K2 1 and K3 2 launches a
+    step, the bf16-plane K3 2 a step "on" and 0 "off"); device ms a step
+    (profiler).  Returns the bf16-plane K3's launches in the first "on"
+    turn (the main path's)."""
+    runs = {"off": big, "on": big_on}
+    du = rel(stokes.run(big_on, steps=PB16_PARITY_STEPS)[0]["u"],
+             stokes.run(big, steps=PB16_PARITY_STEPS)[0]["u"])
+    # both runs repeat bit-equal (the kernels' checks), so any gap is the
+    # planes'; its size against roundoff is held at f64 (pb16_u_gap_f64)
+    check(du > 0, f"u after {PB16_PARITY_STEPS} steps: on equals off")
+    counted, warm, phys, rest_iters = {}, {}, {}, {}
+    for label, problem in runs.items():
+        counted[label] = bench_large.with_iteration_counters(problem)
+        state, metrics = stokes.run(counted[label][0], steps=SCALE_STEPS)
+        for k, v in {**state, **metrics}.items():
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"{label}: {k} is finite")
+        phys[label] = bench_large.physics_report(counted[label][0], state, metrics, SCALE_STEPS)
+        rest_iters[label] = bench_large.iterations_per_solve(counted[label][1], SCALE_STEPS)
+        warm[label] = state
+    turns, iters, main_launches = {}, {}, None
+    for label in ("off", "on", "on", "off") * 2:
+        problem, counters = counted[label]
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stokes.run(problem, steps=PB16_TURN_STEPS, state=warm[label])
+        torch.cuda.synchronize()
+        turns.setdefault(label, []).append(PB16_TURN_STEPS / (time.perf_counter() - t0))
+        counts = launch_counts()
+        pb16 = grid_cg.pressure_cg.variant_launches["pb16"]
+        check(counts == {"K1": 0, "K2": PB16_TURN_STEPS, "K3": 2 * PB16_TURN_STEPS, "K4": 0,
+                         "K5": 0, "K6": 0}, f"{label}: launches {counts}")
+        check(pb16 == (2 * PB16_TURN_STEPS if label == "on" else 0),
+              f"{label}: the bf16-plane K3 launched {pb16} times")
+        if label == "on" and main_launches is None:
+            main_launches = pb16
+        iters.setdefault(label, []).append(
+            bench_large.iterations_per_solve(counters, PB16_TURN_STEPS)["pressure"])
+    prof = {label: profile_steps(counted[label][0], PB16_PROFILE_STEPS, state=warm[label])
+            for label in runs}
+    print(f"[48 scale] {big.mesh.n_nodes} nodes, u after {PB16_PARITY_STEPS} steps from rest "
+          f"on against off rel {du:.3e}; {SCALE_STEPS} steps from rest: pressure iterations a "
+          f"solve off {rest_iters['off']['pressure']:.2f} on {rest_iters['on']['pressure']:.2f}, "
+          f"gates off {json.dumps(phys['off'])} on {json.dumps(phys['on'])}")
+    print(f"[48 scale] turns (off on on off) × 2 of {PB16_TURN_STEPS} warm steps, K2 1, K3 2 and "
+          f"the bf16-plane K3 2 (on) / 0 (off) a step in every turn: warm steps/s "
+          f"{turns_text(turns)}; pressure iterations a solve "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs) for k, vs in iters.items())
+          + "; device ms and kernels a step (profiler, "
+          + f"{PB16_PROFILE_STEPS} steps) "
+          + "; ".join(f"{k} {p['device_ms_per_step']:.4f} ms, {p['kernels_per_step']:.1f}"
+                      for k, p in prof.items())
+          + "; K3's share " + "; ".join(
+              f"{k} " + ", ".join(f"{t['ms_per_step']:.4f} ms" for t in p["top"]
+                                  if "pressure" in t["name"]) for k, p in prof.items()))
+    return main_launches
+
+
+def pb16_u_gap_f64(dev) -> None:
+    """(c) at f64 on PB16_SMALL, through StokesProblem.build and
+    stokes.run: u "on" against "off" after PB16_PARITY_STEPS from rest
+    exceeds PB16_F64_U_GAP, the bf16-plane K3 launched twice a step "on"."""
+    u = {}
+    for mode in ("off", "on"):
+        problem = scale_problem(dev, *PB16_SMALL, cg_coarse_nodes=64, cg_stream_diags="on",
+                                cg_precond_bf16=mode, precision="f64")
+        n0 = grid_cg.pressure_cg.variant_launches["pb16"]
+        u[mode] = stokes.run(problem, steps=PB16_PARITY_STEPS)[0]["u"]
+        pb16 = grid_cg.pressure_cg.variant_launches["pb16"] - n0
+        check(pb16 == (2 * PB16_PARITY_STEPS if mode == "on" else 0),
+              f"f64 {mode}: the bf16-plane K3 launched {pb16} times")
+    du = rel(u["on"], u["off"])
+    print(f"[48 scale] f64 at n_side={PB16_SMALL[0]}, u after {PB16_PARITY_STEPS} steps from rest "
+          f"on against off rel {du:.3e} (>= {PB16_F64_U_GAP:g})")
+    check(bool(torch.isfinite(u["on"]).all()) and du >= PB16_F64_U_GAP,
+          f"f64 u on against off: {du}")
+
+
+def pb16_probes(dev, big) -> None:
+    """(d) roofline.probes at 1,048,576 nodes (phase 9's problem), 160,000
+    and on the 192² raster: µs an iteration of real, nofma and nodma."""
+    parts = []
+    for label, n_side, n_circle in (("1.05M", None, None), *PROBE_SIZES):
+        problem = big if n_side is None else roofline.build_problem(n_side, n_circle,
+                                                                    device=dev)[0]
+        before = dict(grid_cg.pressure_cg.variant_launches)
+        rows = roofline.probe_problem(problem, reps=PROBE_REPS, label=label)
+        for p in ("nofma", "nodma"):
+            check(grid_cg.pressure_cg.variant_launches[p] - before[p] == PROBE_REPS + 1,
+                  f"{label}: {p} launches")
+        us = {r["probe"]: r["us_per_p_iter"] for r in rows}
+        ps = problem.pressure_solver
+        parts.append(f"{label} ({rows[0]['n_nodes']} nodes, {len(ps.K.offsets)} planes) real "
+                     f"{us['real']:.2f} nofma {us['nofma']:.2f} nodma {us['nodma']:.2f}, bound "
+                     f"{1e3 * iteration_bound('K3', ps.K, 1, ps.ac_inv):.2f}")
+    print(f"[48 probes] µs an iteration, {rows[0]['iters_p']} fixed, best of {PROBE_REPS} in "
+          f"turns: " + "; ".join(parts))
+
+
+def phase_precond_bf16(dev, big) -> dict:
+    """Phase 48; returns the bf16-plane K3's numbers for the kernels line
+    (f32 at 1,048,576 nodes, its launches in the main path's "on" turn)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    small = scale_problem(dev, *PB16_SMALL, cg_coarse_nodes=64, cg_stream_diags="on",
+                          cg_precond_bf16="on")
+    big_on = stokes.StokesProblem.build(
+        big.mesh, dataclasses.replace(big.config, cg_precond_bf16="on"), device=dev)
+    on = big_on.pressure_solver
+    check(on.K_pre is not None and small.pressure_solver.K_pre is not None,
+          "the gate takes the bf16 planes")
+    check(on.K_pre.offsets == on.K.offsets and on.K_pre.diags.dtype == torch.bfloat16,
+          "K̃ holds bf16 planes on K's offsets")
+    seconds["build"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    pb16_kernel_checks(f"n_side={PB16_SMALL[0]}", small.pressure_solver, dev, 20, 5)
+    numbers = pb16_kernel_checks(f"{big.mesh.n_nodes} nodes", on, dev, 5, 2)
+    iters = numbers.pop("iters")
+    numbers.update(solve_bound("K3", on.K, 1, iters, on.ac_inv, K_pre=on.K_pre))
+    numbers["iteration"] = pb16_iteration_ms(big_on, dev)
+    seconds["a"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    probe_kernel_checks(f"n_side={PB16_SMALL[0]}", small.pressure_solver, dev)
+    probe_kernel_checks(f"{big.mesh.n_nodes} nodes", on, dev)
+    seconds["b"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    pb16_u_gap_f64(dev)
+    numbers["launches"] = pb16_scale_ab(big, big_on)
+    seconds["c"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    pb16_probes(dev, big)
+    seconds["d"] = round(time.perf_counter() - t0, 1)
+    print(f"[48 seconds] by item: {seconds}")
+    return numbers
+
+
 def cli_json(argv: list) -> list:
     """Run ``python -m tpufem_torch`` in process on ``argv``: echo its
     output, return its JSON lines."""
@@ -3446,6 +3770,7 @@ def main() -> None:
     k6_main, k6_launches = sharded_phases([dev] * SHARDS, big, build_s)
     timed(43, phase_diag, dev, big)
     timed(47, phase_storages, dev, big)
+    pb16_main = timed(48, phase_precond_bf16, dev, big)
     scale_mesh = big.mesh
     del big, k5_problems, unfused, old_ops
     torch.cuda.empty_cache()
@@ -3489,6 +3814,9 @@ def main() -> None:
             ("K3", "pressure_cg", "tpufem/solve/pallas_cg.py:1275", grid_launches["K3"]),
             ("K4", "ns_bicgstab", "tpufem/solve/pallas_cg.py:1844", ns_launches["K4"])):
         numbers = grid_main[key] if key != "K4" else k4_main
+        if key == "K3":  # and its bf16-plane variant (phase 48)
+            numbers = {**numbers, **{f"bf16_planes_{k}": pb16_main[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
         kernels.append({"name": name, "route": "cuda", "source": "tpufem_torch/csrc/grid_cg.cu",
                         "replaces": replaces, "launches": count, **numbers})
     kernels.append({"name": "grid_step", "route": "cuda",

@@ -62,7 +62,8 @@ def _viscous(tol: float):
     return jv, tv
 
 
-def _pressure(tol: float, target: int, use_coarse: bool, dtype=torch.float64, coarse=None):
+def _pressure(tol: float, target: int, use_coarse: bool, dtype=torch.float64, coarse=None,
+              **port_kw):
     s = _setup()
     b = s["boundary"]
     jdt = {torch.float64: jnp.float64, torch.float32: jnp.float32}[dtype]
@@ -72,7 +73,7 @@ def _pressure(tol: float, target: int, use_coarse: bool, dtype=torch.float64, co
     jp = JPressure.build(s["Km"][0], jG, s["ml"], b.masters, b.slaves, s["act"], interpret=True,
                          coarse_dtype=jnp.bfloat16 if coarse == "bf16" else None, **common)
     tp = grid_cg.PressureGridCG.build(s["Km"][1], tG, s["ml"], b.masters, b.slaves, s["act"],
-                                      plain=True, **common,
+                                      plain=True, **common, **port_kw,
                                       coarse_dtype=torch.bfloat16 if coarse == "bf16" else None)
     return jp, tp
 
@@ -238,12 +239,22 @@ def test_wrappers_take_the_plain_versions_on_cpu():
 
 
 def test_tpu_only_fields_refused_or_ignored():
+    """The TPU memory fields are ignored; ``precond_bf16`` is ignored off
+    tpufem's gate (the streamed regime) and gives the preconditioner bf16
+    planes on it; ``probe`` selects a measurement variant, an unknown one
+    is refused."""
     _, tp = _pressure(0.0, 64, True)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tp, precond_bf16=True)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tp, probe="nodma")
+    b = torch.as_tensor(np.random.default_rng(15).standard_normal(NS * NS))
+    _, unstreamed = _pressure(0.0, 64, True, precond_bf16=True)
+    assert unstreamed.K_pre is None
+    torch.testing.assert_close(unstreamed.solve(b), tp.solve(b), rtol=0, atol=0)
+    _, on = _pressure(0.0, 64, True, precond_bf16=True, stream_diags=True)
+    assert on.K_pre is not None
+    short = {k: dataclasses.replace(v, iters=5).solve(b).numpy() for k, v in (("on", on), ("off", tp))}
+    assert rel(short["on"], short["off"]) > 1e-8  # before CG has converged
+    with pytest.raises(ValueError, match="probe"):
+        dataclasses.replace(tp, probe="nodram")
+    assert rel(dataclasses.replace(tp, probe="nodma").solve(b).numpy(), tp.solve(b).numpy()) > 1e-3
     streamed = dataclasses.replace(tp, stream_diags=True, stream_loop=True, hbm_io=True,
                                    stream_chunk=2, lean=True)
-    b = torch.as_tensor(np.random.default_rng(15).standard_normal(NS * NS))
     torch.testing.assert_close(streamed.solve(b), tp.solve(b), rtol=0, atol=0)

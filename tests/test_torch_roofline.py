@@ -47,6 +47,25 @@ def test_bounds_match_a_hand_count():
     assert roofline.bound(0.0, 67e12)["bound_by"] == "operations"
 
 
+def test_bf16_preconditioner_planes_match_a_hand_count():
+    """K3 under precond_bf16: the CG's apply reads K's f32 planes, the
+    preconditioner's two applies K̃'s bf16 planes and its remainder at the
+    field's width; a whole solve reads both operators once."""
+    K = small_operator()
+    K_pre = small_operator(n_rest=9, dtype=torch.bfloat16)
+    op = (5 * 400 + 3 * 7) * 4
+    pre = 5 * 400 * 2 + 3 * 9 * 4
+    ac = torch.zeros((64, 64), dtype=torch.bfloat16)
+    nbytes = op + 2 * pre + 17 * 400 * 4 + 64 * 64 * 2
+    assert roofline.iteration_bytes("K3", K, 1, ac, K_pre=K_pre) == nbytes
+    assert roofline.iteration_bound("K3", K, 1, ac, K_pre=K_pre) == nbytes / HBM * 1e3
+    assert (roofline.iteration_bytes("K3", K, 1, ac)
+            - roofline.iteration_bytes("K3", K, 1, ac, K_pre=K_pre)) == 2 * (op - pre)
+    got = roofline.solve_bound("K3", K, 1, 10, ac, K_pre=K_pre)
+    flops = 11 * ((3 * 2 * 5 + 30) * 400 + 2 * 64 * 64)
+    assert got == roofline.bound(op + pre + 5 * 400 * 4 + 64 * 64 * 2, flops)
+
+
 @pytest.mark.parametrize("storage", ["csr", "stencil", "banded", "grid"])
 def test_apply_bound_matches_a_hand_count(storage):
     """One apply of each storage (f32, two columns): x and y once, the
@@ -123,3 +142,26 @@ def test_ab_rows_one_per_knob():
 def test_measure_refuses_a_problem_off_the_grid_storage():
     with pytest.raises(ValueError, match="grid storage"):
         roofline.measure(12, 16, iters_p=2, iters_v=2, reps=1, storage="csr", device="cpu")
+
+
+def test_probes_rows_have_tpufems_keys():
+    rows = roofline.probes(28, 32, iters_p=3, reps=1, label="toy", storage="grid_interpret",
+                           device="cpu")
+    assert [r["probe"] for r in rows] == ["real", "nofma", "nodma"]
+    for r in rows:
+        assert set(r) == {"label", "n_nodes", "ns", "probe", "iters_p", "reps", "t_pressure_s",
+                          "us_per_p_iter"}
+        assert r["label"] == "toy" and r["n_nodes"] == r["ns"] ** 2 == 28 * 28
+        assert r["iters_p"] == 3 and r["reps"] == 1 and r["t_pressure_s"] > 0
+        assert r["us_per_p_iter"] == pytest.approx(r["t_pressure_s"] / 3 * 1e6)
+
+
+def test_ab_takes_the_bf16_preconditioner_planes():
+    """``{"cg_precond_bf16": "on"}`` in the streamed regime: the two
+    preconditioner applies read bf16 planes, two bytes an entry fewer each."""
+    knobs = [{"cg_stream_diags": "on"}, {"cg_stream_diags": "on", "cg_precond_bf16": "on"}]
+    rows = roofline.ab(28, 32, knobs, iters_p=4, iters_v=2, reps=1, storage="grid_interpret",
+                       device="cpu")
+    assert rows[0]["n_off_p"] == rows[1]["n_off_p"]
+    diff = rows[0]["bytes_per_p_iter"] - rows[1]["bytes_per_p_iter"]
+    assert diff == 2 * rows[0]["n_off_p"] * 28 * 28 * 2

@@ -135,7 +135,7 @@ def test_f32_port_tracks_tpufem_f64():
 @pytest.mark.parametrize(
     "kw,error",
     [
-        (dict(solver="cg", cg_precond_bf16="on"), NotImplementedError),
+        (dict(solver="cg", cg_precond_bf16="yes"), ValueError),
         (dict(precision="bf16", pressure_mode="merge"), ValueError),
         (dict(precision="f32", pressure_mode="penalty"), ValueError),
         (dict(fused=True), ValueError),

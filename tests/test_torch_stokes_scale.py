@@ -170,11 +170,17 @@ def test_grid_steps_per_call_builds_k5():
 
 
 @pytest.mark.parametrize(
-    "storage,kw,item",
+    "storage,kw,field",
     [
-        ("grid", dict(cg_precond_bf16="on"), "item 6"),
+        ("grid", dict(cg_precond_bf16="yes"), "cg_precond_bf16"),
     ],
 )
-def test_unported_scale_settings_refused(storage, kw, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+def test_unported_scale_settings_refused(storage, kw, field):
+    """A value tpufem does not know is refused; ``cg_precond_bf16="on"``
+    builds, and below tpufem's streamed size (360,000 nodes, with
+    ``cg_stream_diags="auto"``) the preconditioner keeps its full planes,
+    as tpufem's does."""
+    with pytest.raises(ValueError, match=field):
         _port_problem(storage, **kw)
+    ps = _port_problem(storage, **{field: "on"}).pressure_solver
+    assert ps.K_pre is None and ps.K_precond is ps.K

@@ -8,7 +8,11 @@
 //       (m(I + dtν K)m + (1−m)I) x = b, both velocity columns in lockstep;
 //   K3  PressureGridCG._solve_fn  (pallas_cg.py:1275; kernel :1310,
 //       _cg_core :597): PCG on the merged periodic pressure operator with
-//       constant-nullspace deflation and the two-level preconditioner;
+//       constant-nullspace deflation and the two-level preconditioner; with
+//       precond_bf16 (:1147-1160, mvp :1349) the preconditioner's two
+//       applies read bf16 planes (pressure_pb16_kernel below), and its
+//       probes (pressure_nofma_kernel, pressure_nodma_kernel) take out the
+//       plane products or the plane reads;
 //   K4  NSGridBiCGStab._solve_fn  (pallas_cg.py:1844; kernels :1869/:1905,
 //       _bicgstab_core_cols :1653): right-preconditioned Jacobi-BiCGStab on
 //       the nonsymmetric Navier–Stokes velocity system
@@ -61,7 +65,10 @@
 //   (11 unfused) and 17 vector passes (35 unfused): 3 × 21 MB of planes,
 //   71 MB of vectors and the 2 MB bf16 coarse inverse, 137 MB and 0.041 ms
 //   an iteration (tpufem's 26 planes: 400 MB, 0.119 ms fused; 480 MB and
-//   0.142 ms unfused).
+//   0.142 ms unfused).  With bf16 preconditioner planes 116 MB and 0.035
+//   ms; an iteration took the same 0.125–0.128 ms either way on an H100:
+//   bytes do not bind K3 (its probes put the planes' bytes at 21–23 % of an
+//   iteration there).
 //   K4 applies A twice an iteration, both columns at once (apply_cols: each
 //   plane entry and remainder value loaded once for both, one lane search),
 //   in three fused phases with one grid sync each (below): 17·C + 5 vector
@@ -291,9 +298,56 @@ __global__ void __launch_bounds__(kThreads, MinBlocks)
   if (blockIdx.x == 0 && threadIdx.x == 0 && a.iters_out) *a.iters_out += k;  // adds: a run's total
 }
 
+// ---------------------------------------------------------------------------
+// K3 (its solve is in grid_common.cuh, which K5 shares)
+// ---------------------------------------------------------------------------
+
 template <typename T, typename A>
 __global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
     pressure_cg_kernel(const __grid_constant__ PressureArgs<T, A> a) {
+  cg::grid_group grid = cg::this_grid();
+  int slot = 0;
+  pressure_solve(a, grid, slot);
+}
+
+// K3's arguments when the preconditioner's two applies read K̃: bf16 planes
+// on K's offsets and K̃'s own remainder (tpufem's cg_precond_bf16="on").
+template <typename T, typename A>
+using PbArgs = PressureArgs<T, A, GridOp<T>, GridOp<T, __nv_bfloat16>>;
+
+template <typename T, typename A>
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
+    pressure_pb16_kernel(const __grid_constant__ PbArgs<T, A> a) {
+  cg::grid_group grid = cg::this_grid();
+  int slot = 0;
+  pressure_solve(a, grid, slot);
+}
+
+// K3's measurement variants (roofline.probes), replacing tpufem's
+// PressureGridCG(probe="nofma"|"nodma") (pallas_cg.py:91, 210-220, 1144),
+// whose streamed apply skips its FMAs ("nofma": the DMA pipeline alone) or
+// its plane DMAs ("nodma": the roll and FMA loop on stale scratch).  Here
+// they are deterministic (grid_common.cuh, ProbeOp): nofma loads every
+// plane entry and drops it, so each apply is its remainder alone; nodma
+// reads no plane byte and multiplies each gathered source by its plane's
+// constant.  Their results are wrong by design; nothing but the roofline
+// reads them.  Instances: f32 fields with the f32 and bf16 coarse inverses
+// (the bench configuration's) and f64 fields with an f64 one, where their
+// plain versions hold them tightly.
+template <typename T, typename A, int Probe>
+using ProbeArgs = PressureArgs<T, A, ProbeOp<T, Probe>>;
+
+template <typename T, typename A>
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
+    pressure_nofma_kernel(const __grid_constant__ ProbeArgs<T, A, kNoFma> a) {
+  cg::grid_group grid = cg::this_grid();
+  int slot = 0;
+  pressure_solve(a, grid, slot);
+}
+
+template <typename T, typename A>
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
+    pressure_nodma_kernel(const __grid_constant__ ProbeArgs<T, A, kNoDma> a) {
   cg::grid_group grid = cg::this_grid();
   int slot = 0;
   pressure_solve(a, grid, slot);
@@ -557,15 +611,16 @@ int viscous_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns, 
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename A>
-int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
-                const int* rowptr, const int* lane, const int* src, const T* val, int round_rest,
-                const T* act, const T* invd, const A* ac_inv, int blk, int nc, int use_coarse,
-                const T* b, const T* x0, T* x, T* work, float* fwork, double omega, int iters,
-                double tol, int* iters_out, void* stream) {
-  PressureArgs<T, A> a;
-  cudaError_t err = make_op(a.op, diags, rs, ls, n_off, ns, rowptr, lane, src, val, round_rest);
-  if (err != cudaSuccess) return (int)err;
+// Fill K3's arguments other than its operators (a.op, and a.pop where the
+// preconditioner has its own) and launch `kernel`, an instance of K3's
+// solve (pressure_cg_kernel or one of its variants).
+template <typename T, typename A, typename... O>
+int pressure_cg(void (*kernel)(PressureArgs<T, A, O...>), PressureArgs<T, A, O...>& a,
+                const T* act, const T* invd, const A* ac_inv,
+                int blk, int nc, int use_coarse, const T* b, const T* x0, T* x, T* work,
+                float* fwork, double omega, int iters, double tol, int* iters_out,
+                void* stream) {
+  const int ns = a.op.ns;
   if (!coarse_ok(blk, nc, ns)) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)ns * ns;
   a.act = act;
@@ -590,7 +645,7 @@ int pressure_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns,
   a.use_coarse = use_coarse;
   a.iters = iters;
   a.iters_out = iters_out;
-  return (int)launch_coop(pressure_cg_kernel<T, A>, a, (int)n, (cudaStream_t)stream);
+  return (int)launch_coop(kernel, a, (int)n, (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -642,13 +697,55 @@ int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns,
                          stream);                                                               \
   }
 
-#define PRESSURE_ENTRY(NAME, T, A)                                                              \
-  extern "C" int NAME(OP_PARAMS(T), const T* act, const T* invd, const A* ac_inv, int blk,      \
-                      int nc, int use_coarse, const T* b, const T* x0, T* x, T* work,           \
-                      float* fwork, double omega, int iters, double tol, int* iters_out,        \
-                      void* stream) {                                                           \
-    return pressure_cg<T, A>(OP_ARGS, act, invd, ac_inv, blk, nc, use_coarse, b, x0, x, work,  \
-                             fwork, omega, iters, tol, iters_out, stream);                      \
+// K3's arguments after its operators
+#define PRESSURE_PARAMS(T, A)                                                                \
+  const T *act, const T *invd, const A *ac_inv, int blk, int nc, int use_coarse, const T *b, \
+      const T *x0, T *x, T *work, float *fwork, double omega, int iters, double tol,        \
+      int *iters_out, void *stream
+#define PRESSURE_ARGS                                                                         \
+  act, invd, ac_inv, blk, nc, use_coarse, b, x0, x, work, fwork, omega, iters, tol, iters_out, \
+      stream
+
+#define PRESSURE_ENTRY(NAME, T, A)                                            \
+  extern "C" int NAME(OP_PARAMS(T), PRESSURE_PARAMS(T, A)) {                  \
+    PressureArgs<T, A> a;                                                     \
+    cudaError_t err = make_op(a.op, OP_ARGS);                                 \
+    if (err != cudaSuccess) return (int)err;                                  \
+    return pressure_cg(pressure_cg_kernel<T, A>, a, PRESSURE_ARGS);           \
+  }
+
+// K3 with precond_bf16: the preconditioner's two applies read K̃, bf16
+// planes on the CG operator's offsets (pdiags) and its own remainder in the
+// field's precision; the CG's apply and the initial residual read K.
+#define PRESSURE_PB16_ENTRY(NAME, T, A)                                                      \
+  extern "C" int NAME(OP_PARAMS(T), const __nv_bfloat16* pdiags, const int* prowptr,         \
+                      const int* plane, const int* psrc, const T* pval,                      \
+                      PRESSURE_PARAMS(T, A)) {                                               \
+    PbArgs<T, A> a;                                                                          \
+    cudaError_t err = make_op(a.op, OP_ARGS);                                                \
+    if (err != cudaSuccess) return (int)err;                                                 \
+    err = make_op(a.pop, pdiags, rs, ls, n_off, ns, prowptr, plane, psrc, pval, round_rest); \
+    if (err != cudaSuccess) return (int)err;                                                 \
+    return pressure_cg(pressure_pb16_kernel<T, A>, a, PRESSURE_ARGS);                        \
+  }
+
+#define NOFMA_ENTRY(NAME, T, A)                                           \
+  extern "C" int NAME(OP_PARAMS(T), PRESSURE_PARAMS(T, A)) {              \
+    ProbeArgs<T, A, kNoFma> a;                                            \
+    cudaError_t err = make_op(a.op, OP_ARGS);                             \
+    if (err != cudaSuccess) return (int)err;                              \
+    a.op.probe.keep = 0u;                                                 \
+    return pressure_cg(pressure_nofma_kernel<T, A>, a, PRESSURE_ARGS);    \
+  }
+
+// K3's nodma probe: plane_const holds n_off values on the host, one a plane
+#define NODMA_ENTRY(NAME, T, A)                                                           \
+  extern "C" int NAME(OP_PARAMS(T), const double* plane_const, PRESSURE_PARAMS(T, A)) {   \
+    ProbeArgs<T, A, kNoDma> a;                                                            \
+    cudaError_t err = make_op(a.op, OP_ARGS);                                             \
+    if (err != cudaSuccess) return (int)err;                                              \
+    for (int g = 0; g < n_off; ++g) a.op.probe.plane_const[g] = (T)plane_const[g];        \
+    return pressure_cg(pressure_nodma_kernel<T, A>, a, PRESSURE_ARGS);                    \
   }
 
 #define NS_ENTRY(NAME, T)                                                                       \
@@ -665,15 +762,27 @@ PRESSURE_ENTRY(pressure_cg_f32, float, float)
 PRESSURE_ENTRY(pressure_cg_f32_bf16, float, __nv_bfloat16)
 PRESSURE_ENTRY(pressure_cg_f64, double, double)
 PRESSURE_ENTRY(pressure_cg_f64_bf16, double, __nv_bfloat16)
+PRESSURE_PB16_ENTRY(pressure_cg_f32_pb16, float, float)
+PRESSURE_PB16_ENTRY(pressure_cg_f32_bf16_pb16, float, __nv_bfloat16)
+PRESSURE_PB16_ENTRY(pressure_cg_f64_pb16, double, double)
+PRESSURE_PB16_ENTRY(pressure_cg_f64_bf16_pb16, double, __nv_bfloat16)
+NOFMA_ENTRY(pressure_nofma_f32, float, float)
+NOFMA_ENTRY(pressure_nofma_f32_bf16, float, __nv_bfloat16)
+NOFMA_ENTRY(pressure_nofma_f64, double, double)
+NODMA_ENTRY(pressure_nodma_f32, float, float)
+NODMA_ENTRY(pressure_nodma_f32_bf16, float, __nv_bfloat16)
+NODMA_ENTRY(pressure_nodma_f64, double, double)
 NS_ENTRY(ns_bicgstab_f32, float)
 NS_ENTRY(ns_bicgstab_f64, double)
 
 // Blocks per SM of each instance, in the order viscous f32 C=1 (HBM, L2),
 // C=2 (HBM, L2), f64 C=1, C=2; pressure f32, f32 with a bf16 coarse inverse,
-// f64, f64 bf16; BiCGStab f32 C=1, C=2, f64 C=1, C=2: writes `cap` of them,
+// f64, f64 bf16; BiCGStab f32 C=1, C=2, f64 C=1, C=2; pressure with bf16
+// preconditioner planes f32, f32 bf16, f64, f64 bf16; the nofma probe f32,
+// f32 bf16, f64; the nodma probe f32, f32 bf16, f64: writes `cap` of them,
 // returns the count.
 extern "C" int grid_cg_blocks_per_sm(int* out, int cap) {
-  int v[14] = {0};
+  int v[24] = {0};
   blocks_per_sm(viscous_cg_kernel<float, 1, kFusedMinBlocks<float>>, &v[0]);
   blocks_per_sm(viscous_cg_kernel<float, 1, kInL2MinBlocks<float>>, &v[1]);
   blocks_per_sm(viscous_cg_kernel<float, 2, kFusedMinBlocks<float>>, &v[2]);
@@ -688,6 +797,16 @@ extern "C" int grid_cg_blocks_per_sm(int* out, int cap) {
   blocks_per_sm(ns_bicgstab_kernel<float, 2>, &v[11]);
   blocks_per_sm(ns_bicgstab_kernel<double, 1>, &v[12]);
   blocks_per_sm(ns_bicgstab_kernel<double, 2>, &v[13]);
-  for (int i = 0; i < 14 && i < cap; ++i) out[i] = v[i];
-  return 14;
+  blocks_per_sm(pressure_pb16_kernel<float, float>, &v[14]);
+  blocks_per_sm(pressure_pb16_kernel<float, __nv_bfloat16>, &v[15]);
+  blocks_per_sm(pressure_pb16_kernel<double, double>, &v[16]);
+  blocks_per_sm(pressure_pb16_kernel<double, __nv_bfloat16>, &v[17]);
+  blocks_per_sm(pressure_nofma_kernel<float, float>, &v[18]);
+  blocks_per_sm(pressure_nofma_kernel<float, __nv_bfloat16>, &v[19]);
+  blocks_per_sm(pressure_nofma_kernel<double, double>, &v[20]);
+  blocks_per_sm(pressure_nodma_kernel<float, float>, &v[21]);
+  blocks_per_sm(pressure_nodma_kernel<float, __nv_bfloat16>, &v[22]);
+  blocks_per_sm(pressure_nodma_kernel<double, double>, &v[23]);
+  for (int i = 0; i < 24 && i < cap; ++i) out[i] = v[i];
+  return 24;
 }

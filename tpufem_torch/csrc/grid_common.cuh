@@ -48,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -66,9 +68,14 @@ struct Shifts {
   int ls[kMaxOffsets];  // source lane offset, (s mod ns)
 };
 
-template <typename T>
+// The operator on fields of type T.  Its planes may be stored narrower (P:
+// K3's bf16 preconditioner planes); a plane entry is widened to T where it
+// is read, so the products and sums stay in T.
+template <typename T, typename P = T>
 struct GridOp {
-  const T* __restrict__ diags;  // (n_off, ns, ns)
+  using value_type = T;
+  static constexpr int kProbe = 0;  // a real apply (ProbeOp below)
+  const P* __restrict__ diags;  // (n_off, ns, ns)
   const int* __restrict__ rowptr;  // (ns+1) remainder entries per target row
   const int* __restrict__ lane;    // (m) target lane, ascending within a row
   const int* __restrict__ src;     // (m) flat source index
@@ -78,6 +85,40 @@ struct GridOp {
   int round_rest;  // round each remainder source and sum to float (tpufem's kernels)
   Shifts sh;
 };
+
+// K3's measurement variants (roofline.probes; wrong results by design),
+// compile-time, so that the real apply gains no branch:
+//   kNoFma  loads every plane entry and drops it: the loaded bits are folded
+//           into an integer that is masked by `keep` (0 at run time) and added
+//           to y as +0.0, which leaves y as it was (y is never −0.0 there);
+//           no source is gathered and no product is formed, so the apply is
+//           the remainder alone;
+//   kNoDma  reads no plane bytes: each gathered source is multiplied by its
+//           plane's constant (`plane_const`, the plane's mean), so the
+//           gathers and the FMAs stay.
+// The remainder, the syncs, the vector passes and the coarse solve are the
+// real kernel's.
+constexpr int kNoFma = 1;
+constexpr int kNoDma = 2;
+
+template <typename T, int Probe> struct ProbeParams;
+template <typename T> struct ProbeParams<T, kNoFma> { unsigned keep; };
+template <typename T> struct ProbeParams<T, kNoDma> { T plane_const[kMaxOffsets]; };
+
+template <typename T, int Probe>
+struct ProbeOp : GridOp<T> {
+  static constexpr int kProbe = Probe;
+  ProbeParams<T, Probe> probe;
+};
+
+template <typename T> __device__ __forceinline__ T plane_val(T v) { return v; }
+template <typename T> __device__ __forceinline__ T plane_val(__nv_bfloat16 v) {
+  return (T)__bfloat162float(v);
+}
+__device__ __forceinline__ unsigned probe_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ unsigned probe_bits(double v) {
+  return (unsigned)__double_as_longlong(v);
+}
 
 __device__ __forceinline__ float tsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double tsqrt(double v) { return sqrt(v); }
@@ -90,8 +131,8 @@ __device__ __forceinline__ double round_f(double v) { return (double)(float)v; }
 
 // The first remainder entry in [k0, k1) (one target row) whose lane is not
 // below ix.
-template <typename T>
-__device__ __forceinline__ int lane_search(const GridOp<T>& op, int k0, int k1, int ix) {
+template <typename T, typename P>
+__device__ __forceinline__ int lane_search(const GridOp<T, P>& op, int k0, int k1, int ix) {
   int lo = k0, hi = k1;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -104,8 +145,8 @@ __device__ __forceinline__ int lane_search(const GridOp<T>& op, int k0, int k1, 
 // y += the remainder's sum at (iy, ix), if the row has entries (each source
 // value and the sum rounded to float where op.round_rest); src(j, jy, jx)
 // gives the source value at flat index j.
-template <typename T, typename F>
-__device__ __forceinline__ void add_rest(const GridOp<T>& op, int iy, int ix, F src, T& y) {
+template <typename T, typename P, typename F>
+__device__ __forceinline__ void add_rest(const GridOp<T, P>& op, int iy, int ix, F src, T& y) {
   const int k0 = op.rowptr[iy], k1 = op.rowptr[iy + 1];
   if (k0 < k1) {
     const int lo = lane_search(op, k0, k1, ix);
@@ -123,19 +164,29 @@ __device__ __forceinline__ void add_rest(const GridOp<T>& op, int iy, int ix, F 
 // K·X at one point; src(j, jy, jx) gives the source value at flat index
 // j = jy·ns + jx.  Planes in offset order, then the point's remainder sum.
 // Unroll: start the loads of the first kUnrolled offsets together (K3's
-// phases; K5's other phases keep the plain loop).
-template <bool Unroll, typename T, typename F>
-__device__ __forceinline__ T apply_yx(const GridOp<T>& op, int iy, int ix, F src) {
+// phases; K5's other phases keep the plain loop).  Op is a GridOp, or a
+// ProbeOp for K3's measurement variants.
+template <bool Unroll, typename Op, typename F>
+__device__ __forceinline__ typename Op::value_type apply_yx(const Op& op, int iy, int ix, F src) {
+  using T = typename Op::value_type;
   const int ns = op.ns;
   const long long n = (long long)ns * ns;
   const int i = iy * ns + ix;
   T y = T(0);
+  [[maybe_unused]] unsigned sink = 0u;
   auto plane = [&](int g) {
-    int sy = iy + op.sh.rs[g];
-    sy -= (sy >= ns) ? ns : 0;
-    int sx = ix + op.sh.ls[g];
-    sx -= (sx >= ns) ? ns : 0;
-    y += __ldcs(op.diags + g * n + i) * src(sy * ns + sx, sy, sx);
+    if constexpr (Op::kProbe == kNoFma) {
+      sink ^= probe_bits(__ldcs(op.diags + g * n + i));
+    } else {
+      int sy = iy + op.sh.rs[g];
+      sy -= (sy >= ns) ? ns : 0;
+      int sx = ix + op.sh.ls[g];
+      sx -= (sx >= ns) ? ns : 0;
+      if constexpr (Op::kProbe == kNoDma)
+        y += op.probe.plane_const[g] * src(sy * ns + sx, sy, sx);
+      else
+        y += plane_val<T>(__ldcs(op.diags + g * n + i)) * src(sy * ns + sx, sy, sx);
+    }
   };
   if constexpr (Unroll) {
 #pragma unroll
@@ -145,13 +196,14 @@ __device__ __forceinline__ T apply_yx(const GridOp<T>& op, int iy, int ix, F src
   } else {
     for (int g = 0; g < op.n_off; ++g) plane(g);
   }
+  if constexpr (Op::kProbe == kNoFma) y += (T)__uint_as_float(sink & op.probe.keep);
   add_rest(op, iy, ix, src, y);
   return y;
 }
 
 // K·X at one point; src(j) gives the source value at flat index j.
-template <typename T, typename F>
-__device__ __forceinline__ T apply_at(const GridOp<T>& op, int iy, int ix, F src) {
+template <typename Op, typename F>
+__device__ __forceinline__ typename Op::value_type apply_at(const Op& op, int iy, int ix, F src) {
   return apply_yx<false>(op, iy, ix, [&](int j, int, int) { return src(j); });
 }
 
@@ -279,9 +331,15 @@ __device__ __forceinline__ int div_by(int v, int d, float inv) {
   return q;
 }
 
-template <typename T, typename A>
-struct PressureArgs {
-  GridOp<T> op;
+// The preconditioner's own planes where they differ from the CG's (K3 with
+// precond_bf16: POp = GridOp<T, __nv_bfloat16>, its own remainder too);
+// empty, and no bytes, otherwise.
+template <typename Op, typename POp> struct PrecondPlanes { POp pop; };
+template <typename Op> struct PrecondPlanes<Op, Op> {};
+
+template <typename T, typename A, typename Op = GridOp<T>, typename POp = Op>
+struct PressureArgs : PrecondPlanes<Op, POp> {
+  Op op;  // the CG's apply and the initial residual's (and the preconditioner's, unless POp)
   const T* __restrict__ act;
   const T* __restrict__ invd;
   const A* __restrict__ ac_inv;  // (nc², nc²)
@@ -305,6 +363,13 @@ struct PressureArgs {
   int iters;
   int* iters_out;
 };
+
+// The operator the preconditioner's two applies (phases B and D) read.
+template <typename T, typename A, typename Op, typename POp>
+__device__ __forceinline__ const POp& precond_op(const PressureArgs<T, A, Op, POp>& a) {
+  if constexpr (std::is_same_v<Op, POp>) return a.op;
+  else return a.pop;
+}
 
 // v[k] of a two-copy buffer, k ∈ {0, 1}, without indexing the argument struct
 template <typename P>
@@ -350,8 +415,8 @@ __device__ __forceinline__ Units make_units(int blk, int nc) {
 // For each point of unit k: body(pt, iy, ix, (K·S)(iy, ix), S(iy, ix)), pt
 // its index in the slab; after each slab, done(W, rows) (block-uniform,
 // between two block barriers).  S(j, jy, jx) is the source function.
-template <typename T, typename S, typename B, typename E>
-__device__ void apply_unit(const GridOp<T>& op, const Units& u, int k, S src, B body, E done) {
+template <typename Op, typename S, typename B, typename E>
+__device__ void apply_unit(const Op& op, const Units& u, int k, S src, B body, E done) {
   const int ns = op.ns;
   const int cr = k / u.chunks, cl0 = (k - cr * u.chunks) * u.per;
   const int y0 = cr * u.blk, y1 = min(ns, y0 + u.blk);
@@ -371,8 +436,8 @@ __device__ void apply_unit(const GridOp<T>& op, const Units& u, int k, S src, B 
 
 // Phase A: p = (z − coef·act) + β·p_old (into the other copy), q = K p;
 // sums act·q, p·q, p·act.
-template <typename T, typename A>
-__device__ void phase_a(const PressureArgs<T, A>& a, const PressureState<T>& s, const Units& u,
+template <typename T, typename A, typename... O>
+__device__ void phase_a(const PressureArgs<T, A, O...>& a, const PressureState<T>& s, const Units& u,
                         T (&sums)[3]) {
   const int ns = a.op.ns;
   const T* __restrict__ act = a.act;
@@ -400,8 +465,8 @@ __device__ void phase_a(const PressureArgs<T, A>& a, const PressureState<T>& s, 
 // at r[s.cur_r], written to the other copy), x += α·p unless `init`.
 // Two-level: t = r − K z1 restricted into rc.  Jacobi: z = D⁻¹ r and the sums
 // act·z, r·z, r·act, r·r into `sums`.
-template <typename T, typename A>
-__device__ void update_r(const PressureArgs<T, A>& a, const PressureState<T>& s, const Units& u,
+template <typename T, typename A, typename... O>
+__device__ void update_r(const PressureArgs<T, A, O...>& a, const PressureState<T>& s, const Units& u,
                          const Scratch<T>& sm, bool init, T (&sums)[4]) {
   const int ns = a.op.ns;
   const T* __restrict__ act = a.act;
@@ -439,7 +504,7 @@ __device__ void update_r(const PressureArgs<T, A>& a, const PressureState<T>& s,
     for (int c = threadIdx.x; c < kTile; c += kThreads) sm.colacc[c] = T(0);
     __syncthreads();
     int width = 0;
-    apply_unit(a.op, u, k, z1, [&](int pt, int iy, int ix, T kz, T) {
+    apply_unit(precond_op(a), u, k, z1, [&](int pt, int iy, int ix, T kz, T) {
       const int i = iy * ns + ix;
       const T rv = r_at(i);
       rnew[i] = rv;
@@ -467,8 +532,8 @@ __device__ void update_r(const PressureArgs<T, A>& a, const PressureState<T>& s,
 }
 
 // Phase C: zc = A_c⁻¹ rc, one warp a row of ac_inv.
-template <typename T, typename A>
-__device__ void coarse_solve(const PressureArgs<T, A>& a) {
+template <typename T, typename A, typename... O>
+__device__ void coarse_solve(const PressureArgs<T, A, O...>& a) {
   using Acc = typename CoarseAcc<A>::type;
   const int m = a.nc * a.nc;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -484,8 +549,8 @@ __device__ void coarse_solve(const PressureArgs<T, A>& a) {
 
 // Phase D: z = z2 + ω D⁻¹ (r − K z2), z2 = ω D⁻¹ r + zc[agg]·act at each
 // source, r the current copy; sums act·z, r·z, r·act, r·r.
-template <typename T, typename A>
-__device__ void smooth_z(const PressureArgs<T, A>& a, const PressureState<T>& s, const Units& u,
+template <typename T, typename A, typename... O>
+__device__ void smooth_z(const PressureArgs<T, A, O...>& a, const PressureState<T>& s, const Units& u,
                          T (&sums)[4]) {
   const int ns = a.op.ns;
   const T* __restrict__ act = a.act;
@@ -500,7 +565,7 @@ __device__ void smooth_z(const PressureArgs<T, A>& a, const PressureState<T>& s,
     return z1 + (T)zc[div_by(jy, blk, inv_blk) * nc + div_by(jx, blk, inv_blk)] * act[j];
   };
   for (int k = blockIdx.x; k < u.count; k += gridDim.x)
-    apply_unit(a.op, u, k, z2, [&](int, int iy, int ix, T kz, T z2i) {
+    apply_unit(precond_op(a), u, k, z2, [&](int, int iy, int ix, T kz, T z2i) {
       const int i = iy * ns + ix;
       const T rv = r[i];
       const T zv = z2i + omega * (invd[i] * (rv - kz));
@@ -514,8 +579,8 @@ __device__ void smooth_z(const PressureArgs<T, A>& a, const PressureState<T>& s,
 
 // z ← precond(r) after r's update (phases B–D, or the Jacobi phase); then
 // coef, the new r·z' and r·r, where z' = z − coef·act.
-template <typename T, typename A>
-__device__ void precond_update(const PressureArgs<T, A>& a, cg::grid_group& grid, int& slot,
+template <typename T, typename A, typename... O>
+__device__ void precond_update(const PressureArgs<T, A, O...>& a, cg::grid_group& grid, int& slot,
                                PressureState<T>& s, const Units& u, const Scratch<T>& sm,
                                bool init) {
   T sums[4] = {T(0), T(0), T(0), T(0)};
@@ -535,8 +600,8 @@ __device__ void precond_update(const PressureArgs<T, A>& a, cg::grid_group& grid
 
 // K3's whole solve: b is the prepared rhs, x0 the masked warm start; the
 // solution lands in x, projected.  No grid sync after the last write of x.
-template <typename T, typename A>
-__device__ __forceinline__ void pressure_solve(const PressureArgs<T, A>& a, cg::grid_group& grid,
+template <typename T, typename A, typename... O>
+__device__ __forceinline__ void pressure_solve(const PressureArgs<T, A, O...>& a, cg::grid_group& grid,
                                                int& slot) {
   const int ns = a.op.ns, n = ns * ns;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -613,8 +678,8 @@ __device__ __forceinline__ void pressure_solve(const PressureArgs<T, A>& a, cg::
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T>
-cudaError_t make_op(GridOp<T>& op, const T* diags, const int* rs, const int* ls, int n_off,
+template <typename T, typename P>
+cudaError_t make_op(GridOp<T, P>& op, const P* diags, const int* rs, const int* ls, int n_off,
                     int ns, const int* rowptr, const int* lane, const int* src, const T* val,
                     int round_rest) {
   if (n_off < 1 || n_off > kMaxOffsets || ns < 1) return cudaErrorInvalidValue;

@@ -47,6 +47,68 @@ class GridDecompositionError(ValueError):
     remainder (or its periodic pairs do not sit on opposite grid edges)."""
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16, in x's dtype (from float64 through float32,
+    as torch and XLA convert)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _couplings(op, ns: int, nonzero: bool = False):
+    """(rows, cols, values, offset key) of a CSR operator's stored entries
+    on an ns×ns grid numbering, in CSR order (stored zeros dropped with
+    ``nonzero``); the key (dy·ns + s) is unique per offset."""
+    n = op.shape[0]
+    if n != ns * ns:
+        raise GridDecompositionError(f"{n} nodes is not a {ns}×{ns} grid")
+    rows = np.asarray(op.row_ids, dtype=np.int64)
+    cols = np.asarray(op.indices, dtype=np.int64)
+    data = op.data.detach().cpu().to(torch.float64).numpy()
+    if nonzero:
+        keep = data != 0
+        rows, cols, data = rows[keep], cols[keep], data[keep]
+    iy, ix = np.divmod(rows, ns)
+    jy, jx = np.divmod(cols, ns)
+    return rows, cols, data, (jy - iy) * ns + (jx - ix) % ns
+
+
+def _dense_keys(key: np.ndarray, n: int, ns: int, max_offsets: int = 24, min_fill: float = 0.02,
+                rest_target: int | None = None,
+                rest_budget_bytes: int | None = 16 << 20) -> list:
+    """The offset keys :meth:`GridOperator.build` puts on planes (its
+    selection rule and caps, documented there)."""
+    uniq, counts = np.unique(key, return_counts=True)
+    order = np.argsort(-counts)
+    rest_cap = (float("inf") if rest_budget_bytes is None else
+                min(max(4096, n // 8), max(512, int(rest_budget_bytes / (20 * ns)))))
+    if rest_target is not None:
+        rest_cap = min(rest_cap, int(rest_target))
+        hard_max = 64
+    else:
+        hard_max = min(64, max(max_offsets, int(48 * 2**20 / (4 * n))))
+    min_count = max(1, int(min_fill * n))
+    total = len(key)
+    dense_keys = []
+    taken = 0
+    for k in order:
+        have = len(dense_keys)
+        if have >= hard_max:
+            break
+        above = counts[k] >= min_count and have < max_offsets
+        if uniq[k] == 0 or above or (total - taken) > rest_cap:
+            dense_keys.append(uniq[k])
+            taken += int(counts[k])
+        elif (total - taken) <= rest_cap:
+            break
+    if 0 not in dense_keys:
+        dense_keys.append(0)  # the main diagonal is always dense
+    if total - taken > rest_cap:
+        raise GridDecompositionError(
+            f"{total - taken} couplings remain off the {len(dense_keys)} densest grid "
+            f"offsets (caps: {hard_max} offsets, {rest_cap} remainder entries at "
+            f"ns={ns}): the numbering is not grid-structured enough")
+    return dense_keys
+
+
 @dataclasses.dataclass(frozen=True)
 class GridOperator:
     """A = Σ dense-offset planes (2-D cyclic rolls) + a COO remainder."""
@@ -130,47 +192,10 @@ class GridOperator:
         stored zeros before anything is counted and applies the remainder
         in the field's precision (:meth:`dense_split`)."""
         n = op.shape[0]
-        if n != ns * ns:
-            raise GridDecompositionError(f"{n} nodes is not a {ns}×{ns} grid")
-        rows = np.asarray(op.row_ids, dtype=np.int64)
-        cols = np.asarray(op.indices, dtype=np.int64)
-        data = op.data.detach().cpu().to(torch.float64).numpy()
-        if nonzero:
-            keep = data != 0
-            rows, cols, data = rows[keep], cols[keep], data[keep]
+        rows, cols, data, key = _couplings(op, ns, nonzero)
         iy, ix = np.divmod(rows, ns)
-        jy, jx = np.divmod(cols, ns)
-        key = (jy - iy) * ns + (jx - ix) % ns  # unique per (dy, s)
-        uniq, counts = np.unique(key, return_counts=True)
-        order = np.argsort(-counts)
-        rest_cap = (float("inf") if rest_budget_bytes is None else
-                    min(max(4096, n // 8), max(512, int(rest_budget_bytes / (20 * ns)))))
-        if rest_target is not None:
-            rest_cap = min(rest_cap, int(rest_target))
-            hard_max = 64
-        else:
-            hard_max = min(64, max(max_offsets, int(48 * 2**20 / (4 * n))))
-        min_count = max(1, int(min_fill * n))
-        total = len(rows)
-        dense_keys = []
-        taken = 0
-        for k in order:
-            have = len(dense_keys)
-            if have >= hard_max:
-                break
-            above = counts[k] >= min_count and have < max_offsets
-            if uniq[k] == 0 or above or (total - taken) > rest_cap:
-                dense_keys.append(uniq[k])
-                taken += int(counts[k])
-            elif (total - taken) <= rest_cap:
-                break
-        if 0 not in dense_keys:
-            dense_keys.append(0)  # the main diagonal is always dense
-        if total - taken > rest_cap:
-            raise GridDecompositionError(
-                f"{total - taken} couplings remain off the {len(dense_keys)} densest grid "
-                f"offsets (caps: {hard_max} offsets, {rest_cap} remainder entries at "
-                f"ns={ns}): the numbering is not grid-structured enough")
+        dense_keys = _dense_keys(key, n, ns, max_offsets, min_fill, rest_target,
+                                 rest_budget_bytes)
 
         offsets = []
         planes = []
@@ -222,6 +247,46 @@ class GridOperator:
         one."""
         return cls.build(op, ns, dtype=dtype, rest_budget_bytes=None,
                          nonzero=op.shape[0] >= STREAMED_NODES, device=device)
+
+    def bf16_preconditioner(self, op) -> "GridOperator":
+        """K̃, the operator the preconditioner of tpufem's ``precond_bf16``
+        applies (``cg_precond_bf16="on"``), on this operator's layout.
+
+        ``op`` is the CSR operator this one splits.  Each of its entries
+        that tpufem's streamed split puts on a plane (``build(...,
+        rest_target=128)``, or the budgeted ``build`` where that raises,
+        as tpufem's ``build_gridop``) is rounded to bfloat16 from this
+        operator's dtype; every other entry keeps its value.  The rounding
+        follows the entry, whichever plane or remainder this split gives
+        it: the planes come back in bfloat16 and the remainder in this
+        operator's dtype.  An entry that tpufem keeps at full width but
+        this split puts on a plane goes to K̃'s remainder instead, so
+        K̃'s ``n_rest`` exceeds this operator's by their count (none on the
+        pad_hole meshes, whose card planes are among tpufem's)."""
+        ns = self.ns
+        rows, cols, data, key = _couplings(op, ns)
+        try:
+            streamed = _dense_keys(key, self.n, ns, rest_target=128)
+        except GridDecompositionError:
+            streamed = _dense_keys(key, self.n, ns)
+        rounded = np.isin(key, streamed)
+        field = torch.as_tensor(data, dtype=self.dtype)
+        vals = torch.where(torch.as_tensor(rounded), _round_bf16(field), field).double().numpy()
+        if not self.rest_round32:  # a split that dropped the stored zeros (build's nonzero)
+            keep = data != 0
+            rows, cols, vals, key, rounded = (a[keep] for a in (rows, cols, vals, key, rounded))
+        iy, ix = np.divmod(rows, ns)
+        planes = np.zeros((len(self.offsets), ns, ns))
+        on_plane = np.zeros(len(rows), dtype=bool)
+        for g, (dy, s) in enumerate(self.offsets):
+            sel = (key == dy * ns + s) & rounded
+            planes[g, iy[sel], ix[sel]] = vals[sel]
+            on_plane |= sel
+        rest = ~on_plane
+        full = GridOperator.from_parts(ns, self.offsets, planes, rows[rest], cols[rest],
+                                       vals[rest], self.coverage, dtype=self.dtype,
+                                       device=self.device, rest_round32=self.rest_round32)
+        return dataclasses.replace(full, diags=full.diags.to(torch.bfloat16))
 
     def astype(self, dtype) -> "GridOperator":
         return dataclasses.replace(self, diags=self.diags.to(dtype),

@@ -6,9 +6,11 @@ pressure whole-solve kernels (K2 and K3) at fixed iteration counts
 (tol 0, so every iteration runs) and sets each iteration's time against
 the least HBM traffic an iteration needs on the card's split of the
 operator (``GridOperator.dense_split``): the planes and remainder once an
-apply, plus the vector passes the fused kernels make.  That byte model,
-and the bounds ``chip_smoke.py`` prints for every kernel, have their one
-source here.
+apply, each apply's planes at their own width (K3's preconditioner reads
+bfloat16 planes under ``cg_precond_bf16="on"``), plus the vector passes
+the fused kernels make.  That byte model, and the bounds ``chip_smoke.py``
+prints for every kernel, have their one source here.  :func:`probes` splits
+K3's iteration with its measurement variants (``--probes``).
 
 The peaks are the NVIDIA H100 SXM data sheet's (dense rates), which
 assume the card's full 700 W power limit: a card set below it runs slower
@@ -41,15 +43,18 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
+def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None, K_pre=None) -> dict:
     """The bound of one whole solve of K2, K3 or K4: its inputs read once
     (operator planes, masks and diagonals, right-hand sides, warm starts,
-    K3's coarse inverse) and its solutions written once, against the flops
+    K3's coarse inverse and, under ``precond_bf16``, its preconditioner's
+    operator ``K_pre``) and its solutions written once, against the flops
     of this run's iterations (two a plane entry for each apply; the vector
     updates: K2 21 a point and column, K3 30, K4 15; K3's coarse
     product)."""
     n, n_off, item = K.n, len(K.offsets), K.diags.element_size()
     planes = (n_off * n + 3 * K.n_rest) * item
+    if K_pre is not None:
+        planes += _operator_bytes(K_pre, item)
     if kernel == "K2":
         # a column's point, an iteration: p = D⁻¹r + βp 3, m·p 1, the
         # operator's m(p + dtν·Kmp) + (1 − m)p 6, p·q 2, x and r 4, r·D⁻¹r
@@ -81,25 +86,37 @@ def solve_bound(kernel: str, K, cols: int, iters: int, ac_inv=None) -> dict:
 APPLIES = {"K2": 1, "K3": 3, "K4": 2}
 
 
+def _operator_bytes(K, item: int) -> int:
+    """One apply's read of a grid operator: its planes at their own width,
+    and per remainder entry a value (``item`` bytes, the field's width), a
+    source and a target."""
+    return len(K.offsets) * K.n * K.diags.element_size() + 3 * K.n_rest * item
+
+
 def iteration_bytes(kernel: str, K, cols: int = 1, ac_inv=None,
-                    passes: int | None = None) -> float:
+                    passes: int | None = None, K_pre=None) -> float:
     """The least HBM bytes one iteration of K2, K3 or K4 moves on operator
     ``K`` (``passes``: the vector passes, if not the kernel's own count;
-    ``ac_inv``: K3's coarse inverse, read once an iteration)."""
+    ``ac_inv``: K3's coarse inverse, read once an iteration; ``K_pre``:
+    the operator K3's two preconditioner applies read instead of K, under
+    ``precond_bf16`` K̃ with bfloat16 planes)."""
     n, item = K.n, K.diags.element_size()
-    op = (len(K.offsets) * n + 3 * K.n_rest) * item
+    op = _operator_bytes(K, item)
     if passes is None:
         passes = {"K2": 3 + 10 * cols, "K3": 17, "K4": 17 * cols + 5}[kernel]
-    nbytes = APPLIES[kernel] * op + passes * n * item
+    applies = [op] * APPLIES[kernel]
+    if K_pre is not None:
+        applies[1:] = [_operator_bytes(K_pre, item)] * (APPLIES[kernel] - 1)
+    nbytes = sum(applies) + passes * n * item
     if ac_inv is not None:
         nbytes += ac_inv.numel() * ac_inv.element_size()
     return float(nbytes)
 
 
 def iteration_bound(kernel: str, K, cols: int = 1, ac_inv=None,
-                    passes: int | None = None) -> float:
+                    passes: int | None = None, K_pre=None) -> float:
     """ms of one iteration's least HBM traffic at the card's peak rate."""
-    return iteration_bytes(kernel, K, cols, ac_inv, passes) / HBM_BYTES_PER_S * 1e3
+    return iteration_bytes(kernel, K, cols, ac_inv, passes, K_pre) / HBM_BYTES_PER_S * 1e3
 
 
 def apply_bytes(op, cols: int = 1) -> float:
@@ -211,7 +228,7 @@ def _row(problem, ps, vs, t_p: float, t_v: float, label: str | None) -> dict:
     """One roofline row from the best solve times ``t_p`` and ``t_v``."""
     ns = ps.K.ns
     ac = ps.ac_inv if ps.use_coarse else None
-    bytes_p = iteration_bytes("K3", ps.K, 1, ac)
+    bytes_p = iteration_bytes("K3", ps.K, 1, ac, K_pre=ps.K_pre)
     bytes_v = iteration_bytes("K2", vs.K, 2)
     s_p, s_v = t_p / ps.iters, t_v / vs.iters  # seconds an iteration
     bound_p, bound_v = bytes_p / HBM_BYTES_PER_S, bytes_v / HBM_BYTES_PER_S
@@ -294,6 +311,49 @@ def ab(n_side: int, n_circle: int, knobs: list[dict], iters_p: int = 120, iters_
     return rows
 
 
+def probes(n_side: int, n_circle: int, iters_p: int = 120, reps: int = 8,
+           label: str | None = None, storage: str = "auto", device=None) -> list[dict]:
+    """How K3's iteration splits: the bench problem's pressure solve at
+    ``iters_p`` fixed iterations in three variants, timed round-robin in
+    one process (CUDA events on the card), best of ``reps`` each —
+
+    * ``real``: the kernel itself;
+    * ``nofma``: every plane entry loaded and dropped, each apply its
+      remainder alone (the plane stream and the rest, no gathers or
+      products for the planes);
+    * ``nodma``: no plane read, each plane replaced by its constant (the
+      gathers, the products and the rest, no plane bytes).
+
+    real ≈ nofma: the gathers and products cost nothing beside the plane
+    stream; real ≈ nodma: the plane bytes cost nothing beside the rest.
+    One row a variant, with tpufem's keys (``tpufem.roofline.probes``;
+    ``chain``, ``compile_s`` and ``stream_chunk`` belong to its TPU
+    dispatch and are left out)."""
+    problem, _ = build_problem(n_side, n_circle, storage, device)
+    return probe_problem(problem, iters_p, reps, label)
+
+
+def probe_problem(problem, iters_p: int = 120, reps: int = 8,
+                  label: str | None = None) -> list[dict]:
+    """:func:`probes` on a built problem (grid storage)."""
+    base, _ = _fixed(problem, iters_p, 1)
+    rng = np.random.default_rng(0)
+    bp = torch.as_tensor(rng.standard_normal(base.K.n), dtype=problem.dtype,
+                         device=problem.device)
+    entries = []
+    for probe in ("", "nofma", "nodma"):
+        ps = dataclasses.replace(base, probe=probe)
+        ps.solve(bp)  # its first launch, untimed
+        entries.append({"probe": probe or "real", "ps": ps, "best": float("inf")})
+    for _ in range(reps):
+        for e in entries:
+            e["best"] = min(e["best"], _seconds(e["ps"].solve, bp))
+    ns = base.K.ns
+    return [{"label": label or f"{ns}x{ns}", "n_nodes": int(problem.mesh.n_nodes), "ns": int(ns),
+             "probe": e["probe"], "iters_p": iters_p, "reps": reps, "t_pressure_s": e["best"],
+             "us_per_p_iter": e["best"] / iters_p * 1e6} for e in entries]
+
+
 def main(argv=None) -> list[dict]:
     import argparse
 
@@ -306,6 +366,8 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--ab", default=None,
                         help='a JSON list of StokesConfig overrides to time in turns, e.g. '
                              '\'[{}, {"cg_coarse_dtype": "same"}]\'')
+    parser.add_argument("--probes", action="store_true",
+                        help="split K3's iteration: real, nofma and nodma (roofline.probes)")
     parser.add_argument("--out", default=None)
     parser.add_argument("--device", default=None, help="torch device (default: the card)")
     args = parser.parse_args(argv)
@@ -317,7 +379,10 @@ def main(argv=None) -> list[dict]:
     for label, n_side, n_circle in SIZES:
         if wanted is not None and label not in wanted:
             continue
-        if args.ab:
+        if args.probes:
+            new = probes(n_side, n_circle, iters_p=args.iters_p, reps=args.reps, label=label,
+                         device=args.device)
+        elif args.ab:
             new = ab(n_side, n_circle, json.loads(args.ab), iters_p=args.iters_p,
                      iters_v=args.iters_v, reps=args.reps, label=label, device=args.device)
         else:

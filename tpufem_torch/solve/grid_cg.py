@@ -45,7 +45,21 @@ The solvers' TPU-only fields (``stream_diags``, ``stream_loop``,
 ``hbm_io``, ``roll_cache``, ``stream_chunk``, ``lean``, K4's
 ``batch_cols``) are accepted so that configurations carry across, and
 ignored; the port always runs the velocity columns in lockstep (tpufem's
-``batch_cols=True``).  ``probe`` and ``precond_bf16`` are refused.
+``batch_cols=True``).  K3 has two more modes of tpufem's:
+
+* ``precond_bf16``: the preconditioner's two applies read K̃, the
+  operator with bfloat16 planes (:meth:`~tpufem_torch.ops.gridop.
+  GridOperator.bf16_preconditioner`), while the CG's own apply keeps K.
+  As in tpufem it is taken only with the two-level preconditioner in the
+  streamed regime (``stream_diags``); :meth:`PressureGridCG.build` makes
+  K̃ then (``K_pre``).  K3's instances ``pressure_cg_*_pb16`` run it.
+* ``probe="nofma"|"nodma"``: measurement variants with wrong results by
+  design (``roofline.probes``): every apply the remainder alone after
+  loading and dropping its plane entries, or each plane replaced by its
+  constant, the plane's mean, with no plane read.  Their kernels have f32
+  fields with an f32 or bf16 coarse inverse, and f64 fields with an f64
+  one.
+
 ``plain=True`` (K2/K3) and ``interpret=True`` (K4, tpufem's name), set by
 ``cg_storage="grid_interpret"``, take the plain versions on every device.
 """
@@ -73,6 +87,16 @@ _PRESSURE = {
     (torch.float64, torch.bfloat16): "pressure_cg_f64_bf16",
 }
 _NS = {torch.float32: "ns_bicgstab_f32", torch.float64: "ns_bicgstab_f64"}
+# K3's variants by (mode, field dtype, coarse inverse dtype): "pb16" (bf16
+# preconditioner planes) and the probes
+_PRESSURE_VARIANTS = {
+    **{("pb16", *key): f"{name}_pb16" for key, name in _PRESSURE.items()},
+    **{(probe, dt, cd): f"pressure_{probe}_{name}" for probe in ("nofma", "nodma")
+       for (dt, cd), name in (((torch.float32, torch.float32), "f32"),
+                              ((torch.float32, torch.bfloat16), "f32_bf16"),
+                              ((torch.float64, torch.float64), "f64"))},
+}
+PROBES = ("", "nofma", "nodma")
 _VISCOUS_PLANES = 4  # K2's work planes a column: r, q, and p twice (read one, write one)
 _NS_PLANES = 7  # K4's work planes a column: r̂, r, t, and p and v twice (read one, write one)
 _PRESSURE_PLANES = 6  # K3's work planes: r and p twice (read one, write the other), q, z
@@ -84,19 +108,29 @@ _vp, _int, _dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _OP_ARGS = [_vp, _vp, _vp, _int, _int, _vp, _vp, _vp, _vp, _int]
 _VISCOUS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _dbl, _int, _dbl, _vp, _vp]
 _PRESSURE_ARGTYPES = _OP_ARGS + [_vp] * 3 + [_int] * 3 + [_vp] * 5 + [_dbl, _int, _dbl, _vp, _vp]
+_VARIANT_ARGTYPES = {  # the second plane set and its remainder; the planes' constants
+    "pb16": _OP_ARGS + [_vp] * 5 + _PRESSURE_ARGTYPES[len(_OP_ARGS):],
+    "nofma": _PRESSURE_ARGTYPES,
+    "nodma": _OP_ARGS + [_vp] + _PRESSURE_ARGTYPES[len(_OP_ARGS):],
+}
 _NS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _int, _dbl, _vp, _vp]
 
 
 def load(source=SOURCE) -> ctypes.CDLL:
-    """Compile ``source`` (unless cached) and load it with the entry points'
-    argument types set: the tree's K2/K3/K4 by default, or another copy of
-    the source (a parent's, a variant) to time beside it."""
+    """Compile ``source`` (unless cached) and load it with the argument
+    types set of the entry points it has: the tree's K2/K3/K4 by default,
+    or another copy of the source (a parent's, a variant) to time beside
+    it."""
     lib = _nvcc.build(source)
-    for names, argtypes in ((_VISCOUS, _VISCOUS_ARGTYPES), (_PRESSURE, _PRESSURE_ARGTYPES),
-                            (_NS, _NS_ARGTYPES)):
-        for name in names.values():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
+    tables = [(_VISCOUS.values(), _VISCOUS_ARGTYPES), (_PRESSURE.values(), _PRESSURE_ARGTYPES),
+              (_NS.values(), _NS_ARGTYPES)]
+    tables += [([name], _VARIANT_ARGTYPES[key[0]]) for key, name in _PRESSURE_VARIANTS.items()]
+    for names, argtypes in tables:
+        for name in names:
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -123,10 +157,13 @@ def blocks_per_sm(lib: ctypes.CDLL | None = None) -> dict[str, int]:
         ("viscous_cg", ("f32 C=1 4/SM", "f32 C=1 5/SM", "f32 C=2 4/SM", "f32 C=2 5/SM",
                         "f64 C=1 2/SM", "f64 C=2 2/SM")),
         ("pressure_cg", ("f32", "f32 bf16", "f64", "f64 bf16")),
-        ("ns_bicgstab", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2"))) for t in types]
+        ("ns_bicgstab", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2")),
+        ("pressure_pb16", ("f32", "f32 bf16", "f64", "f64 bf16")),
+        ("pressure_nofma", ("f32", "f32 bf16", "f64")),
+        ("pressure_nodma", ("f32", "f32 bf16", "f64"))) for t in types]
     out = (ctypes.c_int * len(names))()
-    (lib or build()).grid_cg_blocks_per_sm(out, len(names))
-    return dict(zip(names, out))
+    got = (lib or build()).grid_cg_blocks_per_sm(out, len(names))
+    return dict(zip(names[:got], out))
 
 
 def _dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -315,7 +352,11 @@ def _block_pool(ns: int, target_coarse: int) -> tuple[int, int]:
 class PressureGridCG:
     """The merged periodic pressure solve (two-level PCG with deflation),
     the whole solve in one launch of K3; the rhs merge and the slave
-    copy-back run as plain tensor code around it."""
+    copy-back run as plain tensor code around it.
+
+    Where ``K_pre`` is set (by :meth:`build` under ``precond_bf16``, on
+    tpufem's gate) the preconditioner applies K̃, K with bfloat16 planes;
+    ``probe`` selects a measurement variant (``roofline.probes``)."""
 
     K: GridOperator  # merged periodic pressure operator
     m_lumped: torch.Tensor  # (N,)
@@ -339,17 +380,17 @@ class PressureGridCG:
     hbm_io: bool = False
     roll_cache: bool = True
     stream_chunk: int = 1
-    # refused
-    probe: str = ""
-    precond_bf16: bool = False
+    probe: str = ""  # "", or a measurement variant: "nofma", "nodma"
+    K_pre: GridOperator | None = None  # K̃, the preconditioner's operator under precond_bf16
 
     def __post_init__(self):
-        if self.probe:
-            raise NotImplementedError("PressureGridCG.probe is a TPU measurement mode; not ported")
-        if self.precond_bf16:
-            raise NotImplementedError(
-                "PressureGridCG.precond_bf16 (cg_precond_bf16='on') is not ported to "
-                "tpufem_torch (ROADMAP Queue 1 item 6)")
+        if self.probe not in PROBES:
+            raise ValueError(f"unknown probe {self.probe!r}; expected one of {PROBES}")
+
+    @property
+    def K_precond(self) -> GridOperator:
+        """The operator the preconditioner's two applies read."""
+        return self.K if self.K_pre is None else self.K_pre
 
     @classmethod
     def build(cls, K_merged_csr, grid_op: GridOperator, m_lumped, masters, slaves,
@@ -394,6 +435,8 @@ class PressureGridCG:
         lmax = estimate_lmax(grid_op.matvec, inv_diag, n)
 
         dtype, dev = grid_op.dtype, grid_op.device
+        # tpufem's gate: the bf16 planes only for the streamed two-level solve
+        bf16_planes = precond_bf16 and stream_diags and use_coarse
 
         def t(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -405,7 +448,7 @@ class PressureGridCG:
             omega=1.0 / float(lmax), tol=tol, plain=plain, pair_axis=pair_axis,
             use_coarse=use_coarse, stream_diags=stream_diags, stream_loop=stream_loop,
             hbm_io=hbm_io, roll_cache=roll_cache, stream_chunk=stream_chunk,
-            precond_bf16=precond_bf16 and stream_diags and use_coarse,
+            K_pre=grid_op.bf16_preconditioner(K_merged_csr) if bf16_planes else None,
         )
 
     def _grid(self, v: torch.Tensor) -> torch.Tensor:
@@ -421,6 +464,14 @@ class PressureGridCG:
         inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
                           torch.ones_like(d))
         return self._grid(inv).contiguous()
+
+    @functools.cached_property
+    def plane_constants(self) -> tuple[list, list]:
+        """The "nodma" probe's constant for each plane of K and of the
+        preconditioner's operator: the plane's mean in the field's dtype,
+        as host floats (both versions use these values)."""
+        return tuple(K.diags.to(K.rest_vals.dtype).mean(dim=(-2, -1)).tolist()
+                     for K in (self.K, self.K_precond))
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None) -> torch.Tensor:
         """K_merged p = merge(M_L ∘ b): rhs merge, the solve, master → slave copy."""
@@ -473,15 +524,30 @@ def coarse_product(solver: PressureGridCG, flat: torch.Tensor) -> torch.Tensor:
     return (ai @ flat.to(ai.dtype)).to(torch.float32)
 
 
+def _probe_apply(K: GridOperator, probe: str, constants: list):
+    """X ↦ K·X (remainder rounded as the kernels round it) as a K3 apply
+    under ``probe``: the operator's own, its remainder alone ("nofma"), or
+    each plane replaced by its constant ("nodma")."""
+    if probe == "nofma":
+        return lambda X: K.rest_apply(X, round32=True) if K.n_rest else torch.zeros_like(X)
+    if probe == "nodma":
+        c = torch.tensor(constants, dtype=K.rest_vals.dtype, device=K.device)
+        K = dataclasses.replace(K, diags=c[:, None, None].expand(len(K.offsets), K.ns, K.ns))
+    return lambda X: K.matvec_grid(X, round32=True)
+
+
 def pressure_cg_ref(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
                     iters_out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain K3 on (ns, ns) planes (b is the prepared rhs): tpufem's
     ``_cg_core`` with the deflation projection and the two-level
-    preconditioner.  With ``tol > 0`` the loop condition is read on the
-    host each iteration."""
-    K, act, invd = solver.K, solver.act_grid, solver.inv_diag_grid
+    preconditioner, whose two applies read ``solver.K_precond`` (K̃ under
+    ``precond_bf16``), and every apply as ``solver.probe`` has it.  With
+    ``tol > 0`` the loop condition is read on the host each iteration."""
+    act, invd = solver.act_grid, solver.inv_diag_grid
     omega, iters, tol = solver.omega, solver.iters, solver.tol
     ww = torch.sum(act * act)
+    mv, mvp = (_probe_apply(K, solver.probe, c)
+               for K, c in zip((solver.K, solver.K_precond), solver.plane_constants))
 
     def project(X):
         return X - (torch.sum(act * X) / ww) * act
@@ -490,17 +556,17 @@ def pressure_cg_ref(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
         if not solver.use_coarse:
             return invd * r
         z1 = omega * (invd * r)
-        z2 = z1 + coarse_ref(solver, r - K.matvec_grid(z1, round32=True))
-        return z2 + omega * (invd * (r - K.matvec_grid(z2, round32=True)))
+        z2 = z1 + coarse_ref(solver, r - mvp(z1))
+        return z2 + omega * (invd * (r - mvp(z2)))
 
     b = project(b)
-    r = project(b - K.matvec_grid(x0, round32=True))
+    r = project(b - mv(x0))
     z = project(precond(r))
     x, p, rz = x0, z, torch.sum(r * z)
     atol2 = (tol * torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-30)) ** 2
     k = 0
     while k < iters and (tol <= 0 or bool(torch.sum(r * r) > atol2)):
-        Ap = project(K.matvec_grid(p, round32=True))
+        Ap = project(mv(p))
         alpha = _ratio(rz, torch.sum(p * Ap))
         x = x + alpha * p
         r = r - alpha * Ap
@@ -533,27 +599,48 @@ def pressure_cg(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
     _check_counter(iters_out, b)
     if not _device_ok(b, "K3"):
         return pressure_cg_ref(solver, b, x0, iters_out)
+    if solver.probe and solver.K_pre is not None:
+        raise TypeError("K3 has no probe instance with bfloat16 preconditioner planes")
+    variant = solver.probe or ("pb16" if solver.K_pre is not None else "")
     key = (b.dtype, solver.ac_inv.dtype)
-    if key not in _PRESSURE:
-        raise TypeError(f"K3 has no instance for fields {key[0]} with a {key[1]} coarse inverse")
+    name = _PRESSURE.get(key) if not variant else _PRESSURE_VARIANTS.get((variant, *key))
+    if name is None:
+        raise TypeError(f"K3 has no {variant + ' ' if variant else ''}instance for fields "
+                        f"{key[0]} with a {key[1]} coarse inverse")
     _check_block(solver)
     lib = _lib or build()
+    extra = []  # the variant's arguments after the operator's
+    if variant == "pb16":
+        Kp = solver.K_pre
+        if (Kp.offsets != K.offsets or Kp.diags.dtype != torch.bfloat16
+                or Kp.rest_vals.dtype != b.dtype or Kp.device != b.device):
+            raise ValueError("K_pre must hold bfloat16 planes on K's offsets and a remainder "
+                             "in the field's dtype, on its device")
+        extra = [Kp.diags.data_ptr(), Kp.rest_rowptr.data_ptr(), Kp.rest_lane.data_ptr(),
+                 Kp.rest_src.data_ptr(), Kp.rest_vals.data_ptr()]
+    elif variant == "nodma":
+        c = solver.plane_constants[0]
+        extra = [(ctypes.c_double * len(c))(*c)]
     n, nc = K.n, solver.n_blocks
     b, x0 = b.contiguous(), x0.contiguous()
     x = torch.empty_like(b)
     work = torch.empty(_PRESSURE_PLANES * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
     fwork = torch.empty(2 * nc * nc, dtype=torch.float32, device=b.device)  # rc, zc
-    _launch(getattr(lib, _PRESSURE[key]), b.device, *_kernel_operator_args(K),
+    _launch(getattr(lib, name), b.device, *_kernel_operator_args(K), *extra,
             solver.act_grid.data_ptr(), solver.inv_diag_grid.data_ptr(),
             solver.ac_inv.contiguous().data_ptr(), solver.block, nc, int(solver.use_coarse),
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), work.data_ptr(), fwork.data_ptr(),
             float(solver.omega), int(solver.iters), float(solver.tol),
             None if iters_out is None else iters_out.data_ptr())
     pressure_cg.launches += 1
+    if variant:
+        pressure_cg.variant_launches[variant] += 1
     return x
 
 
 pressure_cg.launches = 0
+# launches of K3's variants, each also counted in pressure_cg.launches
+pressure_cg.variant_launches = {"pb16": 0, "nofma": 0, "nodma": 0}
 
 
 # ---------------------------------------------------------------------------

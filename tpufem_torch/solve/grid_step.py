@@ -124,6 +124,13 @@ class GridStokesStep:
     body_force: tuple
     steps_per_call: int = 1
 
+    def __post_init__(self):
+        # K5's pressure solves keep the full planes in the preconditioner:
+        # tpufem's whole-step kernel has no precond_bf16 (pallas_step.py),
+        # and its gate (the streamed regime) is where tpufem refuses K5
+        if self.pressure.K_pre is not None:
+            object.__setattr__(self, "pressure", dataclasses.replace(self.pressure, K_pre=None))
+
     @classmethod
     def build(cls, problem) -> "GridStokesStep | None":
         """From a ``StokesProblem`` with grid solvers; None (the unfused

@@ -136,10 +136,6 @@ _DYE_TRANSPORTS = ("dye", "eulerian_dye", "dye_griddata")  # half-domain dye, mi
 _STORAGES = ("auto", "grid", "grid_interpret", "csr", "stencil", "banded")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tpufem_torch yet (ROADMAP Queue 1 item {item})")
-
-
 def check_config(config: StokesConfig) -> None:
     """Raise for anything this port does not implement, before any work.
 
@@ -210,8 +206,8 @@ def _check_cg(config: StokesConfig) -> None:
         raise ValueError("fused and cg are mutually exclusive")
     if config.cg_storage not in _STORAGES:
         raise ValueError(f"unknown cg_storage {config.cg_storage!r}; expected one of {_STORAGES}")
-    if config.cg_precond_bf16 == "on":
-        raise _not_ported("cg_precond_bf16='on'", "6")
+    if config.cg_precond_bf16 not in ("off", "on"):
+        raise ValueError(f"unknown cg_precond_bf16 {config.cg_precond_bf16!r}")
     if config.cg_precond not in ("jacobi", "chebyshev", "twolevel"):
         raise ValueError(f"unknown cg_precond {config.cg_precond!r}")
     if config.cg_coarse_dtype not in ("same", "bf16"):
@@ -571,7 +567,8 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
                     boundary.slaves, active_mask, iters=config.cg_iters_pressure,
                     tol=config.cg_tol_pressure, target_coarse=config.cg_coarse_nodes,
                     use_coarse=config.cg_precond == "twolevel", coarse_dtype=coarse_dtype,
-                    plain=storage == "grid_interpret", **tpu_fields,
+                    plain=storage == "grid_interpret",
+                    precond_bf16=config.cg_precond_bf16 == "on", **tpu_fields,
                 )
                 return visc, pressure, materialize(dx_csr), materialize(dy_csr), None, -1
         except GridDecompositionError:
