@@ -13,7 +13,8 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
 3. K1 against its plain version (``torch.addmv``) on the card, f32 and f64,
    at 2N = 1704 (the bench mesh), 700 (off the TPU's 128/256 tiles) and 6200 (near the top
    of the dense regime), with µs per call of both, and the kernel's
-   scalar-tail and unstaged-x paths at three non-square shapes;
+   scalar-tail and unstaged-x paths at three non-square shapes; then
+   ``FusedStepMatvec``'s choice of K1 and ``benchmark_matvec`` at 1704;
 4. the main path: the bench configuration (squirmer Stokes, fused f32
    step on K1, ~10k tracers) for 1000 steps, twice, through
    ``StokesProblem.build`` and ``stokes.run``; K1 must do every step;
@@ -221,9 +222,9 @@ Phases 39–42, the ensembles, the one-program gait campaign, TopK and bf16
     a step and the busy share (profiler), the count at B = 8 no more than
     5 % above B = 3; eaten counts at 300 steps within 2 of phase 27's f32
     campaign (tpufem's own gate);
-41. the geometry ensemble: ``MultiMeshEnsemble`` over 8
+41. the geometry ensemble: ``MultiMeshEnsemble`` over 4
     ``generate_annulus_mesh(64, 72, pad_hole=True, jitter=0.15, seed=k)``
-    (4,096 nodes each), tracers, f32 merge, 8 data positions on the card,
+    (4,096 nodes each), tracers, f32 merge, 4 data positions on the card,
     500 steps: build seconds, steps/s, device ms and kernels a step, the
     products' share, peak memory, each simulation under the gates; f64 card
     against CPU on 4 jittered (14, 16) meshes, 10 steps, dye and tracers
@@ -309,6 +310,20 @@ phase 47 on phase 9's problem and on the same mesh built with ``"on"``:
     device ms a step (profiler); (d) ``roofline.probes`` at 1,048,576,
     160,000 and on the 192² raster: µs an iteration of real, nofma and
     nodma.
+
+Phase 49, the gallery (``tpufem_torch.gallery``), runs last:
+
+49. the gallery's fields at ``examples/make_gallery.py``'s full sizes on
+    the card, and at its quick sizes against the port's CPU path at f64;
+    then the flagship
+    semi-Lagrangian dye movie's path (``gallery.xl_problem``/``xl_run``:
+    ``bench_config(transport="dye")`` on the 409,600-node pad_hole mesh, the
+    grid path) for 100 of its 600 steps with a frame every 20, twice from
+    rest: K2 once and K3 twice a step, c within its first range, the mixing
+    index in [0, 1] at every frame, tpufem's scale gates; cold and warm
+    steps/s, host build and frame-copy seconds, iterations a solve, device
+    ms and kernels a step with K2's, K3's and the advection's shares; the
+    frames saved as ``.npz``, rendered only where matplotlib imports.
 
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
@@ -577,6 +592,14 @@ def phase_kernel(dev: torch.device) -> dict:
                 at_main = {"max_abs_err": max_abs, "ms": k1[1], "plain_ms": plain[1],
                            **bound((r * c + c + 2 * r) * M.element_size(), 2.0 * r * c),
                            "library_ms": device_ms(lambda M, x, b: torch.addmv(b, M, x), M, x, b)}
+    n = KERNEL_SHAPES[0]
+    M, b = rng.standard_normal((n, n)), rng.standard_normal(n)
+    check(fm.FusedStepMatvec(M, b, device=dev).use_pallas, "FusedStepMatvec takes K1 on the card")
+    secs = fm.benchmark_matvec(M, b, iters=TIMED_CALLS, device=dev)
+    check(all(np.isfinite(v) and v > 0 for v in secs.values()), f"benchmark_matvec {secs}")
+    print(f"[3 kernel] benchmark_matvec at {n}x{n} f32 (tpufem's keys, one graph replay of "
+          f"{TIMED_CALLS} calls): K1 {secs['pallas'] * 1e6:.2f} us, torch.addmv "
+          f"{secs['xla'] * 1e6:.2f} us a call")
     return at_main
 
 
@@ -2424,7 +2447,9 @@ ENS_BATCHES = (3, 8)  # kernels a step must not grow with B on one card
 ENS_TIMED_STEPS = 1000
 ENS_PROFILE_STEPS = 20
 MM_MESH = (64, 72)  # pad_hole: 4,096 nodes, the top of the dense regime
-MM_SIMS = 8
+# 8 until phase 49 came: the host build (a 4096² pinv a mesh, ~14.5 s each) is
+# most of the phase, so the ensemble was cut to 4 meshes to make room for it
+MM_SIMS = 4
 MM_STEPS = 500
 MM_PROFILE_STEPS = 10
 MM_PARITY_MESH = (14, 16)
@@ -2686,7 +2711,7 @@ def matmul_share(prof: dict) -> float:
 
 
 def phase_multimesh(dev) -> None:
-    """The geometry ensemble at the top of the dense regime: 8 jittered
+    """The geometry ensemble at the top of the dense regime: 4 jittered
     4,096-node meshes, tracers, f32 merge, one a "data" position on the
     card, 500 steps; then f64 card against CPU on 4 small meshes."""
     t0 = time.perf_counter()
@@ -3685,6 +3710,132 @@ def phase_cli() -> None:
     print("[46 cli] --help exits 0; " + "; ".join(parts))
 
 
+# ---------------------------------------------------------------------------
+# Phase 49: the gallery on the card
+# ---------------------------------------------------------------------------
+
+GALLERY_RTOL = 1e-10  # the gallery's f64 quick fields, card against the port's CPU path
+XL_STEPS = 100  # the flagship movie's 600 steps, cut
+XL_FRAME_INTERVAL = 20
+XL_PROFILE_STEPS = 20
+XL_C_SLACK = 1e-6  # P1 interpolation is a convex combination: c stays in its first range
+
+
+def gallery_parity(dev) -> str:
+    """The gallery's fields at make_gallery's full sizes on the card (dense
+    f64 runs, none of K1-K6), and at its quick sizes on the card against
+    the port's CPU path (the full sizes take minutes on the CPU)."""
+    from tpufem_torch import gallery
+
+    out, seconds = {}, {}
+    for name, device, quick in (("full", dev, False), ("quick", dev, True),
+                                ("quick_cpu", CPU, True)):
+        zero_launches()
+        t0 = time.perf_counter()
+        out[name] = gallery.fields(quick=quick, device=device)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        no_kernel_launches(f"the gallery's {name} fields")
+        for k, v in out[name].items():
+            check(np.isfinite(v).all(), f"gallery {name} {k} is finite")
+    card_f, cpu_f = out["quick"], out["quick_cpu"]
+    errs = {}
+    for k, v in card_f.items():
+        if k in ("coords", "tris"):
+            continue
+        if k.endswith("tracer_status"):
+            check(np.array_equal(v, cpu_f[k]), f"gallery {k}: card and CPU statuses differ")
+            continue
+        errs[k] = float(np.linalg.norm(v - cpu_f[k]) / max(np.linalg.norm(cpu_f[k]), 1e-300))
+        check(errs[k] <= GALLERY_RTOL, f"gallery {k}: card vs CPU {errs[k]} > {GALLERY_RTOL}")
+    full = out["full"]
+    return (f"full sizes on the card, {len(full['coords'])} nodes: eaten "
+            f"{int((full['food_tracer_status'] > 0).sum())} of "
+            f"{len(full['food_tracer_status'])}, {len(full['dye_frames'])} dye frames, max|u| "
+            f"{np.abs(full['stokes_u']).max():.4f}; quick sizes ({len(card_f['coords'])} nodes) "
+            f"card vs CPU at f64 (<= {GALLERY_RTOL:g}): "
+            + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+            + f", statuses equal; seconds {seconds}")
+
+
+def phase_gallery(dev) -> None:
+    """Phase 49: ``tpufem_torch.gallery`` on the card.  (a) the gallery's
+    fields at make_gallery's full sizes, and at its quick sizes card
+    against CPU at f64; (b) the
+    flagship semi-Lagrangian dye movie's path on the 409,600-node pad_hole
+    mesh (``bench_config(transport="dye")``, the grid path) at a cut
+    depth, twice from rest (cold, then warm): K2 once and K3 twice a step,
+    c within its first range, the mixing index in [0, 1] at every frame,
+    tpufem's scale gates; steps/s, host build and frame-copy seconds,
+    iterations a solve, device ms and kernels a step with K2's, K3's and
+    the dye advection's shares; (c) its frames saved as ``.npz``, rendered
+    only where matplotlib imports."""
+    import tempfile
+
+    from tpufem_torch import gallery, transport
+
+    print(f"[49 gallery] {gallery_parity(dev)}")
+    problem, build_s = gallery.xl_problem(device=dev)
+    check(isinstance(problem.pressure_solver, grid_cg.PressureGridCG),
+          f"the XL dye run takes {type(problem.pressure_solver).__name__}, not the grid path")
+    problem, counters = bench_large.with_iteration_counters(problem)
+    steps, runs, iters = XL_STEPS, {}, {}
+    for name in ("cold", "warm"):
+        zero_launches()
+        runs[name] = gallery.xl_run(problem, steps, XL_FRAME_INTERVAL)
+        counts = launch_counts()
+        check(counts == {"K1": 0, "K2": steps, "K3": 2 * steps, "K4": 0, "K5": 0, "K6": 0},
+              f"{name} XL dye run launched {counts} (want K2 = {steps}, K3 = {2 * steps})")
+        iters[name] = bench_large.iterations_per_solve(counters, steps)
+    run = runs["cold"]
+    frames = run["frames"]
+    lo, hi = float(frames[0].min()), float(frames[0].max())
+    mass, mask = problem.m_lumped, stokes._interior_mask(problem)
+    index = []
+    for f in frames:
+        check(np.isfinite(f).all(), "an XL dye frame is finite")
+        check(f.min() >= lo - XL_C_SLACK and f.max() <= hi + XL_C_SLACK,
+              f"XL dye left its first range [{lo}, {hi}]: [{f.min()}, {f.max()}]")
+        value = float(transport.mixing_index(torch.as_tensor(f, device=dev), mass, mask)[0])
+        check(np.isfinite(value) and -XL_C_SLACK <= value <= 1.0 + XL_C_SLACK,
+              f"mixing index {value} outside [0, 1]")
+        index.append(value)
+    metrics = {k: torch.cat([m[k] for m in run["metrics"]]) for k in run["metrics"][0]}
+    phys = bench_large.physics_report(problem, run["state"], metrics, steps)  # tpufem's gates
+    check(phys["div_rel"] < bench_large.DIV_REL_GATES["stokes"], f"XL div_rel {phys['div_rel']}")
+    prof = profile_steps(problem, XL_PROFILE_STEPS, state=run["state"], top=40)
+    share = {k: sum(e["ms_per_step"] for e in prof["top"] if name in e["name"])
+             / prof["device_ms_per_step"]
+             for k, name in (("K2", "viscous_cg"), ("K3", "pressure_cg"))}
+    cfg, state = problem.config, run["state"]
+    advect = profile_run(lambda: [transport.advect_semilagrange(
+        problem.mesh, problem.locator, state["c"], state["u"], cfg.dt, L=cfg.L, H=cfg.H)
+        for _ in range(XL_PROFILE_STEPS)], XL_PROFILE_STEPS)
+    share["advect"] = advect["device_ms_per_step"] / prof["device_ms_per_step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = f"{tmp}/xl_dye.npz"
+        np.savez(npz, xl_coords=problem.mesh.coords, xl_tris=problem.mesh.tris,
+                 xl_quick=np.asarray(False), xl_dye_frames=np.stack(frames))
+        rendered = gallery.can_render()
+        if rendered:
+            gallery.render(np.load(npz), tmp)
+        where = (f"saved {len(frames)} frames as .npz ({np.stack(frames).nbytes / 1e6:.1f} MB), "
+                 + ("rendered" if rendered else "not rendered (no matplotlib here)"))
+    print(f"[49 gallery] XL dye, {problem.mesh.n_nodes} nodes, {steps} steps, a frame every "
+          f"{XL_FRAME_INTERVAL}: host build {build_s:.2f} s (locator included); cold "
+          f"{steps / runs['cold']['run_s']:.2f} steps/s ({runs['cold']['run_s']:.3f} s, frame "
+          f"copies {runs['cold']['copy_s']:.3f} s), warm {steps / runs['warm']['run_s']:.2f} "
+          f"steps/s ({runs['warm']['run_s']:.3f} s, frame copies {runs['warm']['copy_s']:.3f} s); "
+          f"iterations a solve cold {iters['cold']}, warm {iters['warm']}; launches a run K2 "
+          f"{steps}, K3 {2 * steps}; device {prof['device_ms_per_step']:.4f} ms and "
+          f"{prof['kernels_per_step']:.1f} kernels a step, shares K2 {100 * share['K2']:.1f} %, "
+          f"K3 {100 * share['K3']:.1f} %, advection {100 * share['advect']:.1f} % "
+          f"({advect['device_ms_per_step']:.4f} ms, {advect['kernels_per_step']:.1f} kernels); "
+          f"c in [{lo:g}, {hi:g}]: {min(f.min() for f in frames):.6g} to "
+          f"{max(f.max() for f in frames):.6g}; mixing index {[round(v, 5) for v in index]}; "
+          f"div_rel {phys['div_rel']}, mixing progress {phys['mixing_progress']:.4f}; {where}; "
+          f"top {json.dumps(prof['top'][:6])}")
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and print the seconds it took."""
     t0 = time.perf_counter()
@@ -3801,6 +3952,7 @@ def main() -> None:
     timed(44, phase_converge)
     timed(45, phase_roofline, dev)
     timed(46, phase_cli)
+    timed(49, phase_gallery, dev)
     kernels = [{
         "name": "fused_step_matvec",
         "route": "cuda",

@@ -131,7 +131,7 @@ def test_bench_large_flags_map_to_bench_large():
         ["bench", "--large", "--sizes", "160k", "--steps", "20", "--bench-storage", "grid",
          "--th", "--n-side", "64", "--engine", "grid", "--hbm-io", "on", "--no-pad-hole"])
     assert tcli._bench_large_argv(args) == [
-        "--steps", "20", "--precond", "twolevel", "--size", "160k", "--storage", "grid",
+        "--steps", "20", "--precond", "twolevel", "--sizes", "160k", "--storage", "grid",
         "--engine", "grid", "--no-pad-hole", "--th", "--n-side", "64"]
 
 

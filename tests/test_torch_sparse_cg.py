@@ -19,7 +19,6 @@ from tpufem.solve.pressure import owner_map
 from tpufem_torch import bc as tbc
 from tpufem_torch.ops import assembly as tassembly
 from tpufem_torch.ops import calculus as tcalculus
-from tpufem_torch.solve import cg as tcg
 from tpufem_torch.solve import matfree as tmatfree
 from tpufem_torch.solve import twolevel as ttwolevel
 
@@ -27,7 +26,9 @@ from tests._torch_parity import meshes, rel
 
 torch.set_num_threads(2)
 
-jcg = importlib.import_module("tpufem.solve.cg")  # tpufem.solve re-exports a function `cg`
+# both packages' `solve` re-export a function `cg`, which shadows the submodule
+jcg = importlib.import_module("tpufem.solve.cg")
+tcg = importlib.import_module("tpufem_torch.solve.cg")
 MESH = (20, 24)
 
 

@@ -34,8 +34,8 @@ DTYPES = {"f64": (jnp.float64, torch.float64), "f32": (jnp.float32, torch.float3
 
 def locators(mesh_size, precision="f64"):
     jm, tm = meshes(*mesh_size)
-    return jm, tm, jtr.TopKLocator(jm, k=K), ttr.TopKLocator.build(
-        tm, k=K, dtype=DTYPES[precision][1], device="cpu")
+    return jm, tm, jtr.TopKLocator(jm, k=K), ttr.TopKLocator(
+        tm, K, dtype=DTYPES[precision][1], device="cpu")
 
 
 def tie_points(jm) -> np.ndarray:
@@ -119,7 +119,7 @@ def test_topk_refuses_large_meshes_as_tpufem():
     _, tm = meshes(12, 16)
     big = dataclasses.replace(tm, tris=np.tile(tm.tris, (50_001 // tm.n_tris + 1, 1)))
     assert big.n_tris > 50_000
-    loc = ttr.TopKLocator.build(big, device="cpu")
+    loc = ttr.TopKLocator(big, device="cpu")
     with pytest.raises(ValueError, match="50k triangles"):
         loc.find(torch.zeros((1, 2), dtype=torch.float64))
     problem_cfg = jstokes.StokesConfig(locator="topk")

@@ -11,8 +11,9 @@ a device mesh (``tpufem_torch.parallel``); the TPU kernels on those paths
 are hand-written CUDA kernels (``csrc/``).  The support modules mirror
 tpufem's: ``diag`` (the reference's Tests A–J and run guards),
 ``convergence`` (accuracy ladders), ``roofline`` (the grid kernels against
-the card's byte bound), ``viz`` (host-side matplotlib) and the CLI,
-``python -m tpufem_torch``.
+the card's byte bound), ``viz`` (host-side matplotlib), ``gallery`` (the
+reference's figures and the 409,600-node dye movie, computed on the device
+and rendered on the host) and the CLI, ``python -m tpufem_torch``.
 
 Quick start::
 

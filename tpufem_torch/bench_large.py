@@ -5,16 +5,20 @@ on ring-in-grid pad_hole meshes (N = n_side²), solved matrix-free: K2 for
 the viscous solve and K3 (two-level PCG, warm start, tolerance exit) for
 both pressure solves, f32 fields, bf16 coarse inverse.
 
-    python -m tpufem_torch.bench_large --size 1.05M [--steps 200] [--transport tracers]
+    python -m tpufem_torch.bench_large [--sizes 2k,6k] [--steps 50] [--transport tracers]
         [--steps-per-call K] [--no-pad-hole] [--storage grid|stencil|banded|csr]
-    python -m tpufem_torch.bench_large --poisson | --heat [--size L] [--precision f64]
+    python -m tpufem_torch.bench_large --ns | --poisson | --heat [--sizes L] [--precision f64]
     python -m tpufem_torch.bench_large --th [--n-side 96] [--engine csr|grid]
         [--precision f64|f32] [--restarts R] [--steps 50]
 
-prints one JSON row like tpufem's (cold and warm steps/s, the physics
-report), plus the card's name and power limit, the mean CG iterations per
-solve of each run, and a device-time breakdown of the warm run, repeated
-under ``torch.profiler``.  ``--steps-per-call K`` runs the step as kernel
+``--sizes`` (alias ``--size``) takes labels of ``SIZES``; without it each
+mode runs tpufem's default set: Stokes every size outside ``LARGE_OPT_IN``,
+NS 26k and 79k, Poisson 1.05M, heat 160k, under tpufem's row labels
+(``ns-<size>``, ``poisson-<size>``, ``heat-<size>``).  Each run prints one
+JSON row like tpufem's (cold and warm steps/s, the physics report), plus
+the card's name and power limit, the mean CG iterations per solve of each
+run, and a device-time breakdown of the warm run, repeated under
+``torch.profiler``; a Stokes sweep ends with tpufem's markdown table.  ``--steps-per-call K`` runs the step as kernel
 K5 (K whole steps a launch); ``--no-pad-hole`` generates the compacted
 numbering, which ``--storage grid`` renumbers onto a raster (``gridify``);
 ``--mesh PATH`` runs an imported Triangle mesh (:func:`run_imported`,
@@ -56,6 +60,10 @@ SIZES = [
     ("1.64M", 1280, 1344),
     ("2M", 1408, 1472),
 ]
+
+# the ≥ 400k rows, left out of the Stokes sweep unless --sizes names them
+# (tpufem's opt-in set)
+LARGE_OPT_IN = {"410k", "518k", "803k", "1.05M", "1.64M", "2M"}
 
 # normalized-divergence gates ‖div u‖_M·h/‖u‖_M, tpufem's (they track its
 # measured curves: Stokes/dye/tracers 0.0197–0.0272 across 2k–2M)
@@ -212,7 +220,7 @@ def run_one(n_side: int, n_circle: int, steps: int, precond: str = "twolevel",
                     steps_per_call)
 
 
-def run_imported(path: str, steps: int, precond: str = "twolevel", transport: str = "none",
+def run_imported(stem: str, steps: int, precond: str = "twolevel", transport: str = "none",
                  storage: str = "grid", device="cuda", profile: bool = True,
                  steps_per_call: int = 0) -> dict:
     """One row on a Triangle mesh (see :func:`imported_mesh`), through the
@@ -220,10 +228,10 @@ def run_imported(path: str, steps: int, precond: str = "twolevel", transport: st
     ``run_imported``)."""
     t0 = time.perf_counter()
     _build_kernels(device)
-    mesh = imported_mesh(path)
+    mesh = imported_mesh(stem)
     row = run_mesh(mesh, steps, t0, precond, transport, storage, device, profile,
                    steps_per_call, gate="imported")
-    row["mesh"] = path
+    row["mesh"] = stem
     row["n_nodes_input"] = int(mesh.n_nodes)
     return row
 
@@ -710,13 +718,24 @@ def run_th_sparse(n_side: int, n_circle: int, steps: int, precision: str = "f64"
     return row
 
 
+def _wanted(sizes: str | None, default: set) -> set:
+    """The labels of ``--sizes``, else ``default``."""
+    if sizes is None:
+        return default
+    wanted = set(sizes.split(","))
+    unknown = wanted - {s[0] for s in SIZES}
+    if unknown:
+        raise SystemExit(f"unknown sizes {sorted(unknown)}")
+    return wanted
+
+
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(prog="python -m tpufem_torch.bench_large")
-    parser.add_argument("--size", default=None,
-                        help="comma-separated labels from %s (default 1.05M; 160k with --heat)"
-                        % [s[0] for s in SIZES])
-    parser.add_argument("--steps", type=int, default=None,
-                        help="steps a run (default 200; 50 with --heat)")
+    parser.add_argument("--steps", type=int, default=50)
+    parser.add_argument("--sizes", "--size", dest="sizes", default=None,
+                        help="comma-separated labels from %s (default: every size outside "
+                        "LARGE_OPT_IN; 26k,79k with --ns; 1.05M with --poisson; 160k with "
+                        "--heat)" % [s[0] for s in SIZES])
     parser.add_argument("--precond", default="twolevel", choices=["twolevel", "jacobi"])
     parser.add_argument("--transport", default="none", choices=["none", "tracers", "dye"])
     parser.add_argument("--storage", default="auto",
@@ -730,72 +749,79 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--mesh", default=None,
                         help="an imported Triangle mesh (path stem or reference mesh name) "
                              "instead of the generated sizes; storage grid unless --storage")
+    parser.add_argument("--th", action="store_true",
+                        help="run the sparse Taylor–Hood row (run_th_sparse) instead")
     parser.add_argument("--ns", action="store_true",
                         help="run the Navier–Stokes configuration (run_ns) instead of Stokes")
     parser.add_argument("--poisson", action="store_true",
                         help="run the matrix-free Poisson solve (run_poisson_large) instead")
     parser.add_argument("--heat", action="store_true",
                         help="run the matrix-free heat run (run_heat_large) instead")
-    parser.add_argument("--precision", default=None, choices=["f32", "f64"],
-                        help="--poisson/--heat/--th precision (default f32; f64 with --th)")
-    parser.add_argument("--th", action="store_true",
-                        help="run the sparse Taylor–Hood row (run_th_sparse) instead")
     parser.add_argument("--n-side", type=int, default=96,
                         help="--th mesh resolution (P2 dofs about 4·n_side²)")
+    parser.add_argument("--precision", default=None, choices=["f32", "f64"],
+                        help="--th/--ns/--poisson/--heat precision (default f32; f64 with --th)")
     parser.add_argument("--engine", default="csr", choices=["csr", "grid"],
                         help="--th engine: csr (plain CSR Uzawa-CG) or grid (K2 and K3)")
     parser.add_argument("--restarts", type=int, default=0,
                         help="--th --engine grid: true-residual passes a velocity solve")
     parser.add_argument("--out", default=None, help="write the rows as JSON lines here too")
     args = parser.parse_args(argv)
-    if args.size is None:
-        args.size = "160k" if args.heat else "1.05M"
-    if args.steps is None:
-        args.steps = 50 if args.heat or args.th else 200
-    if args.precision is None:
-        args.precision = "f64" if args.th else "f32"
     if not torch.cuda.is_available():
         raise SystemExit("bench_large measures the card: no CUDA device found")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.th:
-        row = run_th_sparse(args.n_side, args.n_side, args.steps, precision=args.precision,
-                            engine=args.engine, vel_restarts=args.restarts)
-        row["label"] = f"th-{args.n_side}"
-        print(json.dumps(row), flush=True)
-        return [row]
-    wanted = args.size.split(",")
-    unknown = set(wanted) - {s[0] for s in SIZES}
-    if unknown:
-        raise SystemExit(f"unknown sizes {sorted(unknown)}")
-    rows = []
-    if args.mesh:
-        rows.append(run_imported(args.mesh, args.steps, precond=args.precond,
-                                 transport=args.transport,
-                                 storage="grid" if args.storage == "auto" else args.storage,
-                                 steps_per_call=args.steps_per_call))
-        print(json.dumps(rows[-1]), flush=True)
-    for label, n_side, n_circle in SIZES:
-        if args.mesh or label not in wanted:
-            continue
-        if args.poisson:
-            row = run_poisson_large(n_side, n_circle, precision=args.precision)
-        elif args.heat:
-            row = run_heat_large(n_side, n_circle, args.steps, precision=args.precision)
-        elif args.ns:
-            row = run_ns(n_side, n_circle, args.steps, precond=args.precond,
-                         storage=args.storage)
-        else:
-            row = run_one(n_side, n_circle, args.steps, precond=args.precond,
-                          transport=args.transport, storage=args.storage,
-                          pad_hole=not args.no_pad_hole, steps_per_call=args.steps_per_call)
+    precision = args.precision or ("f64" if args.th else "f32")
+
+    def emit(row, label):
         row["label"] = label
         print(json.dumps(row), flush=True)
         rows.append(row)
+
+    rows = []
+    if args.th:
+        emit(run_th_sparse(args.n_side, args.n_side, args.steps, precision=precision,
+                           engine=args.engine, vel_restarts=args.restarts),
+             f"th-{args.n_side}")
+    elif args.ns or args.poisson or args.heat:
+        mode = "ns" if args.ns else "poisson" if args.poisson else "heat"
+        wanted = _wanted(args.sizes, {"ns": {"26k", "79k"}, "poisson": {"1.05M"},
+                                      "heat": {"160k"}}[mode])
+        for label, n_side, n_circle in SIZES:
+            if label not in wanted:
+                continue
+            if args.ns:
+                row = run_ns(n_side, n_circle, args.steps, precision=precision,
+                             precond=args.precond, storage=args.storage)
+            elif args.poisson:
+                row = run_poisson_large(n_side, n_circle, precision=precision)
+            else:
+                row = run_heat_large(n_side, n_circle, args.steps, precision=precision)
+            emit(row, f"{mode}-{label}")
+    elif args.mesh:
+        emit(run_imported(args.mesh, args.steps, precond=args.precond, transport=args.transport,
+                          storage="grid" if args.storage == "auto" else args.storage,
+                          steps_per_call=args.steps_per_call), args.mesh)
+    else:
+        wanted = _wanted(args.sizes, {s[0] for s in SIZES} - LARGE_OPT_IN)
+        for label, n_side, n_circle in SIZES:
+            if label not in wanted:
+                continue
+            emit(run_one(n_side, n_circle, args.steps, precond=args.precond,
+                         transport=args.transport, storage=args.storage,
+                         pad_hole=not args.no_pad_hole, steps_per_call=args.steps_per_call),
+                 label)
     if args.out:
         with open(args.out, "w") as f:
             for r in rows:
                 f.write(json.dumps(r) + "\n")
+    if not (args.th or args.ns or args.poisson or args.heat):
+        print("\n| nodes | cold steps/s | warm steps/s | div_rel | storage | build (s) |")
+        print("|---|---|---|---|---|---|")
+        for r in rows:
+            print(f"| {r['n_nodes']} | {r['cold_steps_per_sec']:.2f} | "
+                  f"{r['warm_steps_per_sec']:.2f} | {r['div_rel']:.4g} | {r['storage']} | "
+                  f"{r['build_s']:.2f} |")
     return rows
 
 

@@ -162,7 +162,7 @@ def _bench_large_argv(args) -> list[str]:
     """``bench --large``'s flags as ``tpufem_torch.bench_large.main`` takes
     them (``--hbm-io`` is a TPU layout: dropped)."""
     argv = ["--steps", str(args.steps), "--precond", args.precond]
-    for flag, value in (("--size", args.sizes), ("--out", args.bench_out),
+    for flag, value in (("--sizes", args.sizes), ("--out", args.bench_out),
                         ("--transport", args.bench_transport),
                         ("--storage", args.bench_storage), ("--mesh", args.bench_mesh),
                         ("--precision", args.bench_precision), ("--engine", args.engine)):

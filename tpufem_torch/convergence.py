@@ -74,12 +74,12 @@ def _steady_config(n_side: int, steps: int, dt: float, storage: str = "auto",
     )
 
 
-def _locator(mesh, dtype, device, config=None):
-    """The transport locator a Stokes problem of ``config`` would build on
-    ``mesh`` (a transport="none" problem builds none)."""
+def _locator(mesh, dtype, device):
+    """The locator a default Stokes problem would build on ``mesh``: the NS
+    ladder's probe (tpufem builds a throwaway Stokes problem for it)."""
     from tpufem_torch.workloads import stokes
 
-    return stokes._make_locator(mesh, config or stokes.StokesConfig(), dtype, device)
+    return stokes._make_locator(mesh, stokes.StokesConfig(), dtype, device)
 
 
 def _probe(mesh, u: torch.Tensor, pts: np.ndarray, locator):
@@ -126,8 +126,7 @@ def run_self(sizes=None, steps0: int | None = None, storage: str = "auto",
         state, metrics = stokes.run(problem, steps=steps)
         phys = bench_large.physics_report(problem, state, metrics, steps)  # waits for the device
         elapsed = time.perf_counter() - t0
-        vals, found = _probe(problem.mesh, state["u"], pts,
-                             _locator(problem.mesh, problem.dtype, dev, problem.config))
+        vals, found = _probe(problem.mesh, state["u"], pts, problem.get_locator())
         if not found.all():
             raise AssertionError(f"{(~found).sum()} probe points not located")
         h = float(np.sqrt(2.0 * np.median(problem.mesh.area)))
@@ -185,7 +184,7 @@ def run_th(sizes=None, steps0: int | None = None, check: bool = True,
         problem = stokes.StokesProblem.build(
             mesh, _steady_config(n_side, steps, dt, storage="csr", all_walls=True), device=dev)
         state, _ = stokes.run(problem, steps=steps)
-        locator = _locator(mesh, problem.dtype, dev, problem.config)
+        locator = problem.get_locator()
         u1, found1 = _probe(mesh, state["u"], pts, locator)
 
         m2 = p2_refine(mesh, snap_center=(0.5, 0.5), snap_radius=0.25)

@@ -234,8 +234,8 @@ def problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: Stokes
     })
     locator = None
     if config.transport != "none" and config.locator == "topk":
-        locator = transport.TopKLocator.build(mesh, k=config.locator_k,
-                                              dtype=tconfig.dtype(config.precision), device=dev)
+        locator = transport.TopKLocator(mesh, config.locator_k,
+                                        dtype=tconfig.dtype(config.precision), device=dev)
     elif config.transport != "none":
         locator = transport.GridLocator.from_tables(
             mesh, arrays["locator.cells"], arrays["locator.origin"], arrays["locator.extent"],

@@ -9,6 +9,9 @@
 * :func:`fused_step_matvec` launches the hand-written Hopper kernel in
   ``csrc/fused_step_matvec.cu`` for CUDA tensors, or raises.  It counts its
   kernel launches in ``fused_step_matvec.launches``.
+* :class:`FusedStepMatvec` and :func:`benchmark_matvec` are tpufem's
+  ``ops.pallas_kernels`` interface to it.  tpufem pads M to its TPU tiles;
+  the port does not (the kernel takes any shape).
 
 The kernel is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface under ``tpufem_torch/_build/``, keyed by a hash of
@@ -19,8 +22,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from tpufem_torch import config
 from tpufem_torch.ops import _nvcc
 
 SOURCE = _nvcc.CSRC / "fused_step_matvec.cu"
@@ -95,3 +100,63 @@ def fused_step_matvec(M: torch.Tensor, x: torch.Tensor, b: torch.Tensor) -> torc
 
 
 fused_step_matvec.launches = 0
+
+
+class FusedStepMatvec:
+    """y = M @ x + b; ``use_pallas`` selects the path: K1 where true, the
+    plain version (``torch.addmv``) where false.  ``None`` means K1 on a
+    CUDA device at float32 and the plain version otherwise, tpufem's rule
+    with CUDA in place of the TPU.  K1 on a CPU device raises."""
+
+    def __init__(self, M, b, dtype=torch.float32, use_pallas: bool | None = None,
+                 device=None):
+        dev = config.device(device)
+        self.n = int(M.shape[0])
+        self.M = torch.as_tensor(M).to(dtype=dtype, device=dev).contiguous()
+        self.b = torch.as_tensor(b).to(dtype=dtype, device=dev).contiguous()
+        if use_pallas is None:
+            use_pallas = dev.type == "cuda" and dtype == torch.float32
+        if use_pallas and dev.type != "cuda":
+            raise ValueError(f"use_pallas=True runs K1, which needs a CUDA device, not {dev}")
+        self.use_pallas = bool(use_pallas)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.as_tensor(x).to(dtype=self.M.dtype, device=self.M.device)
+        if self.use_pallas:
+            return fused_step_matvec(self.M, x, self.b)
+        return fused_step_matvec_ref(self.M, x, self.b)
+
+
+def _graph_seconds(fn, x: torch.Tensor, iters: int) -> float:
+    """Seconds a call of ``fn(x)``: ``iters`` calls captured in one CUDA
+    graph, one replay timed with CUDA events (the host's launch cost left
+    out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(x)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e-3 / iters
+
+
+def benchmark_matvec(M, b, iters: int = 200, device=None) -> dict:
+    """Device seconds a call of K1 (``"pallas"``) and of ``torch.addmv``
+    (``"xla"``) at float32, tpufem's keys.  Needs a CUDA device."""
+    dev = config.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"benchmark_matvec times K1 on a CUDA device, not {dev}")
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(int(M.shape[0])),
+                        dtype=torch.float32, device=dev)
+    return {name: _graph_seconds(FusedStepMatvec(M, b, use_pallas=flag, device=dev), x, iters)
+            for name, flag in (("xla", False), ("pallas", True))}

@@ -41,6 +41,13 @@ class CSROperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return csr_matvec(self, x)
 
+    def todense(self) -> torch.Tensor:
+        """The dense (rows, cols) matrix in ``data``'s dtype and on its
+        device; repeated (row, col) entries add."""
+        rows, cols = self._index_tensors
+        out = torch.zeros(self.shape, dtype=self.data.dtype, device=self.data.device)
+        return out.index_put_((rows, cols), self.data, accumulate=True)
+
     def with_data(self, data: torch.Tensor) -> "CSROperator":
         return dataclasses.replace(self, data=data)
 

@@ -464,7 +464,8 @@ class _EnsembleShard(_Shard):
                for name in ("visc_inv", "pressure_inv", "smooth_inv")
                if getattr(ens, name) is not None}
         super().__init__(group, cfg, mesh.n_nodes, problem.boundary, ens.inner_values,
-                         torch.zeros(2, dtype=dtype, device=home), ops, problem.locator.to(home))
+                         torch.zeros(2, dtype=dtype, device=home), ops,
+                         None if cfg.transport == "none" else problem.get_locator().to(home))
         tris, grads, area, valid = _shard_elements(mesh, n_space)
         t_l = tris.shape[0] // n_space
         self.elements, dens = [], []

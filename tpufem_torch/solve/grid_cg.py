@@ -206,6 +206,12 @@ class ViscousGridCG:
     hbm_io: bool = False
     stream_chunk: int = 1
 
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """The solved operator, ``m·(x + dtν·K(m·x)) + (1−m)·x``, on flat (N,)
+        fields (plain tensor code)."""
+        m = self.interior_mask
+        return m * (x + self.dt_nu * self.K.matvec(m * x)) + (1.0 - m) * x
+
     @functools.cached_property
     def mask_grid(self) -> torch.Tensor:
         return self.interior_mask.reshape(self.K.ns, self.K.ns).contiguous()
@@ -386,6 +392,11 @@ class PressureGridCG:
     def __post_init__(self):
         if self.probe not in PROBES:
             raise ValueError(f"unknown probe {self.probe!r}; expected one of {PROBES}")
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """The merged pressure operator ``K(x)`` on flat (N,) fields (plain
+        tensor code)."""
+        return self.K.matvec(x)
 
     @property
     def K_precond(self) -> GridOperator:

@@ -26,6 +26,7 @@ gathers and elementwise tensor ops with no host synchronisation.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -198,38 +199,43 @@ class _Finds:
         return tri, found, w, corners
 
 
-@dataclasses.dataclass(frozen=True)
 class TopKLocator(_Finds):
     """The reference's locator: the k triangles with the nearest centroids,
     tested nearest first; the first containing one wins.
 
-    The k candidates are taken in ``jax.lax.top_k``'s order, as tpufem takes
+    ``TopKLocator(mesh, k)`` as in tpufem; keyword-only ``dtype`` and
+    ``device`` place its tables (float64, the default device).  The k
+    candidates are taken in ``jax.lax.top_k``'s order, as tpufem takes
     them: a stable sort of the squared centroid distances, so equal
     distances keep the lower triangle id first (``torch.topk`` orders ties
     otherwise).  A point whose host triangle is not among the k is not
     found, as in the reference.  O(P·T) work and memory: meant for meshes
     below ~10k triangles (refused above 50,000, as tpufem refuses)."""
 
-    mesh: Mesh
-    k: int
-    coords: torch.Tensor  # (N, 2) node coordinates
-    centroids: torch.Tensor  # (T, 2)
-    tri_xy: torch.Tensor  # (T, 3, 2) corner coordinates
-    tris: torch.Tensor  # (T, 3) int64 corner node ids
-
-    @classmethod
-    def build(cls, mesh: Mesh, k: int = 10, dtype=torch.float64, device=None) -> "TopKLocator":
+    def __init__(self, mesh: Mesh, k: int = 10, *, dtype=torch.float64, device=None):
         def t(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
 
-        return cls(mesh=mesh, k=int(k), coords=t(mesh.coords), centroids=t(mesh.centroids()),
-                   tri_xy=t(_tri_xy_table(mesh)),
-                   tris=torch.as_tensor(mesh.tris, dtype=torch.int64, device=device))
+        self.mesh = mesh
+        self.k = int(k)
+        self.coords = t(mesh.coords)  # (N, 2) node coordinates
+        self._centroids = t(mesh.centroids())  # (T, 2)
+        self.tri_xy = t(_tri_xy_table(mesh))  # (T, 3, 2) corner coordinates
+        self.tris = torch.as_tensor(mesh.tris, dtype=torch.int64, device=device)  # (T, 3)
+
+    @classmethod
+    def build(cls, mesh: Mesh, k: int = 10, dtype=torch.float64, device=None) -> "TopKLocator":
+        return cls(mesh, k, dtype=dtype, device=device)
+
+    def centroids(self) -> np.ndarray:
+        """The mesh's triangle centroids (host NumPy), as tpufem's."""
+        return self.mesh.centroids()
 
     def to(self, device) -> "TopKLocator":
-        return dataclasses.replace(self, coords=self.coords.to(device),
-                                   centroids=self.centroids.to(device),
-                                   tri_xy=self.tri_xy.to(device), tris=self.tris.to(device))
+        out = copy.copy(self)
+        for f in ("coords", "_centroids", "tri_xy", "tris"):
+            setattr(out, f, getattr(self, f).to(device))
+        return out
 
     def candidates(self, points: torch.Tensor) -> torch.Tensor:
         """(..., P, k) triangle ids, nearest centroid first, ties by id."""
@@ -237,7 +243,7 @@ class TopKLocator(_Finds):
             raise ValueError(
                 f"TopKLocator materializes a (P, {self.mesh.n_tris}) distance matrix: beyond "
                 "~50k triangles use locator='grid' (GridLocator: same answers, O(P·C) work)")
-        d2 = torch.sum((points[..., :, None, :] - self.centroids) ** 2, dim=-1)
+        d2 = torch.sum((points[..., :, None, :] - self._centroids) ** 2, dim=-1)
         return torch.sort(d2, dim=-1, stable=True).indices[..., : self.k]
 
     def locate(self, points: torch.Tensor):
@@ -351,10 +357,12 @@ class BatchedGridLocator:
 
         return cls(rows=t(rows), origins=t(origins), extents=t(extents), coords=t(coords), g=int(g))
 
-    def tables(self) -> tuple:
+    def tables(self, dtype=None) -> tuple:
         """(rows, origins, extents, coords): the first arguments of the
-        batched transport functions."""
-        return self.rows, self.origins, self.extents, self.coords
+        batched transport functions, cast to ``dtype`` where given (as
+        tpufem's ``tables(dtype)``; the default keeps the built dtype)."""
+        t = (self.rows, self.origins, self.extents, self.coords)
+        return t if dtype is None else tuple(a.to(dtype) for a in t)
 
     def select(self, index: torch.Tensor, device) -> "BatchedGridLocator":
         """The tables of the simulations ``index`` on ``device``."""

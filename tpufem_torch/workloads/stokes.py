@@ -247,6 +247,7 @@ class StokesProblem:
     eul_M: torch.Tensor | None = None  # (N,N) consistent mass (dense Eulerian dye)
     eul_K: torch.Tensor | None = None  # (N,N) stiffness (dense Eulerian and griddata dye)
     eul_Mg: torch.Tensor | None = None  # (N,N_act) periodic merge map (f32 Eulerian dye)
+    _locator_cache: Any = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -255,6 +256,18 @@ class StokesProblem:
     @property
     def device(self) -> torch.device:
         return self.m_lumped.device
+
+    def get_locator(self):
+        """The point locator, built on first use: a transport="none" problem
+        builds none at set-up, and builds the one its configuration names
+        (cached) when a consumer, e.g. the convergence prober, asks."""
+        if self.locator is not None:
+            return self.locator
+        loc = self._locator_cache.get("loc")
+        if loc is None:
+            loc = _make_locator(self.mesh, self.config, self.dtype, self.device)
+            self._locator_cache["loc"] = loc
+        return loc
 
     @functools.cached_property
     def mf_pair(self) -> StencilPair | None:
@@ -639,7 +652,7 @@ def _make_locator(mesh, config, dtype, device):
     around 2√T and keeps the narrowest candidate table (ties → the coarser
     grid), as tpufem does."""
     if config.locator == "topk":
-        return transport.TopKLocator.build(mesh, k=config.locator_k, dtype=dtype, device=device)
+        return transport.TopKLocator(mesh, config.locator_k, dtype=dtype, device=device)
     if config.locator_grid:
         return transport.GridLocator.build(mesh, g=config.locator_grid, dtype=dtype, device=device)
     base = np.sqrt(mesh.n_tris)
