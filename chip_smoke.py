@@ -14,7 +14,8 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
    at 2N = 1704 (the bench mesh), 700 (off the TPU's 128/256 tiles) and 6200 (near the top
    of the dense regime), with µs per call of both, and the kernel's
    scalar-tail and unstaged-x paths at three non-square shapes; then
-   ``FusedStepMatvec``'s choice of K1 and ``benchmark_matvec`` at 1704;
+   ``FusedStepMatvec``'s default choice of K1 at f32 and f64 and
+   ``benchmark_matvec`` at 1704;
 4. the main path: the bench configuration (squirmer Stokes, fused f32
    step on K1, ~10k tracers) for 1000 steps, twice, through
    ``StokesProblem.build`` and ``stokes.run``; K1 must do every step;
@@ -115,7 +116,7 @@ all shards on the one card:
     versions, at ``n_side=40`` f64 (fixed iterations and tol 1e-8) and on
     phase 9's problem at f32; ms a solve of each;
 25. the sharded main path: ``make_sharded_matfree_step(mesh, problem,
-    halo="rdma")`` on phase 9's problem, 20 steps from rest; K6 must launch
+    halo="rdma")`` on phase 9's problem, 10 steps from rest; K6 must launch
     as often as the solves' iterations imply and K1–K5 never; tpufem's
     physics gates; steps/s, device ms a step and K6's share beside the
     single-device unfused step from zero on the same problem;
@@ -127,7 +128,7 @@ all shards on the one card:
 Phases 27–30, the rest of the Stokes workload (no new kernel), run last:
 
 27. the gait campaign: ``sweep.food_capture_sweep`` on
-    ``generate_annulus_mesh(33, 48)`` (3 gaits × 3000 of their 6000 steps,
+    ``generate_annulus_mesh(33, 48)`` (3 gaits × 1500 of their 6000 steps,
     f32 fused on K1, 488 tracers), cold, then warm at 1000 steps a gait:
     wall seconds of each gait and of the campaign, eaten counts and
     fractions (recorded, not gated); K1 must run once a step of every gait
@@ -135,8 +136,8 @@ Phases 27–30, the rest of the Stokes workload (no new kernel), run last:
     one (LU, penalty) on the CPU at 300 steps, fractions within 0.05;
 28. Eulerian dye at scale: ``bench_large.bench_config(transport=
     "eulerian_dye")`` on phase 9's 1,048,576-node mesh, grid storage,
-    through ``StokesProblem.build`` and ``stokes.run``: 25 steps from rest
-    and 25 continued; K2 once and K3 twice a step; tpufem's scale gates,
+    through ``StokesProblem.build`` and ``stokes.run``: 15 steps from rest
+    and 15 continued; K2 once and K3 twice a step; tpufem's scale gates,
     c in [0, 1], mixing progress > 0; build seconds, steps/s, device ms a
     step by kernel and the dye solve's share;
 29. Eulerian dye at f64, card against CPU: the dense penalty path on
@@ -171,8 +172,8 @@ run last:
 33. f64 card against the port's CPU path on ``generate_annulus_mesh(20,
     24)``: Poisson (lu, inverse, cg), heat (lu, cg; 50 steps),
     advection–diffusion (100 steps), graph average; dense 1e-10, CG 1e-9;
-34. Stam's grid solver: ``StamConfig()`` (200², f32) for 400 frames, cold
-    then warm, frames/s and kernels a frame; at f64 and size 64, each of 50
+34. Stam's grid solver: ``StamConfig()`` (200², f32) for 200 of its 400
+    frames, cold then warm, frames/s and kernels a frame; at f64 and size 64, each of 50
     card frames from the CPU's state within 1e-10 of the CPU's frame;
 35. the dense Taylor–Hood solvers on ``p2_refine(generate_annulus_mesh(28,
     32))`` (5,192 dofs): the steady solve under tpufem's residual gate, the
@@ -216,7 +217,7 @@ Phases 39–42, the ensembles, the one-program gait campaign, TopK and bf16
 40. the gait campaign as one sharded program:
     ``sweep.food_capture_sweep_sharded`` on phase 27's mesh, one gait a
     "data" position on the card (``run_sharded`` replays one CUDA graph a
-    step), cold and warm at phase 27's 3000 steps a gait: campaign
+    step), cold and warm at phase 27's 1500 steps a gait: campaign
     seconds, fractions within 0.05 of phase 27's; at B = 3 and 8 gaits,
     steps/s of the graph run and of the eager steps, kernels and device ms
     a step and the busy share (profiler), the count at B = 8 no more than
@@ -274,13 +275,13 @@ kernel of their own), run after phase 43 on phase 9's problem:
     (``roofline.apply_bound``) and kernels an apply; f32 rel L2 against
     CSR ≤ 1e-5; (2) the Scale step with its div/grad on the stencil (Dx
     and Dy in one pass, as built), on the stencil as two applies and on
-    CSR, in turns A B C C B A, twice, of 400 warm steps: steps/s, device ms
+    CSR, in turns A B C C B A of 400 warm steps: steps/s, device ms
     and kernels a step, the busy share, K2 1 and K3 2 launches a step in every
     turn, u within 1e-5 after 20 steps from rest; (3) at 160,000 nodes
-    (``bench_config``) Stokes on the stencil, CSR and banded (warm steps/s,
-    iterations a solve; the band's width, bytes and ms an apply) and NS on
+    (``bench_config``) Stokes on the stencil, CSR and banded (warm steps/s
+    in turns S C C S, iterations a solve; the band's width, bytes and ms an apply) and NS on
     the stencil and CSR (``bench_large.ns_config``, tpufem's gates: warm
-    steps/s, device ms and kernels a step over 3 profiled steps); (4) in phase 31; (5) f64 card against the port's CPU, fixed
+    steps/s in turns S C C S, device ms and kernels a step over 3 profiled steps); (4) in phase 31; (5) f64 card against the port's CPU, fixed
     iterations, on ``generate_annulus_mesh(40, 48)``: Stokes on the stencil
     (with and without the hole) and banded, NS on the stencil (pad_hole),
     the sharded step's stencil and banded branches on 4 strips of one card
@@ -318,9 +319,10 @@ Phase 49, the gallery (``tpufem_torch.gallery``), runs last:
     then the flagship
     semi-Lagrangian dye movie's path (``gallery.xl_problem``/``xl_run``:
     ``bench_config(transport="dye")`` on the 409,600-node pad_hole mesh, the
-    grid path) for 100 of its 600 steps with a frame every 20, twice from
-    rest: K2 once and K3 twice a step, c within its first range, the mixing
-    index in [0, 1] at every frame, tpufem's scale gates; cold and warm
+    grid path): K2 and K3 against their plain versions on its operators
+    (its 640² raster, f32 and f64, as phase 8), then 100 of its 600 steps
+    with a frame every 20, twice from rest: K2 once and K3 twice a step,
+    c within its first range, the mixing index in [0, 1] at every frame, tpufem's scale gates; cold and warm
     steps/s, host build and frame-copy seconds, iterations a solve, device
     ms and kernels a step with K2's, K3's and the advection's shares; the
     frames saved as ``.npz``, rendered only where matplotlib imports.
@@ -594,7 +596,17 @@ def phase_kernel(dev: torch.device) -> dict:
                            "library_ms": device_ms(lambda M, x, b: torch.addmv(b, M, x), M, x, b)}
     n = KERNEL_SHAPES[0]
     M, b = rng.standard_normal((n, n)), rng.standard_normal(n)
-    check(fm.FusedStepMatvec(M, b, device=dev).use_pallas, "FusedStepMatvec takes K1 on the card")
+    x = rng.standard_normal(n)
+    for dtype in (torch.float32, torch.float64):  # the default takes K1 at either dtype
+        mv = fm.FusedStepMatvec(M, b, dtype=dtype, device=dev)
+        before = fm.fused_step_matvec.launches
+        y = mv(x)
+        torch.cuda.synchronize()
+        check(mv.use_pallas and fm.fused_step_matvec.launches == before + 1,
+              f"FusedStepMatvec's default takes K1 on the card at {dtype}")
+        err = rel(y, fm.fused_step_matvec_ref(mv.M, torch.as_tensor(x, dtype=dtype, device=dev),
+                                              mv.b))
+        check(err <= KERNEL_RTOL[dtype], f"FusedStepMatvec {dtype}: rel L2 {err}")
     secs = fm.benchmark_matvec(M, b, iters=TIMED_CALLS, device=dev)
     check(all(np.isfinite(v) and v > 0 for v in secs.values()), f"benchmark_matvec {secs}")
     print(f"[3 kernel] benchmark_matvec at {n}x{n} f32 (tpufem's keys, one graph replay of "
@@ -780,7 +792,8 @@ def check_cg_cases(phase: int, case: str, kernel, plain, solver, b, calls: int,
     return out
 
 
-def check_grid_kernels(label: str, problem, dev, calls: int, plain_calls: int) -> dict:
+def check_grid_kernels(label: str, problem, dev, calls: int, plain_calls: int,
+                       phase: int = 8) -> dict:
     """K2/K3 against their plain versions on ``problem``'s operators; returns
     {kernel: numbers} for the f32, tol 1e-5 case."""
     rng = np.random.default_rng(7)
@@ -794,7 +807,7 @@ def check_grid_kernels(label: str, problem, dev, calls: int, plain_calls: int) -
             b = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
             if name != "K2":
                 b = b * solver.act_grid  # a prepared rhs: zero off the active dofs
-            numbers = check_cg_cases(8, f"{name} {str(dtype)[6:]} at {label}", kernel, plain,
+            numbers = check_cg_cases(phase, f"{name} {str(dtype)[6:]} at {label}", kernel, plain,
                                      solver, b, calls, plain_calls)
             if dtype == torch.float32 and name in ("K2", "K3 coarse bfloat16"):
                 iters = numbers.pop("iters")
@@ -1489,7 +1502,7 @@ HALO_SHARDS = (1, 2, 4, 8)
 # row is no multiple of 16 bytes in f32 or f64, so K6 takes its scalar path
 HALO_SHAPES = ((256, 1024), (64, 1001))
 SHARDS = 4
-SHARDED_STEPS = 20
+SHARDED_STEPS = 10
 SHARDED_PROFILE_STEPS = 1
 SHARDED_PARITY_MESH = (40, 48)
 SHARDED_PARITY_STEPS = 10
@@ -1751,8 +1764,8 @@ SWEEP_MESH = (33, 48)  # 852 nodes, tracer_density 25: 488 tracers
 SWEEP_PARITY_STEPS = 300
 SWEEP_WARM_STEPS = 1000  # the warm campaign's steps a gait
 # the cold campaign's steps a gait (of its 6000), phase 40's sharded one's too
-SWEEP_COLD_STEPS = 3000
-EUL_STEPS = 25
+SWEEP_COLD_STEPS = 1500
+EUL_STEPS = 15
 EUL_PROFILE_STEPS = 5
 EUL_DENSE_MESH = (12, 16)
 EUL_DENSE_STEPS = 20
@@ -1942,7 +1955,7 @@ def phase_variants(dev) -> None:
 HEAT_STEPS = 50
 SMALL_MESH = (20, 24)
 AD_STEPS = 100
-STAM_FRAMES = 400
+STAM_FRAMES = 200
 STAM_PROFILE_FRAMES = 5
 STAM_PARITY = dict(size=64, precision="f64")
 STAM_PARITY_FRAMES = 50
@@ -2091,8 +2104,8 @@ def stam_max_abs(a: dict, b: dict) -> float:
 
 
 def phase_stam(dev) -> None:
-    """``StamConfig()`` (200², f32, 20 Jacobi sweeps) for 400 frames, cold
-    then warm: frames/s, device time and kernels a frame; then at f64 and
+    """``StamConfig()`` (200², f32, 20 Jacobi sweeps) for STAM_FRAMES frames,
+    cold then warm: frames/s, device time and kernels a frame; then at f64 and
     size 64 over 50 frames, each card frame from the CPU's state against the
     CPU's frame (1e-10 max abs), and the free-running card and CPU runs'
     distance, which the flow's own amplification of roundoff sets."""
@@ -2447,9 +2460,7 @@ ENS_BATCHES = (3, 8)  # kernels a step must not grow with B on one card
 ENS_TIMED_STEPS = 1000
 ENS_PROFILE_STEPS = 20
 MM_MESH = (64, 72)  # pad_hole: 4,096 nodes, the top of the dense regime
-# 8 until phase 49 came: the host build (a 4096² pinv a mesh, ~14.5 s each) is
-# most of the phase, so the ensemble was cut to 4 meshes to make room for it
-MM_SIMS = 4
+MM_SIMS = 8
 MM_STEPS = 500
 MM_PROFILE_STEPS = 10
 MM_PARITY_MESH = (14, 16)
@@ -2711,7 +2722,7 @@ def matmul_share(prof: dict) -> float:
 
 
 def phase_multimesh(dev) -> None:
-    """The geometry ensemble at the top of the dense regime: 4 jittered
+    """The geometry ensemble at the top of the dense regime: 8 jittered
     4,096-node meshes, tracers, f32 merge, one a "data" position on the
     card, 500 steps; then f64 card against CPU on 4 small meshes."""
     t0 = time.perf_counter()
@@ -2927,12 +2938,13 @@ def phase_diag(dev, big) -> None:
           f"{first_div:.4f}): {bad}")
 
 
-# (study, CLI flags, the kernels its path launches).  th runs to T_STEADY
-# (--steps0 1200, T = 12): at the CLI's default T = 1.5 the flow is not yet
-# steady, and both packages read 0.2255 then 0.3074 on the first two rungs
+# (study, CLI flags, the kernels its path launches).  th runs to T = 8
+# (--steps0 800; T_STEADY is 12): at the CLI's default T = 1.5 the flow is
+# not yet steady, and both packages read 0.2255 then 0.3074 on the first
+# two rungs; at T = 8 the port reads 0.2155, 0.1368, 0.1180 on the CPU
 CONVERGE_RUNS = (("self", ["--sizes", "1.6k,6.5k,26k"], ("K2", "K3")),
                  ("ns", ["--sizes", "2k,6.5k,26k"], ("K4", "K3")),
-                 ("th", ["--sizes", "0.5k,0.8k,1.2k", "--steps0", "1200"], ()))
+                 ("th", ["--sizes", "0.5k,0.8k,1.2k", "--steps0", "800"], ()))
 
 
 def phase_converge() -> None:
@@ -3077,10 +3089,10 @@ def scale_divgrad_ab(big) -> None:
     stencil (A: the problem as built, Dx and Dy in one pass), on the
     stencil as two applies (C) and on CSR (B): u after 20 steps from rest
     within 1e-5 of B's; then from each one's state after 200 steps, turns A
-    B C C B A, twice, of 400 warm steps (steps/s, K2 once and K3 twice a
-    step in every turn) and 100 steps under the profiler (device ms and kernels a
+    B C C B A of 400 warm steps (steps/s, K2 once and K3 twice a step in
+    every turn) and 100 steps under the profiler (device ms and kernels a
     step; the busy share against the turns' median): the host's share of a
-    step is large and varies from turn to turn, so the turns run twice."""
+    step is large and varies from turn to turn, so each runs twice."""
     dx, dy = calculus.divergence_csr_operators(big.mesh)
     check(type(big.mf_pair).__name__ == "StencilPair", f"phase 9's div/grad: {big.mf_pair}")
     unpaired = dataclasses.replace(big)
@@ -3097,7 +3109,7 @@ def scale_divgrad_ab(big) -> None:
     check(max(du.values()) <= 1e-5, f"stencil against CSR div/grad after "
           f"{STORAGE_PARITY_STEPS} steps: u rel {du}")
     turns = {}
-    for label in ("stencil", "csr", "stencil unpaired", "stencil unpaired", "csr", "stencil") * 2:
+    for label in ("stencil", "csr", "stencil unpaired", "stencil unpaired", "csr", "stencil"):
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3115,7 +3127,7 @@ def scale_divgrad_ab(big) -> None:
         parts.append(f"{label}: warm {', '.join(f'{v:.2f}' for v in turns[label])} steps/s, "
                      f"{prof['device_ms_per_step']:.4f} device ms and "
                      f"{prof['kernels_per_step']:.1f} kernels a step, busy {100 * busy:.1f} %")
-    print(f"[47 scale div/grad] {big.mesh.n_nodes} nodes, turns (A B C C B A) × 2 of "
+    print(f"[47 scale div/grad] {big.mesh.n_nodes} nodes, turns A B C C B A of "
           f"{STORAGE_AB_STEPS} warm steps from step {SCALE_STEPS}, K2 1 and K3 2 a step in every "
           "turn: " + "; ".join(parts) + f"; u rel vs CSR after {STORAGE_PARITY_STEPS} steps "
           + ", ".join(f"{k} {v:.3e}" for k, v in du.items()) + " (<= 1e-5)")
@@ -3182,14 +3194,14 @@ def turns_text(turns: dict) -> str:
 
 def storage_mid(dev) -> None:
     """Item 3, at 160,000 nodes (``bench_large.bench_config``): Stokes on
-    the stencil against CSR (warm steps/s in turns S C C S, twice;
+    the stencil against CSR (warm steps/s in turns S C C S;
     iterations a solve), banded (bandwidth, stored bytes, ms an apply, warm
     steps/s), and NS on the stencil against CSR (``ns_config``, tpufem's
     gates; warm steps/s in turns, device ms and kernels a step).  The
     plain CG paths read their stop test on the host every iteration, so
     a step's time varies from turn to turn."""
     mesh = generate_annulus_mesh(*MID_MESH, pad_hole=True)
-    steps, order = STORAGE_MID_STEPS, ("stencil", "csr", "csr", "stencil") * 2
+    steps, order = STORAGE_MID_STEPS, ("stencil", "csr", "csr", "stencil")
     problems, warm, parts = {}, {}, []
     for storage in ("stencil", "csr", "banded"):
         t0 = time.perf_counter()
@@ -3762,7 +3774,8 @@ def phase_gallery(dev) -> None:
     fields at make_gallery's full sizes, and at its quick sizes card
     against CPU at f64; (b) the
     flagship semi-Lagrangian dye movie's path on the 409,600-node pad_hole
-    mesh (``bench_config(transport="dye")``, the grid path) at a cut
+    mesh (``bench_config(transport="dye")``, the grid path): K2 and K3
+    against their plain versions on its operators, then the run at a cut
     depth, twice from rest (cold, then warm): K2 once and K3 twice a step,
     c within its first range, the mixing index in [0, 1] at every frame,
     tpufem's scale gates; steps/s, host build and frame-copy seconds,
@@ -3777,6 +3790,12 @@ def phase_gallery(dev) -> None:
     problem, build_s = gallery.xl_problem(device=dev)
     check(isinstance(problem.pressure_solver, grid_cg.PressureGridCG),
           f"the XL dye run takes {type(problem.pressure_solver).__name__}, not the grid path")
+    # K2 and K3 against their plain versions on the XL run's own operators
+    # (its 640² raster and block layout), as phase 8 at its two sizes
+    t0 = time.perf_counter()
+    check_grid_kernels(f"XL {problem.mesh.n_nodes} nodes", problem, dev, calls=2, plain_calls=1,
+                       phase=49)
+    check_s = time.perf_counter() - t0
     problem, counters = bench_large.with_iteration_counters(problem)
     steps, runs, iters = XL_STEPS, {}, {}
     for name in ("cold", "warm"):
@@ -3821,7 +3840,8 @@ def phase_gallery(dev) -> None:
         where = (f"saved {len(frames)} frames as .npz ({np.stack(frames).nbytes / 1e6:.1f} MB), "
                  + ("rendered" if rendered else "not rendered (no matplotlib here)"))
     print(f"[49 gallery] XL dye, {problem.mesh.n_nodes} nodes, {steps} steps, a frame every "
-          f"{XL_FRAME_INTERVAL}: host build {build_s:.2f} s (locator included); cold "
+          f"{XL_FRAME_INTERVAL}: host build {build_s:.2f} s (locator included); K2 and K3 "
+          f"against their plain versions on its operators in {check_s:.1f} s; cold "
           f"{steps / runs['cold']['run_s']:.2f} steps/s ({runs['cold']['run_s']:.3f} s, frame "
           f"copies {runs['cold']['copy_s']:.3f} s), warm {steps / runs['warm']['run_s']:.2f} "
           f"steps/s ({runs['warm']['run_s']:.3f} s, frame copies {runs['warm']['copy_s']:.3f} s); "

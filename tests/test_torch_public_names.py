@@ -130,7 +130,7 @@ def test_fused_step_matvec_class_matches_tpufems():
     got = mv(torch.as_tensor(x)).numpy()
     assert fm.fused_step_matvec.launches == before
     assert rel(got, want) <= 1e-14
-    # the default: K1 only on a CUDA device at float32
+    # the default: K1 on a CUDA device at either dtype, the plain version on the CPU
     assert fm.FusedStepMatvec(M, b, device="cpu").use_pallas is False
     with pytest.raises(ValueError, match="CUDA device"):
         fm.FusedStepMatvec(M, b, use_pallas=True, device="cpu")
@@ -197,7 +197,7 @@ def record_calls(module, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    [], ["--sizes", "2k,1.05M"], ["--size", "6k"], ["--steps", "7"], ["--ns"],
+    [], ["--sizes", "2k,1.05M"], ["--sizes", "6k"], ["--steps", "7"], ["--ns"],
     ["--ns", "--sizes", "2k"], ["--poisson"], ["--heat"], ["--heat", "--sizes", "2k,6k"],
     ["--poisson", "--precision", "f64"], ["--mesh", "mesh_fine.1"],
     ["--th", "--n-side", "8"],
@@ -206,8 +206,7 @@ def test_bench_large_sizes_and_labels_match_tpufems(argv, monkeypatch, capsys):
     want_calls = record_calls(jbl, monkeypatch)
     got_calls = record_calls(tbl, monkeypatch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    jargv = ["--sizes" if a == "--size" else a for a in argv]
-    want = [r["label"] for r in jbl.main(jargv)]
+    want = [r["label"] for r in jbl.main(argv)]
     got = [r["label"] for r in tbl.main(argv)]
     assert got == want and got
     assert got_calls == want_calls

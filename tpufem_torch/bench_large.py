@@ -11,7 +11,7 @@ both pressure solves, f32 fields, bf16 coarse inverse.
     python -m tpufem_torch.bench_large --th [--n-side 96] [--engine csr|grid]
         [--precision f64|f32] [--restarts R] [--steps 50]
 
-``--sizes`` (alias ``--size``) takes labels of ``SIZES``; without it each
+``--sizes`` takes labels of ``SIZES``; without it each
 mode runs tpufem's default set: Stokes every size outside ``LARGE_OPT_IN``,
 NS 26k and 79k, Poisson 1.05M, heat 160k, under tpufem's row labels
 (``ns-<size>``, ``poisson-<size>``, ``heat-<size>``).  Each run prints one
@@ -732,7 +732,7 @@ def _wanted(sizes: str | None, default: set) -> set:
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(prog="python -m tpufem_torch.bench_large")
     parser.add_argument("--steps", type=int, default=50)
-    parser.add_argument("--sizes", "--size", dest="sizes", default=None,
+    parser.add_argument("--sizes", default=None,
                         help="comma-separated labels from %s (default: every size outside "
                         "LARGE_OPT_IN; 26k,79k with --ns; 1.05M with --poisson; 160k with "
                         "--heat)" % [s[0] for s in SIZES])

@@ -105,8 +105,9 @@ fused_step_matvec.launches = 0
 class FusedStepMatvec:
     """y = M @ x + b; ``use_pallas`` selects the path: K1 where true, the
     plain version (``torch.addmv``) where false.  ``None`` means K1 on a
-    CUDA device at float32 and the plain version otherwise, tpufem's rule
-    with CUDA in place of the TPU.  K1 on a CPU device raises."""
+    CUDA device, at either dtype (K1 has float32 and float64 instances;
+    tpufem's rule keeps float64 off its TPU kernel), and the plain version
+    on the CPU.  K1 on a CPU device raises."""
 
     def __init__(self, M, b, dtype=torch.float32, use_pallas: bool | None = None,
                  device=None):
@@ -115,7 +116,7 @@ class FusedStepMatvec:
         self.M = torch.as_tensor(M).to(dtype=dtype, device=dev).contiguous()
         self.b = torch.as_tensor(b).to(dtype=dtype, device=dev).contiguous()
         if use_pallas is None:
-            use_pallas = dev.type == "cuda" and dtype == torch.float32
+            use_pallas = dev.type == "cuda"
         if use_pallas and dev.type != "cuda":
             raise ValueError(f"use_pallas=True runs K1, which needs a CUDA device, not {dev}")
         self.use_pallas = bool(use_pallas)

@@ -16,11 +16,9 @@ and the CLI, and only drawing raises ``ImportError``.
 
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 import numpy as np
-import torch
 
 from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.metrics import to_host
@@ -232,42 +230,27 @@ def animate_tracers(mesh: Mesh, u_frames: Sequence, tracer_frames: Sequence,
 
 
 def run_with_frames(problem, steps: int, frame_interval: int,
-                    field: str | Sequence[str] = "c", *, timings: dict | None = None):
+                    field: str | Sequence[str] = "c"):
     """Run a Stokes problem in chunks of ``frame_interval`` steps and keep
     a host snapshot of ``field`` (a state key, or a tuple of keys: frames is
     then a dict key → list) after each chunk; for the food movie pass
     ("u", "tracers", "tracer_status") and render with
     :func:`animate_tracers`.  Returns (final state, the chunks' metrics,
-    frames).  Given ``timings``, its ``"copy_s"`` receives the seconds the
-    snapshots' host copies took (each timed after the device finished its
-    chunk)."""
+    frames)."""
     from tpufem_torch.workloads import stokes
 
     keys = (field,) if isinstance(field, str) else tuple(field)
-    copy_s = 0.0
-
-    def snapshot(state):
-        nonlocal copy_s
-        if timings is not None and problem.device.type == "cuda":
-            torch.cuda.synchronize(problem.device)
-        t0 = time.perf_counter()
-        out = [to_host(state[k]) for k in keys]
-        copy_s += time.perf_counter() - t0
-        return out
-
     state = stokes.initial_state(problem)
-    frames = {k: [v] for k, v in zip(keys, snapshot(state))}
+    frames = {k: [to_host(state[k])] for k in keys}
     metrics_chunks = []
     done = 0
     while done < steps:
         chunk = min(frame_interval, steps - done)
         state, metrics = stokes.run(problem, steps=chunk, state=state)
-        for k, v in zip(keys, snapshot(state)):
-            frames[k].append(v)
+        for k in keys:
+            frames[k].append(to_host(state[k]))
         metrics_chunks.append(metrics)
         done += chunk
-    if timings is not None:
-        timings["copy_s"] = copy_s
     if isinstance(field, str):
         return state, metrics_chunks, frames[field]
     return state, metrics_chunks, frames
