@@ -28,7 +28,9 @@ For each kernel there are three functions:
 * the wrapper (:func:`viscous_cg`, :func:`pressure_cg`, :func:`ns_bicgstab`),
   which launches the CUDA kernel in ``csrc/grid_cg.cu`` for CUDA tensors,
   takes the plain version for CPU tensors, and raises for anything else;
-* the wrapper's launch count, ``<wrapper>.launches``.
+* the wrapper's launch count, ``<wrapper>.launches``; K2's and K3's wrappers
+  also record their launch as a span, ``k2.launch`` and ``k3.launch``
+  (:func:`tpufem_torch.metrics.span`).
 
 The solves round to float32 where tpufem's kernels do, at every field
 precision: the TPU kernels take ``preferred_element_type=float32`` in the
@@ -73,6 +75,7 @@ import functools
 import numpy as np
 import torch
 
+from tpufem_torch.metrics import span
 from tpufem_torch.ops import _nvcc
 from tpufem_torch.ops.gridop import GridDecompositionError, GridOperator
 from tpufem_torch.solve.cg import bicgstab_core
@@ -139,7 +142,8 @@ def build() -> ctypes.CDLL:
     launch (``_lib``)."""
     global _lib
     if _lib is None:
-        _lib = load()
+        with span("grid_cg.build"):
+            _lib = load()
     return _lib
 
 
@@ -326,13 +330,15 @@ def viscous_cg(solver: ViscousGridCG, b: torch.Tensor, x0: torch.Tensor,
     lib = _lib or build()
     C, n = b.shape[0], K.n
     b, x0 = b.contiguous(), x0.contiguous()
-    x = torch.empty_like(b)
-    work = torch.empty(_VISCOUS_PLANES * C * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
-    _launch(getattr(lib, _VISCOUS[b.dtype]), b.device, *_kernel_operator_args(K),
-            solver.mask_grid.data_ptr(), solver.inv_diag_grid.data_ptr(), b.data_ptr(),
-            x0.data_ptr(), x.data_ptr(), work.data_ptr(), C, float(solver.dt_nu),
-            int(solver.iters), float(solver.tol),
-            None if iters_out is None else iters_out.data_ptr())
+    with span("k2.launch"):
+        x = torch.empty_like(b)
+        work = torch.empty(_VISCOUS_PLANES * C * n + _PARTIAL_VALUES, dtype=b.dtype,
+                           device=b.device)
+        _launch(getattr(lib, _VISCOUS[b.dtype]), b.device, *_kernel_operator_args(K),
+                solver.mask_grid.data_ptr(), solver.inv_diag_grid.data_ptr(), b.data_ptr(),
+                x0.data_ptr(), x.data_ptr(), work.data_ptr(), C, float(solver.dt_nu),
+                int(solver.iters), float(solver.tol),
+                None if iters_out is None else iters_out.data_ptr())
     viscous_cg.launches += 1
     return x
 
@@ -634,15 +640,17 @@ def pressure_cg(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
         extra = [(ctypes.c_double * len(c))(*c)]
     n, nc = K.n, solver.n_blocks
     b, x0 = b.contiguous(), x0.contiguous()
-    x = torch.empty_like(b)
-    work = torch.empty(_PRESSURE_PLANES * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
-    fwork = torch.empty(2 * nc * nc, dtype=torch.float32, device=b.device)  # rc, zc
-    _launch(getattr(lib, name), b.device, *_kernel_operator_args(K), *extra,
-            solver.act_grid.data_ptr(), solver.inv_diag_grid.data_ptr(),
-            solver.ac_inv.contiguous().data_ptr(), solver.block, nc, int(solver.use_coarse),
-            b.data_ptr(), x0.data_ptr(), x.data_ptr(), work.data_ptr(), fwork.data_ptr(),
-            float(solver.omega), int(solver.iters), float(solver.tol),
-            None if iters_out is None else iters_out.data_ptr())
+    with span("k3.launch"):
+        x = torch.empty_like(b)
+        work = torch.empty(_PRESSURE_PLANES * n + _PARTIAL_VALUES, dtype=b.dtype,
+                           device=b.device)
+        fwork = torch.empty(2 * nc * nc, dtype=torch.float32, device=b.device)  # rc, zc
+        _launch(getattr(lib, name), b.device, *_kernel_operator_args(K), *extra,
+                solver.act_grid.data_ptr(), solver.inv_diag_grid.data_ptr(),
+                solver.ac_inv.contiguous().data_ptr(), solver.block, nc,
+                int(solver.use_coarse), b.data_ptr(), x0.data_ptr(), x.data_ptr(),
+                work.data_ptr(), fwork.data_ptr(), float(solver.omega), int(solver.iters),
+                float(solver.tol), None if iters_out is None else iters_out.data_ptr())
     pressure_cg.launches += 1
     if variant:
         pressure_cg.variant_launches[variant] += 1

@@ -48,6 +48,7 @@ import torch
 from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
+from tpufem_torch.metrics import span
 from tpufem_torch.ops import assembly, calculus
 from tpufem_torch.ops.banded import BandedOperator
 from tpufem_torch.ops.fused_matvec import fused_step_matvec, fused_step_matvec_ref
@@ -275,22 +276,24 @@ class StokesProblem:
         return StencilPair.of(self.mf_dx, self.mf_dy)
 
     def div(self, u: torch.Tensor) -> torch.Tensor:
-        if self.div_x is not None:
-            return self.div_x @ u[:, 0] + self.div_y @ u[:, 1]
-        if self.mf_pair is not None:
-            return self.mf_pair.combine(u)
-        if self.mf_dx is not None:
-            return self.mf_dx.matvec(u[:, 0]) + self.mf_dy.matvec(u[:, 1])
-        return calculus.divergence(self.mesh, u)  # dense solvers, dense_ops=False
+        with span("div"):
+            if self.div_x is not None:
+                return self.div_x @ u[:, 0] + self.div_y @ u[:, 1]
+            if self.mf_pair is not None:
+                return self.mf_pair.combine(u)
+            if self.mf_dx is not None:
+                return self.mf_dx.matvec(u[:, 0]) + self.mf_dy.matvec(u[:, 1])
+            return calculus.divergence(self.mesh, u)  # dense solvers, dense_ops=False
 
     def grad(self, p: torch.Tensor) -> torch.Tensor:
-        if self.div_x is not None:
-            return torch.stack([self.div_x @ p, self.div_y @ p], dim=1)
-        if self.mf_pair is not None:
-            return self.mf_pair.split(p)
-        if self.mf_dx is not None:
-            return torch.stack([self.mf_dx.matvec(p), self.mf_dy.matvec(p)], dim=1)
-        return calculus.gradient(self.mesh, p)
+        with span("grad"):
+            if self.div_x is not None:
+                return torch.stack([self.div_x @ p, self.div_y @ p], dim=1)
+            if self.mf_pair is not None:
+                return self.mf_pair.split(p)
+            if self.mf_dx is not None:
+                return torch.stack([self.mf_dx.matvec(p), self.mf_dy.matvec(p)], dim=1)
+            return calculus.gradient(self.mesh, p)
 
     @classmethod
     def build(cls, mesh: Mesh, config: StokesConfig = StokesConfig(), device=None) -> "StokesProblem":
@@ -301,7 +304,16 @@ class StokesProblem:
         renumbers a mesh whose numbering does not fit it onto an ns×ns
         raster: the problem's mesh is then the renumbered, dummy-padded one
         (N = ns²), and ``problem.gridified.pull`` maps its fields back to the
-        input's order."""
+        input's order.
+
+        Its spans: ``StokesProblem.build``, and inside it ``gridify``,
+        ``boundary``, ``assembly``, ``dense_split``, ``pressure_build``, ``locator``,
+        ``from_host`` and ``grid_step`` where the path has them."""
+        with span("StokesProblem.build"):
+            return cls._build(mesh, config, device)
+
+    @classmethod
+    def _build(cls, mesh: Mesh, config: StokesConfig, device) -> "StokesProblem":
         from tpufem_torch.mesh.gridify import ensure_grid_numbering
 
         check_config(config)
@@ -309,12 +321,15 @@ class StokesProblem:
         dev = tconfig.device(device)
         gridified = None
         if config.solver == "cg" and config.cg_storage in ("grid", "grid_interpret"):
-            mesh, gridified = ensure_grid_numbering(mesh, L=config.L, H=config.H, tol=config.tol)
-        boundary = bc.ChannelBoundary.build(
-            mesh, inner_marker=config.inner_marker, L=config.L, H=config.H,
-            tol=config.tol, all_walls=config.all_walls,
-        )
-        m_lumped = assembly.lumped_mass(mesh).numpy()
+            with span("gridify"):
+                mesh, gridified = ensure_grid_numbering(mesh, L=config.L, H=config.H,
+                                                        tol=config.tol)
+        with span("boundary"):
+            boundary = bc.ChannelBoundary.build(
+                mesh, inner_marker=config.inner_marker, L=config.L, H=config.H,
+                tol=config.tol, all_walls=config.all_walls,
+            )
+            m_lumped = assembly.lumped_mass(mesh).numpy()
         if config.solver == "cg":
             problem = cls._build_matfree(mesh, config, boundary, m_lumped, dtype, dev)
             return dataclasses.replace(problem, gridified=gridified)
@@ -412,13 +427,16 @@ class StokesProblem:
                 config.tracer_density, L=config.L, H=config.H,
                 exclude_center=config.center, exclude_radius=0.25,
             )
-        problem = cls.from_host(
-            mesh, config, dev, boundary=boundary, visc_solver=visc, pressure_solver=pressure,
-            inner_values=inner_values, m_lumped=m_lumped, div_xy=(None, None),
-            visc_lift=visc_lift, locator=locator, tracer_init=tracer_init,
-            mf_dxy=(mf_dx, mf_dy), smooth_solver=smooth, pressure_pin=pin,
-        )
-        return dataclasses.replace(problem, grid_step=GridStokesStep.build(problem))
+        with span("from_host"):
+            problem = cls.from_host(
+                mesh, config, dev, boundary=boundary, visc_solver=visc,
+                pressure_solver=pressure, inner_values=inner_values, m_lumped=m_lumped,
+                div_xy=(None, None), visc_lift=visc_lift, locator=locator,
+                tracer_init=tracer_init, mf_dxy=(mf_dx, mf_dy), smooth_solver=smooth,
+                pressure_pin=pin,
+            )
+        with span("grid_step"):
+            return dataclasses.replace(problem, grid_step=GridStokesStep.build(problem))
 
     @classmethod
     def from_host(cls, mesh, config, device, *, boundary, visc_solver, pressure_solver,
@@ -536,18 +554,19 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
 
     storage = _storage(config, dev)
     n = mesh.n_nodes
-    ke = assembly.element_stiffness(mesh)
-    K_csr = assembly.assemble_csr(mesh, ke)
-    interior_mask = np.ones(n)
-    interior_mask[boundary.dirichlet] = 0.0
-    owner = owner_map(n, boundary.masters, boundary.slaves)
-    Km_csr = assembly.assemble_csr(dataclasses.replace(mesh, tris=owner[mesh.tris].astype(np.int32)),
-                                   ke)
-    # active: owns its dof and is carried by an element (pad_hole dummies are not)
-    active_mask = ((owner == np.arange(n)) & (np.asarray(m_lumped) > 0)).astype(np.float64)
+    with span("assembly"):
+        ke = assembly.element_stiffness(mesh)
+        K_csr = assembly.assemble_csr(mesh, ke)
+        interior_mask = np.ones(n)
+        interior_mask[boundary.dirichlet] = 0.0
+        owner = owner_map(n, boundary.masters, boundary.slaves)
+        Km_csr = assembly.assemble_csr(
+            dataclasses.replace(mesh, tris=owner[mesh.tris].astype(np.int32)), ke)
+        # active: owns its dof and is carried by an element (pad_hole dummies are not)
+        active_mask = ((owner == np.arange(n)) & (np.asarray(m_lumped) > 0)).astype(np.float64)
+        dx_csr, dy_csr = calculus.divergence_csr_operators(mesh)
     coarse_dtype = torch.bfloat16 if config.cg_coarse_dtype == "bf16" else None
     materialize = _materializer(storage, dtype, dev)
-    dx_csr, dy_csr = calculus.divergence_csr_operators(mesh)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -565,7 +584,8 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
                           stream_chunk=config.cg_stream_chunk)
 
         def build_gridop(csr):
-            return GridOperator.dense_split(csr, ns, dtype=dtype, device=dev)
+            with span("dense_split"):
+                return GridOperator.dense_split(csr, ns, dtype=dtype, device=dev)
 
         try:
             Gv = build_gridop(K_csr)
@@ -575,14 +595,16 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
                     iters=config.cg_iters_visc, tol=config.cg_tol_visc,
                     plain=storage == "grid_interpret", **tpu_fields,
                 )
-                pressure = PressureGridCG.build(
-                    Km_csr, build_gridop(Km_csr), np.asarray(m_lumped), boundary.masters,
-                    boundary.slaves, active_mask, iters=config.cg_iters_pressure,
-                    tol=config.cg_tol_pressure, target_coarse=config.cg_coarse_nodes,
-                    use_coarse=config.cg_precond == "twolevel", coarse_dtype=coarse_dtype,
-                    plain=storage == "grid_interpret",
-                    precond_bf16=config.cg_precond_bf16 == "on", **tpu_fields,
-                )
+                Gp = build_gridop(Km_csr)
+                with span("pressure_build"):
+                    pressure = PressureGridCG.build(
+                        Km_csr, Gp, np.asarray(m_lumped), boundary.masters,
+                        boundary.slaves, active_mask, iters=config.cg_iters_pressure,
+                        tol=config.cg_tol_pressure, target_coarse=config.cg_coarse_nodes,
+                        use_coarse=config.cg_precond == "twolevel", coarse_dtype=coarse_dtype,
+                        plain=storage == "grid_interpret",
+                        precond_bf16=config.cg_precond_bf16 == "on", **tpu_fields,
+                    )
                 return visc, pressure, materialize(dx_csr), materialize(dy_csr), None, -1
         except GridDecompositionError:
             if explicit:
@@ -596,16 +618,18 @@ def _build_matfree_problem_fields(mesh, config, boundary, m_lumped, dtype, dev):
     if config.cg_precond in ("chebyshev", "twolevel"):
         from tpufem_torch.solve.cg import estimate_lmax
 
-        diag = km.diag()
-        inv_diag = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
-                               torch.ones_like(diag))
-        lmax = estimate_lmax(km.matvec, inv_diag, n)
-        if config.cg_precond == "twolevel":
-            from tpufem_torch.solve.twolevel import build_twolevel
+        with span("pressure_build"):
+            diag = km.diag()
+            inv_diag = torch.where(diag > 0,
+                                   1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
+                                   torch.ones_like(diag))
+            lmax = estimate_lmax(km.matvec, inv_diag, n)
+            if config.cg_precond == "twolevel":
+                from tpufem_torch.solve.twolevel import build_twolevel
 
-            tl = build_twolevel(Km_csr, np.asarray(mesh.coords), km.matvec, inv_diag,
-                                target_coarse=config.cg_coarse_nodes, dtype=dtype,
-                                coarse_dtype=coarse_dtype, lmax=lmax)
+                tl = build_twolevel(Km_csr, np.asarray(mesh.coords), km.matvec, inv_diag,
+                                    target_coarse=config.cg_coarse_nodes, dtype=dtype,
+                                    coarse_dtype=coarse_dtype, lmax=lmax)
     pressure = PressureCG(
         K_merged=km, m_lumped=t(m_lumped), masters=boundary.masters, slaves=boundary.slaves,
         active_mask=t(active_mask), iters=config.cg_iters_pressure, precond=config.cg_precond,
@@ -651,6 +675,11 @@ def _make_locator(mesh, config, dtype, device):
     locator, which with ``locator_grid=0`` probes a few grid resolutions
     around 2√T and keeps the narrowest candidate table (ties → the coarser
     grid), as tpufem does."""
+    with span("locator"):
+        return _build_locator(mesh, config, dtype, device)
+
+
+def _build_locator(mesh, config, dtype, device):
     if config.locator == "topk":
         return transport.TopKLocator(mesh, config.locator_k, dtype=dtype, device=device)
     if config.locator_grid:
@@ -732,11 +761,12 @@ def _compose_fused_step(mesh, boundary, inner_values, A_visc, A_eff, dx, dy, con
 
 def apply_field_bcs(problem: StokesProblem, u: torch.Tensor, scale=1.0) -> torch.Tensor:
     """Periodic copy, then walls = outer value, then inner surface velocity."""
-    b = problem.bidx
-    if len(problem.boundary.masters):
-        u = bc.apply_periodic_field(u, b["masters"], b["slaves"])
-    u = u.index_put((b["walls"],), problem.outer_value)
-    return u.index_put((b["inner"],), problem.inner_values * scale)
+    with span("bcs"):
+        b = problem.bidx
+        if len(problem.boundary.masters):
+            u = bc.apply_periodic_field(u, b["masters"], b["slaves"])
+        u = u.index_put((b["walls"],), problem.outer_value)
+        return u.index_put((b["inner"],), problem.inner_values * scale)
 
 
 def initial_state(problem: StokesProblem) -> dict:
@@ -807,21 +837,23 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
         return u_new, None, metrics, None
 
     # 1. tentative velocity: one batched solve for both components
-    rhs = u + dt * problem.body_force
-    if problem.visc_lift is not None:
-        rhs = rhs + bc_scale * problem.visc_lift
-    if warm is not None and "u_star" in warm:
-        u_star_raw = problem.visc_solver.solve(rhs, x0=warm["u_star"])
-    else:
-        u_star_raw = problem.visc_solver.solve(rhs)
+    with span("viscous_solve"):
+        rhs = u + dt * problem.body_force
+        if problem.visc_lift is not None:
+            rhs = rhs + bc_scale * problem.visc_lift
+        if warm is not None and "u_star" in warm:
+            u_star_raw = problem.visc_solver.solve(rhs, x0=warm["u_star"])
+        else:
+            u_star_raw = problem.visc_solver.solve(rhs)
     u_star = apply_field_bcs(problem, u_star_raw, bc_scale)
 
     # 2. pressure correction
     div_star = problem.div(u_star)
-    if warm is not None:
-        p = problem.pressure_solver.solve(-div_star / dt, x0=warm["p"])
-    else:
-        p = problem.pressure_solver.solve(-div_star / dt)
+    with span("pressure_solve"):
+        if warm is not None:
+            p = problem.pressure_solver.solve(-div_star / dt, x0=warm["p"])
+        else:
+            p = problem.pressure_solver.solve(-div_star / dt)
 
     # 3. velocity update
     u_new = apply_field_bcs(problem, u_star - dt * problem.grad(p), bc_scale)
@@ -830,10 +862,11 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
     p2 = None
     if cfg.double_projection:
         div_u = problem.div(u_new)
-        if warm is not None:
-            p2 = problem.pressure_solver.solve(-div_u / dt, x0=warm["p2"])
-        else:
-            p2 = problem.pressure_solver.solve(-div_u / dt)
+        with span("pressure_solve"):
+            if warm is not None:
+                p2 = problem.pressure_solver.solve(-div_u / dt, x0=warm["p2"])
+            else:
+                p2 = problem.pressure_solver.solve(-div_u / dt)
         g2 = problem.grad(p2)
         imask = getattr(problem.visc_solver, "interior_mask", None)
         if imask is not None:
@@ -845,11 +878,12 @@ def projection_step(problem: StokesProblem, u: torch.Tensor, bc_scale=1.0, warm=
             u_new = u_new.index_add(0, interior, -dt * g2[interior])
 
     final_div = problem.div(u_new)
-    metrics = {
-        "div_star_max": torch.max(torch.abs(div_star)),
-        "final_div_max": torch.max(torch.abs(final_div)),
-        "max_u": torch.max(torch.abs(u_new)),
-    }
+    with span("step_metrics"):
+        metrics = {
+            "div_star_max": torch.max(torch.abs(div_star)),
+            "final_div_max": torch.max(torch.abs(final_div)),
+            "max_u": torch.max(torch.abs(u_new)),
+        }
     warm_out = None
     if warm is not None:
         warm_out = {"p": p, "p2": p2 if p2 is not None else p}
@@ -1055,37 +1089,41 @@ def make_step(problem: StokesProblem, var0=None):
             if "ustar_warm" in state:
                 warm["u_star"] = state["ustar_warm"]
         u, _, metrics, warm_out = projection_step(problem, state["u"], bc_scale=ramp, warm=warm)
-        new_state = {"u": u, "step": state["step"] + steps_per_call(problem)}
-        if warm_out is not None:
-            new_state["p_warm"] = warm_out["p"]
-            new_state["p2_warm"] = warm_out["p2"]
-            if "u_star" in warm_out:
-                new_state["ustar_warm"] = warm_out["u_star"]
-        if cfg.transport in _DYE_TRANSPORTS:
-            if cfg.transport == "dye":
-                c = transport.advect_semilagrange(
-                    mesh, problem.locator, state["c"], u, cfg.dt, L=cfg.L, H=cfg.H
+        with span("step_metrics"):
+            new_state = {"u": u, "step": state["step"] + steps_per_call(problem)}
+            if warm_out is not None:
+                new_state["p_warm"] = warm_out["p"]
+                new_state["p2_warm"] = warm_out["p2"]
+                if "u_star" in warm_out:
+                    new_state["ustar_warm"] = warm_out["u_star"]
+        if cfg.transport == "none":
+            return new_state, metrics
+        with span("transport"):
+            if cfg.transport in _DYE_TRANSPORTS:
+                if cfg.transport == "dye":
+                    c = transport.advect_semilagrange(
+                        mesh, problem.locator, state["c"], u, cfg.dt, L=cfg.L, H=cfg.H
+                    )
+                elif cfg.transport == "eulerian_dye":
+                    c = eulerian_dye_step(problem, state["c"], u)
+                else:
+                    c = griddata_dye_step(problem, state["c"], u)
+                _, _, var = transport.mixing_index(c, problem.m_lumped, mask=interior_mask)
+                new_state["c"] = c
+                metrics["mixing_var"] = var
+                if var0 is not None:
+                    metrics["mixing_progress"] = 1.0 - var / (var0 + 1e-16)
+            elif cfg.transport == "tracers":
+                pts = transport.tracer_step(
+                    mesh, problem.locator, state["tracers"], u, cfg.dt,
+                    L=cfg.L, method=cfg.tracer_method,
                 )
-            elif cfg.transport == "eulerian_dye":
-                c = eulerian_dye_step(problem, state["c"], u)
-            else:
-                c = griddata_dye_step(problem, state["c"], u)
-            _, _, var = transport.mixing_index(c, problem.m_lumped, mask=interior_mask)
-            new_state["c"] = c
-            metrics["mixing_var"] = var
-            if var0 is not None:
-                metrics["mixing_progress"] = 1.0 - var / (var0 + 1e-16)
-        elif cfg.transport == "tracers":
-            pts = transport.tracer_step(
-                mesh, problem.locator, state["tracers"], u, cfg.dt,
-                L=cfg.L, method=cfg.tracer_method,
-            )
-            status = transport.capture_update(
-                pts, state["tracer_status"], cfg.center, cfg.capture_radius
-            )
-            new_state["tracers"] = pts
-            new_state["tracer_status"] = status
-            metrics["eaten"] = torch.sum(status)
+                status = transport.capture_update(
+                    pts, state["tracer_status"], cfg.center, cfg.capture_radius
+                )
+                new_state["tracers"] = pts
+                new_state["tracer_status"] = status
+                metrics["eaten"] = torch.sum(status)
         return new_state, metrics
 
     return step
@@ -1114,24 +1152,38 @@ def run(problem: StokesProblem, steps: int | None = None, state: dict | None = N
     value back to the host.  Under K5 with K steps a call, ``steps`` must
     be a multiple of K, and each call's (K,) series fills K entries.  Dye
     runs also report ``mixing_progress`` against the canonical initial
-    state's variance."""
+    state's variance.
+
+    Its spans: ``stokes.run`` over the call; inside it ``run_setup`` (the
+    start state where none is given, the metric series, the step
+    function), each call of the step function as ``step`` (marked with its
+    index), and the dye's ``dye_baseline``."""
+    with span("stokes.run"):
+        return _run(problem, steps, state)
+
+
+def _run(problem: StokesProblem, steps: int | None, state: dict | None):
     cfg = problem.config
-    if state is None:
-        state = initial_state(problem)
     n_steps = steps if steps is not None else cfg.steps
     k = steps_per_call(problem)
     if n_steps % k:
         raise ValueError(f"run(steps={n_steps}) must be a multiple of grid_steps_per_call={k}")
-    metrics = {
-        key: torch.empty(n_steps, dtype=dt, device=problem.device)
-        for key, dt in _metric_dtypes(problem).items()
-    }
-    step = make_step(problem)
+    with span("run_setup"):
+        if state is None:
+            state = initial_state(problem)
+        metrics = {
+            key: torch.empty(n_steps, dtype=dt, device=problem.device)
+            for key, dt in _metric_dtypes(problem).items()
+        }
+        step = make_step(problem)
     for i in range(n_steps // k):
-        state, m = step(state)
-        for key, series in metrics.items():
-            series[i * k:(i + 1) * k] = m[key]
+        with span("step", step=i):
+            state, m = step(state)
+            with span("step_metrics"):
+                for key, series in metrics.items():
+                    series[i * k:(i + 1) * k] = m[key]
     if cfg.transport in _DYE_TRANSPORTS:
-        var0 = dye_baseline(problem, initial_state(problem))
-        metrics["mixing_progress"] = 1.0 - metrics["mixing_var"] / (var0 + 1e-16)
+        with span("dye_baseline"):
+            var0 = dye_baseline(problem, initial_state(problem))
+            metrics["mixing_progress"] = 1.0 - metrics["mixing_var"] / (var0 + 1e-16)
     return state, metrics
