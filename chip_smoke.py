@@ -39,9 +39,11 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports no JAX.  Phases:
    ``generate_annulus_mesh(1024, 1088, pad_hole=True)`` (1,048,576 nodes,
    f32, two-level, tol 1e-5, bf16 coarse) through ``StokesProblem.build``
    and ``stokes.run``: 200 steps from rest, then 200 steps of steady
-   continuation, div/grad on the stencil between the kernels; K2 must run
-   once a step and K3 twice; tpufem's physics gates; the operators' plane
-   and remainder counts;
+   continuation, div/grad on the stencil between the kernels, under a
+   device-activity trace: every step replayed from one CUDA graph
+   (``stokes.graph_counts``), K2 once a step on the card and K3 twice,
+   counted by kernel name, the capture's warm-up step among them; tpufem's
+   physics gates; the operators' plane and remainder counts;
 10. the grid path at f64 on the card (kernels) against the port's CPU path
     (plain versions) at ``n_side=40`` over 10 steps, fixed iterations and
     then tol 1e-5 with warm starts; f32 on the card against f64;
@@ -98,7 +100,9 @@ grid_step.cu``, built in phase 2), run after phase 11 while phase 9's
     ``generate_annulus_mesh(280, 320, pad_hole=False)``, renumbered on the
     host (``gridify``), under tpufem's "imported" gate, and on the
     160,000-node ``generate_annulus_mesh(400, 448, pad_hole=True)`` under
-    the scale gates: 200 steps from rest and 200 more, steps/s of both;
+    the scale gates: 200 steps from rest and 200 more, steps/s of both
+    under a device trace, K2 and K3 counted on the card by kernel name
+    (the unfused runs replayed after one capture);
     then K5 against its plain version there (f32 and f64, tol 1e-5).
 
 Phases 23–26, the space-sharded grid path (``tpufem_torch.parallel``) and
@@ -276,8 +280,8 @@ kernel of their own), run after phase 43 on phase 9's problem:
     CSR ≤ 1e-5; (2) the Scale step with its div/grad on the stencil (Dx
     and Dy in one pass, as built), on the stencil as two applies and on
     CSR, in turns A B C C B A of 400 warm steps: steps/s, device ms
-    and kernels a step, the busy share, K2 1 and K3 2 launches a step in every
-    turn, u within 1e-5 after 20 steps from rest; (3) at 160,000 nodes
+    and kernels a step, the busy share, every step of every turn replayed,
+    K2 1 and K3 2 kernels a step on the card (traced), u within 1e-5 after 20 steps from rest; (3) at 160,000 nodes
     (``bench_config``) Stokes on the stencil, CSR and banded (warm steps/s
     in turns S C C S, iterations a solve; the band's width, bytes and ms an apply) and NS on
     the stencil and CSR (``bench_large.ns_config``, tpufem's gates: warm
@@ -307,7 +311,8 @@ phase 47 on phase 9's problem and on the same mesh built with ``"on"``:
     apart (not equal) after 20 steps from rest, 200 steps
     from rest under tpufem's gates (scale divergence < 0.05), then turns
     off on on off, twice, of 200 warm steps: steps/s, pressure iterations a
-    solve, K2 1 and K3 2 launches a step, the bf16-plane K3 2 a step "on";
+    solve, every step replayed; K2 1 and K3 2 kernels a step on the card,
+    the bf16-plane K3 2 a step "on" (traced);
     device ms a step (profiler); (d) ``roofline.probes`` at 1,048,576,
     160,000 and on the 192² raster: µs an iteration of real, nofma and
     nodma.
@@ -432,6 +437,40 @@ def launch_counts() -> dict:
     return {"K1": fm.fused_step_matvec.launches, "K2": grid_cg.viscous_cg.launches,
             "K3": grid_cg.pressure_cg.launches, "K4": grid_cg.ns_bicgstab.launches,
             "K5": gs.grid_step.launches, "K6": rdma.halo_rdma.launches}
+
+
+# K2's and K3's kernels by the names grid_cg.cu gives them; "pb16" is K3's
+# bf16-plane variant, also counted in "K3"
+GRID_KERNEL_NAMES = {"K2": ("viscous_cg_kernel",),
+                     "K3": ("pressure_cg_kernel", "pressure_pb16_kernel", "pressure_nofma_kernel",
+                            "pressure_nodma_kernel"),
+                     "pb16": ("pressure_pb16_kernel",)}
+
+
+def on_device(run) -> tuple:
+    """(``run()``, K2's and K3's kernels that ran on the card during it,
+    counted by name in a device-activity trace).  A step that
+    ``stokes.run`` replays from a CUDA graph runs them without a call of
+    their wrappers, whose ``launches`` count the host's launches alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, {k: sum(any(f in n for f in frags) for n in names)
+                 for k, frags in GRID_KERNEL_NAMES.items()}
+
+
+def graph_delta(before: dict) -> dict:
+    """``stokes.graph_counts`` since ``before``, a copy of it."""
+    return {k: v - before[k] for k, v in stokes.graph_counts.items()}
+
+
+def replayed(steps: int, captures: int = 0) -> dict:
+    """``stokes.graph_counts`` of ``steps`` steps all replayed."""
+    return {"captures": captures, "replays": steps, "eager_steps": 0}
 
 
 def check(ok: bool, what: str) -> None:
@@ -894,16 +933,26 @@ def phase_grid_kernels(dev, big_problem, old_ops) -> dict:
 
 
 def phase_scale_main_path(problem, build_s: float, steps: int = SCALE_STEPS):
-    """The scale configuration through the user's entry points; returns the
-    launch counts of K2 and K3 over both runs, and the steps/s and end
-    state of the runs."""
+    """The scale configuration through the user's entry points, under a
+    device-activity trace; returns K2's and K3's kernels that ran on the
+    card over both runs, and the steps/s and end state of the runs."""
     problem, counters = bench_large.with_iteration_counters(problem)
     zero_launches()
-    cold, state, metrics, warm, state2 = bench_large.run_problem(problem, steps)
-    launches = launch_counts()
+    graph0 = dict(stokes.graph_counts)
+    (cold, state, metrics, warm, state2), ran = on_device(
+        lambda: bench_large.run_problem(problem, steps))
+    launches, graph = launch_counts(), graph_delta(graph0)
     iters = bench_large.iterations_per_solve(counters, 2 * steps)
-    check(launches == {"K1": 0, "K2": 2 * steps, "K3": 4 * steps, "K4": 0, "K5": 0, "K6": 0},
-          f"launches {launches} in two {steps}-step runs (want K2 = steps, K3 = 2·steps)")
+    # one capture, in the first run, and every step of both replayed; the
+    # capture's warm-up step runs on the card too, and the host launched K2
+    # and K3 for that step and for the capture alone
+    check(graph == replayed(2 * steps, captures=1),
+          f"graph counts {graph} in two {steps}-step runs")
+    on_card = graph["replays"] + graph["captures"]
+    check(ran == {"K2": on_card, "K3": 2 * on_card, "pb16": 0},
+          f"kernels on the card {ran} in {on_card} steps (want K2 one a step, K3 two)")
+    check(launches == {"K1": 0, "K2": 2, "K3": 4, "K4": 0, "K5": 0, "K6": 0},
+          f"host launches {launches} (want K2 2, K3 4: the warm-up step and the capture)")
     for k, v in {**state, **state2, **metrics}.items():
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"{k} is finite")
@@ -911,10 +960,11 @@ def phase_scale_main_path(problem, build_s: float, steps: int = SCALE_STEPS):
     Kv, Kp = problem.visc_solver.K, problem.pressure_solver.K
     print(f"[9 scale main path] {problem.mesh.n_nodes} nodes ({len(Kv.offsets)} viscous planes "
           f"and {Kv.n_rest} remainder entries, {len(Kp.offsets)} pressure planes and "
-          f"{Kp.n_rest}), {steps}+{steps} steps: build {build_s:.1f} s, cold "
-          f"{cold:.2f} steps/s, warm {warm:.2f} steps/s; launches {launches}; mean iterations "
-          f"per solve {iters}; {json.dumps(phys)}")
-    return launches, {"cold": cold, "warm": warm, "state": state2}
+          f"{Kp.n_rest}), {steps}+{steps} steps under a device trace: build {build_s:.1f} s, "
+          f"cold {cold:.2f} steps/s, warm {warm:.2f} steps/s; kernels on the card {ran}, host "
+          f"launches {launches}, graph counts {graph}; mean iterations per solve {iters}; "
+          f"{json.dumps(phys)}")
+    return {k: ran[k] for k in ("K2", "K3")}, {"cold": cold, "warm": warm, "state": state2}
 
 
 def phase_scale_parity(dev, steps: int = SCALE_PARITY_STEPS) -> None:
@@ -1241,11 +1291,20 @@ def k5_beside_unfused(label: str, mesh, steps: int, gate: str) -> None:
               "the grid storage holds N = ns² nodes")
         check((problem.grid_step is not None) == (k > 0), f"K5 attached iff K = {k} > 0")
         zero_launches()
-        cold, state, metrics, warm, _ = bench_large.run_problem(problem, steps)
-        launches = launch_counts()
-        want = {"K1": 0, "K2": 0 if k else 2 * steps, "K3": 0 if k else 4 * steps, "K4": 0,
-                "K5": 2 * steps if k else 0, "K6": 0}
-        check(launches == want, f"launches {launches} (want {want})")
+        graph0 = dict(stokes.graph_counts)
+        (cold, state, metrics, warm, _), ran = on_device(
+            lambda: bench_large.run_problem(problem, steps))
+        launches, graph = launch_counts(), graph_delta(graph0)
+        if k:  # K5 launched once a step
+            want = ({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2 * steps, "K6": 0},
+                    {"captures": 0, "replays": 0, "eager_steps": 2 * steps},
+                    {"K2": 0, "K3": 0, "pb16": 0})
+        else:  # replayed after one capture, whose warm-up step runs on the card
+            want = ({"K1": 0, "K2": 2, "K3": 4, "K4": 0, "K5": 0, "K6": 0},
+                    replayed(2 * steps, captures=1),
+                    {"K2": 2 * steps + 1, "K3": 2 * (2 * steps + 1), "pb16": 0})
+        check((launches, graph, ran) == want, f"host launches {launches}, graph counts {graph}, "
+              f"kernels on the card {ran} (want {want})")
         phys = bench_large.physics_report(problem, state, metrics, steps, gate=gate)
         if g is not None:
             u = g.pull(state["u"].double().cpu().numpy())
@@ -1255,8 +1314,9 @@ def k5_beside_unfused(label: str, mesh, steps: int, gate: str) -> None:
         where = f"renumbered onto {g.ns}x{g.ns}" if g is not None else "grid-numbered"
         print(f"[22 {label}] {mesh.n_nodes} nodes {where} ({len(Kv.offsets)} viscous planes and "
               f"{Kv.n_rest} remainder entries, {len(Kp.offsets)} pressure planes and {Kp.n_rest}), "
-              f"{'K5' if k else 'unfused'}: build {build_s:.1f} s, {steps} steps from rest at "
-              f"{cold:.2f} steps/s, {steps} more at {warm:.2f}; launches {launches}; "
+              f"{'K5' if k else 'unfused'}: build {build_s:.1f} s, under a device trace {steps} "
+              f"steps from rest at {cold:.2f} steps/s, {steps} more at {warm:.2f}; host launches "
+              f"{launches}, kernels on the card {ran}; "
               f"{json.dumps(phys)}")
     print(f"[22 {label}] warm steps/s K5 {rates[1]:.2f} against unfused {rates[0]:.2f} "
           f"({rates[1] / rates[0]:.3f}x)")
@@ -3111,16 +3171,21 @@ def scale_divgrad_ab(big) -> None:
     turns = {}
     for label in ("stencil", "csr", "stencil unpaired", "stencil unpaired", "csr", "stencil"):
         zero_launches()
+        graph0 = dict(stokes.graph_counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stokes.run(variants[label], steps=STORAGE_AB_STEPS, state=warm[label])
         torch.cuda.synchronize()
         turns.setdefault(label, []).append(STORAGE_AB_STEPS / (time.perf_counter() - t0))
-        counts = launch_counts()
-        check(counts == {"K1": 0, "K2": STORAGE_AB_STEPS, "K3": 2 * STORAGE_AB_STEPS, "K4": 0,
-                         "K5": 0, "K6": 0}, f"{label} div/grad launched {counts}")
+        counts, graph = launch_counts(), graph_delta(graph0)
+        check(graph == replayed(STORAGE_AB_STEPS) and not any(counts.values()),
+              f"{label} div/grad: graph counts {graph}, host launches {counts}")
     parts, top = [], {}
     for label, problem in variants.items():
+        _, ran = on_device(lambda: stokes.run(problem, steps=STORAGE_PROFILE_STEPS,
+                                              state=warm[label]))
+        check(ran == {"K2": STORAGE_PROFILE_STEPS, "K3": 2 * STORAGE_PROFILE_STEPS, "pb16": 0},
+              f"{label} div/grad: kernels on the card {ran} in {STORAGE_PROFILE_STEPS} steps")
         prof = profile_steps(problem, STORAGE_PROFILE_STEPS, state=warm[label])
         busy = prof["device_ms_per_step"] * float(np.median(turns[label])) / 1e3
         top[label] = [(k["name"][:48], round(k["ms_per_step"], 4)) for k in prof["top"][:6]]
@@ -3128,8 +3193,8 @@ def scale_divgrad_ab(big) -> None:
                      f"{prof['device_ms_per_step']:.4f} device ms and "
                      f"{prof['kernels_per_step']:.1f} kernels a step, busy {100 * busy:.1f} %")
     print(f"[47 scale div/grad] {big.mesh.n_nodes} nodes, turns A B C C B A of "
-          f"{STORAGE_AB_STEPS} warm steps from step {SCALE_STEPS}, K2 1 and K3 2 a step in every "
-          "turn: " + "; ".join(parts) + f"; u rel vs CSR after {STORAGE_PARITY_STEPS} steps "
+          f"{STORAGE_AB_STEPS} warm steps from step {SCALE_STEPS}, every step replayed; K2 1 and "
+          f"K3 2 a step on the card ({STORAGE_PROFILE_STEPS} traced steps each): " + "; ".join(parts) + f"; u rel vs CSR after {STORAGE_PARITY_STEPS} steps "
           + ", ".join(f"{k} {v:.3e}" for k, v in du.items()) + " (<= 1e-5)")
     print(f"[47 scale div/grad] device ms a step by kernel (top 6): {json.dumps(top)}")
 
@@ -3502,10 +3567,11 @@ def pb16_scale_ab(big, big_on) -> int:
     """(c) the Scale cell "off" (phase 9's problem) against "on": u apart
     after PB16_PARITY_STEPS from rest; each SCALE_STEPS from rest under
     tpufem's gates; then turns off on on off, twice, of PB16_TURN_STEPS warm
-    steps (steps/s, pressure iterations a solve, K2 1 and K3 2 launches a
-    step, the bf16-plane K3 2 a step "on" and 0 "off"); device ms a step
-    (profiler).  Returns the bf16-plane K3's launches in the first "on"
-    turn (the main path's)."""
+    steps (steps/s, pressure iterations a solve, every step replayed); K2
+    1 and K3 2 kernels a step on the card, the bf16-plane K3 2 a step "on"
+    and 0 "off", over PB16_PROFILE_STEPS traced steps; device ms a step
+    (profiler).  Returns the bf16-plane K3's kernels on the card in the
+    traced "on" steps (the main path's)."""
     runs = {"off": big, "on": big_on}
     du = rel(stokes.run(big_on, steps=PB16_PARITY_STEPS)[0]["u"],
              stokes.run(big, steps=PB16_PARITY_STEPS)[0]["u"])
@@ -3526,29 +3592,35 @@ def pb16_scale_ab(big, big_on) -> int:
     for label in ("off", "on", "on", "off") * 2:
         problem, counters = counted[label]
         zero_launches()
+        graph0 = dict(stokes.graph_counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stokes.run(problem, steps=PB16_TURN_STEPS, state=warm[label])
         torch.cuda.synchronize()
         turns.setdefault(label, []).append(PB16_TURN_STEPS / (time.perf_counter() - t0))
-        counts = launch_counts()
+        counts, graph = launch_counts(), graph_delta(graph0)
         pb16 = grid_cg.pressure_cg.variant_launches["pb16"]
-        check(counts == {"K1": 0, "K2": PB16_TURN_STEPS, "K3": 2 * PB16_TURN_STEPS, "K4": 0,
-                         "K5": 0, "K6": 0}, f"{label}: launches {counts}")
-        check(pb16 == (2 * PB16_TURN_STEPS if label == "on" else 0),
-              f"{label}: the bf16-plane K3 launched {pb16} times")
-        if label == "on" and main_launches is None:
-            main_launches = pb16
+        check(graph == replayed(PB16_TURN_STEPS) and not any(counts.values()) and not pb16,
+              f"{label}: graph counts {graph}, host launches {counts}, bf16-plane K3 {pb16}")
         iters.setdefault(label, []).append(
             bench_large.iterations_per_solve(counters, PB16_TURN_STEPS)["pressure"])
+    for label in runs:
+        _, ran = on_device(lambda: stokes.run(counted[label][0], steps=PB16_PROFILE_STEPS,
+                                              state=warm[label]))
+        want = {"K2": PB16_PROFILE_STEPS, "K3": 2 * PB16_PROFILE_STEPS,
+                "pb16": 2 * PB16_PROFILE_STEPS if label == "on" else 0}
+        check(ran == want, f"{label}: kernels on the card {ran} in {PB16_PROFILE_STEPS} steps")
+        if label == "on":
+            main_launches = ran["pb16"]
     prof = {label: profile_steps(counted[label][0], PB16_PROFILE_STEPS, state=warm[label])
             for label in runs}
     print(f"[48 scale] {big.mesh.n_nodes} nodes, u after {PB16_PARITY_STEPS} steps from rest "
           f"on against off rel {du:.3e}; {SCALE_STEPS} steps from rest: pressure iterations a "
           f"solve off {rest_iters['off']['pressure']:.2f} on {rest_iters['on']['pressure']:.2f}, "
           f"gates off {json.dumps(phys['off'])} on {json.dumps(phys['on'])}")
-    print(f"[48 scale] turns (off on on off) × 2 of {PB16_TURN_STEPS} warm steps, K2 1, K3 2 and "
-          f"the bf16-plane K3 2 (on) / 0 (off) a step in every turn: warm steps/s "
+    print(f"[48 scale] turns (off on on off) × 2 of {PB16_TURN_STEPS} warm steps, every step "
+          f"replayed; K2 1, K3 2 and the bf16-plane K3 2 (on) / 0 (off) a step on the card "
+          f"({PB16_PROFILE_STEPS} traced steps each): warm steps/s "
           f"{turns_text(turns)}; pressure iterations a solve "
           + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs) for k, vs in iters.items())
           + "; device ms and kernels a step (profiler, "
@@ -3564,16 +3636,19 @@ def pb16_scale_ab(big, big_on) -> int:
 def pb16_u_gap_f64(dev) -> None:
     """(c) at f64 on PB16_SMALL, through StokesProblem.build and
     stokes.run: u "on" against "off" after PB16_PARITY_STEPS from rest
-    exceeds PB16_F64_U_GAP, the bf16-plane K3 launched twice a step "on"."""
+    exceeds PB16_F64_U_GAP, the bf16-plane K3 run on the card twice a step
+    "on"."""
     u = {}
     for mode in ("off", "on"):
         problem = scale_problem(dev, *PB16_SMALL, cg_coarse_nodes=64, cg_stream_diags="on",
                                 cg_precond_bf16=mode, precision="f64")
-        n0 = grid_cg.pressure_cg.variant_launches["pb16"]
-        u[mode] = stokes.run(problem, steps=PB16_PARITY_STEPS)[0]["u"]
-        pb16 = grid_cg.pressure_cg.variant_launches["pb16"] - n0
-        check(pb16 == (2 * PB16_PARITY_STEPS if mode == "on" else 0),
-              f"f64 {mode}: the bf16-plane K3 launched {pb16} times")
+        graph0 = dict(stokes.graph_counts)
+        (state, _), ran = on_device(lambda: stokes.run(problem, steps=PB16_PARITY_STEPS))
+        u[mode], graph = state["u"], graph_delta(graph0)
+        on_card = PB16_PARITY_STEPS + 1  # and the capture's warm-up step
+        check(graph == replayed(PB16_PARITY_STEPS, captures=1)
+              and ran["pb16"] == (2 * on_card if mode == "on" else 0),
+              f"f64 {mode}: graph counts {graph}, kernels on the card {ran}")
     du = rel(u["on"], u["off"])
     print(f"[48 scale] f64 at n_side={PB16_SMALL[0]}, u after {PB16_PARITY_STEPS} steps from rest "
           f"on against off rel {du:.3e} (>= {PB16_F64_U_GAP:g})")
@@ -3604,7 +3679,8 @@ def pb16_probes(dev, big) -> None:
 
 def phase_precond_bf16(dev, big) -> dict:
     """Phase 48; returns the bf16-plane K3's numbers for the kernels line
-    (f32 at 1,048,576 nodes, its launches in the main path's "on" turn)."""
+    (f32 at 1,048,576 nodes, its kernels on the card in the main path's
+    traced "on" steps)."""
     seconds = {}
     t0 = time.perf_counter()
     small = scale_problem(dev, *PB16_SMALL, cg_coarse_nodes=64, cg_stream_diags="on",

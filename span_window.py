@@ -21,6 +21,11 @@ host's and the grid kernels against their launch spans, the copies and the
 host's synchronisations by span, the kernels by span) and the breakdown;
 for ``host`` the host time in ``stokes.run`` a step and the spans' self
 time.  ``--out FILE`` also writes every line there.
+
+Each line gives the window's ``stokes.graph_counts``.  Where the window
+replayed a captured step, its kernels are launched in the ``step`` span and
+the step's inner spans are not recorded, so the metrics that split a step
+by them (``REPLAY_BLIND``) read None there.
 """
 
 import time
@@ -36,6 +41,7 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 GRID_KERNELS = ("viscous_cg_kernel", "pressure_cg_kernel", "pressure_pb16_kernel")
+REPLAY_BLIND = ("k2_ms_per_step", "divgrad_ms_per_step", "glue_ms_per_step", "visc_iters")
 
 
 def cell_of(root: Path, args):
@@ -68,7 +74,7 @@ def with_visc_counter(program, device):
     return counter
 
 
-def checks(sp, layer: dict) -> dict:
+def checks(sp, layer: dict, replayed: bool) -> dict:
     """The attribution held to the cell's own readers of the same window."""
     from portbench import spans
 
@@ -81,6 +87,8 @@ def checks(sp, layer: dict) -> dict:
              "divgrad_ms_per_step": spans.divgrad_ms_per_step(sp),
              "glue_ms_per_step": spans.glue_ms_per_step(sp),
              "kernels_outside_run_ms_per_step": 1e3 * outside_run / sp.steps}
+    if replayed:
+        parts.update({k: None for k in parts if k in REPLAY_BLIND})
     grid = [(op, i) for op, i in zip(sp.ops, sp.owner) if any(k in op[0] for k in GRID_KERNELS)]
     in_launch = [(op, i) for op, i in grid if i >= 0 and sp.spans[i][0] in spans.LAUNCHES]
     copies, syncs, by_name = {}, {}, {}
@@ -146,6 +154,7 @@ def main(argv=None) -> int:
 
     from portbench import harness, spans, spec, tracing
     from tpufem_torch import metrics
+    from tpufem_torch.workloads import stokes
 
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -189,7 +198,7 @@ def main(argv=None) -> int:
             if c is not None:
                 c.zero_()
         rec = metrics.SpanRecorder()
-        copies_s = []
+        copies_s, graph0 = [], dict(stokes.graph_counts)
         with tracing.profiler(device) if turn != "host" else contextlib.nullcontext() as prof:
             with metrics.recording(rec) if turn != "off" else contextlib.nullcontext():
                 harness._sync(device)
@@ -199,8 +208,9 @@ def main(argv=None) -> int:
                 harness._sync(device)
                 window_s, w1 = time.perf_counter() - t0, time.time_ns()
         steps = n * win.every
+        graph = {k: stokes.graph_counts[k] - graph0[k] for k in graph0}
         line = {"cell": cell.name, "seed": args.seed, "turn": turn, "frames": n, "steps": steps,
-                "window_s": window_s,
+                "window_s": window_s, "graph_counts": graph,
                 "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
         if turn == "host":
             host = spans.from_ns(rec.spans, w0)
@@ -219,10 +229,11 @@ def main(argv=None) -> int:
                            counters=read, calls=calls)
         line["per_layer"] = layer
         if turn == "on":
-            line["span_metrics"] = {name: f(sp) for name, f in spans.METRICS.items()}
+            line["span_metrics"] = {name: None if graph["replays"] and name in REPLAY_BLIND
+                                    else f(sp) for name, f in spans.METRICS.items()}
             line["checks"] = {"device_clock_shifts_us": [1e6 * min(shifts, default=0.0),
                                                          1e6 * max(shifts, default=0.0)],
-                              **checks(sp, layer)}
+                              **checks(sp, layer, graph["replays"] > 0)}
             line["breakdown"] = spans.breakdown(sp)
             line["setup_s"] = phases
             line["setup_self"] = spans.host_self(setup_spans, 12)

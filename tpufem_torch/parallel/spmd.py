@@ -42,6 +42,7 @@ import torch
 
 from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
+from tpufem_torch.cuda_graph import capture_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -682,7 +683,7 @@ class EnsembleStep:
         """``steps`` steps → (state, metric (steps, B)); a Python loop that
         only enqueues device work, each group's metrics into preallocated
         (steps, B_g) tensors.  A group on one card replays its step as one
-        CUDA graph (:func:`_captured_step`): ~140 small kernels a step,
+        CUDA graph (:func:`capture_step`): ~140 small kernels a step,
         which the host enqueues slower than the card runs them."""
         parts = self.split(state)
         series, graphs = [], []
@@ -691,7 +692,7 @@ class EnsembleStep:
             series.append(torch.empty((steps, len(shard.group.index)), dtype=part["u"].dtype,
                                       device=home))
             one_card = home.type == "cuda" and len(shard.group.devices) == 1
-            graphs.append(_captured_step(shard, part) if one_card and steps else None)
+            graphs.append(capture_step(shard.step, part, home) if one_card and steps else None)
         for i in range(steps):
             for k, shard in enumerate(self.shards):
                 if graphs[k] is None:
@@ -705,30 +706,6 @@ class EnsembleStep:
             if captured is not None:
                 parts[k] = {key: v.clone() for key, v in captured[0].items()}
         return self.join(parts), self.join(series, dim=1)
-
-
-def _captured_step(shard, state: dict):
-    """(static state, static metric, graph): one step of ``shard`` captured
-    as a CUDA graph on its card.  The graph reads the static state, steps it
-    and copies the new state back into it, so each replay advances the state
-    by one step; the static state starts as a copy of ``state``.  The step
-    reads nothing back to the host, so the graph replays exactly the
-    kernels of the eager step."""
-    static = {k: v.clone() for k, v in state.items()}
-    with torch.cuda.device(shard.group.home):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # fills the caches and workspaces the step uses
-            shard.step(static)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # a capture stream of this card: torch.cuda.graph's default one is
-        # made once, on the card current at its first use
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
-            new, metric = shard.step(static)
-            for k, v in new.items():
-                static[k].copy_(v)
-    return static, metric, graph
 
 
 def make_sharded_step(ensemble: ShardedEnsemble) -> EnsembleStep:

@@ -33,7 +33,9 @@ or ``"banded"`` the same solves run as plain tensor CG on that storage.
 :func:`run` is a Python loop on the device that keeps every per-step metric
 in preallocated device tensors: on the dense and grid paths it never waits
 for the device (the plain CSR CG with ``tol > 0`` reads its loop condition
-on the host).
+on the host).  On the card, the unfused grid path with no transport
+(:func:`graph_path`) replays one CUDA graph a step instead of launching the
+step's ~100 kernels one by one from Python.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 
 from tpufem_torch import bc, transport
 from tpufem_torch import config as tconfig
+from tpufem_torch.cuda_graph import capture_step
 from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.metrics import span
 from tpufem_torch.ops import assembly, calculus
@@ -249,6 +252,10 @@ class StokesProblem:
     eul_K: torch.Tensor | None = None  # (N,N) stiffness (dense Eulerian and griddata dye)
     eul_Mg: torch.Tensor | None = None  # (N,N_act) periodic merge map (f32 Eulerian dye)
     _locator_cache: Any = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # the captured steps of :func:`run`, by state layout; not an __init__
+    # field, so a problem made by dataclasses.replace starts with none
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -1154,12 +1161,96 @@ def run(problem: StokesProblem, steps: int | None = None, state: dict | None = N
     runs also report ``mixing_progress`` against the canonical initial
     state's variance.
 
+    Where :func:`graph_path` holds, each step replays one CUDA graph of the
+    step function instead (:func:`_captured_step`: captured at the
+    problem's first such call with a state of that layout, reused after);
+    the states and metrics are the eager loop's, and the returned tensors
+    are the call's own.
+
     Its spans: ``stokes.run`` over the call; inside it ``run_setup`` (the
     start state where none is given, the metric series, the step
-    function), each call of the step function as ``step`` (marked with its
-    index), and the dye's ``dye_baseline``."""
+    function, and ``graph_capture`` where a graph is captured), each call
+    of the step function, or each replay, as ``step`` (marked with its
+    index), and the dye's ``dye_baseline``.  Under replay the step's inner
+    spans are recorded once, at capture."""
     with span("stokes.run"):
         return _run(problem, steps, state)
+
+
+# How run advanced its steps, over the process: graphs captured, steps
+# replayed from one, and steps launched one kernel at a time.
+graph_counts = {"captures": 0, "replays": 0, "eager_steps": 0}
+
+
+def graph_path(problem: StokesProblem) -> bool:
+    """True where :func:`run` replays a captured step: on the card, the
+    unfused projection step on K2 and K3 (``ViscousGridCG`` and
+    ``PressureGridCG`` kernels, not K5, not the fused or "report" step)
+    with no transport, outside another capture.  Every other path reads
+    the host or has not been shown capturable, and stays eager."""
+    cfg = problem.config
+    return (problem.device.type == "cuda"
+            and isinstance(problem.visc_solver, ViscousGridCG) and not problem.visc_solver.plain
+            and isinstance(problem.pressure_solver, PressureGridCG)
+            and not problem.pressure_solver.plain
+            and problem.grid_step is None and problem.fused_M is None
+            and cfg.variant != "report" and cfg.transport == "none"
+            and not torch.cuda.is_current_stream_capturing())
+
+
+@dataclasses.dataclass(frozen=True)
+class _Captured:
+    static: dict  # the state the graph reads and writes back
+    metric_keys: tuple
+    metrics: torch.Tensor  # (len(metric_keys),) the graph writes each replay
+    graph: Any
+
+
+def _captured_step(problem: StokesProblem, state: dict) -> _Captured:
+    """One step of :func:`make_step` captured by :func:`capture_step` on
+    static buffers of ``state``'s layout (its keys, shapes, dtypes), cached
+    on ``problem``, its metrics written into one vector.
+
+    The warm-up step's iterations are taken off the solvers' counters again,
+    so neither it nor the capture counts as a step; the kernel wrappers'
+    launch counts keep the launches the host made for both, and a replay
+    adds none."""
+    layout = tuple((k, tuple(v.shape), v.dtype) for k, v in state.items())
+    hit = problem._graphs.get(layout)
+    if hit is not None:
+        return hit
+    with span("graph_capture"):
+        step, metric_keys = make_step(problem), tuple(_metric_dtypes(problem))
+
+        def stepped(s):
+            new, metrics = step(s)
+            return new, torch.stack([metrics[k] for k in metric_keys])
+
+        counters = [c for c in (problem.visc_solver.iters_count,
+                                problem.pressure_solver.iters_count) if c is not None]
+        saved = [c.clone() for c in counters]
+        static, vec, graph = capture_step(stepped, state, problem.device)
+        for c, s in zip(counters, saved):
+            c.copy_(s)
+    hit = problem._graphs[layout] = _Captured(static, metric_keys, vec, graph)
+    graph_counts["captures"] += 1
+    return hit
+
+
+def _replay(captured: _Captured, state: dict, n_steps: int):
+    """``n_steps`` replays of ``captured`` from ``state`` → (state, metrics),
+    as the eager loop's; the state is a copy of the static buffers."""
+    for k, v in captured.static.items():
+        v.copy_(state[k])
+    vec = captured.metrics
+    series = torch.empty((len(captured.metric_keys), n_steps), dtype=vec.dtype, device=vec.device)
+    for i in range(n_steps):
+        with span("step", step=i):
+            captured.graph.replay()
+            series[:, i].copy_(vec)
+    graph_counts["replays"] += n_steps
+    return ({k: v.clone() for k, v in captured.static.items()},
+            dict(zip(captured.metric_keys, series)))
 
 
 def _run(problem: StokesProblem, steps: int | None, state: dict | None):
@@ -1168,20 +1259,27 @@ def _run(problem: StokesProblem, steps: int | None, state: dict | None):
     k = steps_per_call(problem)
     if n_steps % k:
         raise ValueError(f"run(steps={n_steps}) must be a multiple of grid_steps_per_call={k}")
+    captured = None
     with span("run_setup"):
         if state is None:
             state = initial_state(problem)
-        metrics = {
-            key: torch.empty(n_steps, dtype=dt, device=problem.device)
-            for key, dt in _metric_dtypes(problem).items()
-        }
-        step = make_step(problem)
+        if n_steps and graph_path(problem):
+            captured = _captured_step(problem, state)
+        else:
+            metrics = {
+                key: torch.empty(n_steps, dtype=dt, device=problem.device)
+                for key, dt in _metric_dtypes(problem).items()
+            }
+            step = make_step(problem)
+    if captured is not None:
+        return _replay(captured, state, n_steps)
     for i in range(n_steps // k):
         with span("step", step=i):
             state, m = step(state)
             with span("step_metrics"):
                 for key, series in metrics.items():
                     series[i * k:(i + 1) * k] = m[key]
+    graph_counts["eager_steps"] += n_steps
     if cfg.transport in _DYE_TRANSPORTS:
         with span("dye_baseline"):
             var0 = dye_baseline(problem, initial_state(problem))
