@@ -4,6 +4,7 @@ the span open at its launch, each idle gap to the host spans open during it.
 
     python3 span_window.py --workload stokes_1m.steady --seed N [--turns on,off,host]
     python3 span_window.py --config dye_410k --traffic movie --seed N
+    python3 span_window.py --workload ns_1m.steady --seed N
 
 On a CUDA device (``--device cpu`` runs the same code at whatever size the
 configuration asks for; the CPU has no device timeline).  The cell runs as
@@ -26,6 +27,15 @@ Each line gives the window's ``stokes.graph_counts``.  Where the window
 replayed a captured step, its kernels are launched in the ``step`` span and
 the step's inner spans are not recorded, so the metrics that split a step
 by them (``REPLAY_BLIND``) read None there.
+
+A Navier–Stokes cell (``navier_stokes.run``, spans under ``ns.run``) splits
+the step's kernel time by the NS step's own spans instead (``convection``,
+``velocity_solve`` with K4's ``k4.launch``, ``div``, ``pressure_solve``
+with K3's ``k3.launch``, ``grad``, ``walls``, ``step_metrics``) in
+``step_parts``; its lines give ``ns``: the host milliseconds a step in
+``ns.run``, K4's iterations a solve and the set-up's ``NSProblem.build``
+seconds; the span metrics that read the Stokes step's spans
+(``STOKES_ONLY``) read None there.
 """
 
 import time
@@ -40,8 +50,12 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
-GRID_KERNELS = ("viscous_cg_kernel", "pressure_cg_kernel", "pressure_pb16_kernel")
+GRID_KERNELS = ("viscous_cg_kernel", "pressure_cg_kernel", "pressure_pb16_kernel",
+                "ns_bicgstab_kernel")
+LAUNCH_SPANS = ("k2.launch", "k3.launch", "k4.launch")
 REPLAY_BLIND = ("k2_ms_per_step", "divgrad_ms_per_step", "glue_ms_per_step", "visc_iters")
+NS_RUN = "ns.run"
+STOKES_ONLY = ("host_enqueue_ms", "glue_ms_per_step", "visc_iters", "problem_build_s")
 
 
 def cell_of(root: Path, args):
@@ -65,13 +79,45 @@ def with_visc_counter(program, device):
     ``iters_count`` field, as the benchmark sets K3's)."""
     import torch
 
-    visc = program.problem.visc_solver
+    visc = getattr(program.problem, "visc_solver", None)
     if not hasattr(visc, "iters_count"):
         return None
     counter = torch.zeros(1, dtype=torch.int32, device=device)
     program.problem = dataclasses.replace(
         program.problem, visc_solver=dataclasses.replace(visc, iters_count=counter))
     return counter
+
+
+def is_ns(sp) -> bool:
+    return any(s[0] == NS_RUN for s in sp.spans)
+
+
+def ns_parts(sp) -> dict:
+    """Kernel milliseconds a step of a Navier–Stokes window by the part of
+    the step whose span launched them (the step's own spans, ``step``
+    itself for what none of them launched), and outside ``ns.run``."""
+    from portbench import spans
+
+    parts = {}
+    for path, s in spans.kernel_s_by_path(sp).items():
+        names = path.split("/")
+        key = ("kernels_outside_run_ms_per_step" if names[0] != NS_RUN
+               else "/".join(names[1:3]) or NS_RUN)
+        parts[key] = parts.get(key, 0.0) + 1e3 * s / sp.steps
+    return parts
+
+
+def ns_line(sp, counters: dict) -> dict:
+    """A Navier–Stokes window's own numbers: host milliseconds a step in
+    ``ns.run``, K4's iterations a solve (one a step) and the set-up's
+    ``NSProblem.build`` seconds.  Its kernel milliseconds by span are the
+    checks' ``step_parts`` and ``device_ms_by_span``."""
+    runs = [s[3] - s[2] for s in sp.spans if s[0] == NS_RUN]
+    builds = [s[3] - s[2] for s in sp.setup if s[0] == "NSProblem.build"]
+    k4 = counters.get("k4_iters")
+    return {"host_ms_per_step": 1e3 * sum(runs) / sp.steps if runs else None,
+            "k4_iters": None if k4 is None else k4 / sp.steps,
+            "build_s": sum(builds) if builds else None}
 
 
 def checks(sp, layer: dict, replayed: bool) -> dict:
@@ -81,16 +127,19 @@ def checks(sp, layer: dict, replayed: bool) -> dict:
     by_path, _ = spans.idle_split(sp)
     kernels = spans.kernel_s_by_path(sp)
     device_s = sum(op[2] - op[1] for op in sp.ops)
-    outside_run = sum(s for p, s in kernels.items() if p.split("/")[0] != spans.RUN)
-    parts = {"k3_ms_per_step": layer.get("k3_ms_per_step"),
-             "k2_ms_per_step": spans.k2_ms_per_step(sp),
-             "divgrad_ms_per_step": spans.divgrad_ms_per_step(sp),
-             "glue_ms_per_step": spans.glue_ms_per_step(sp),
-             "kernels_outside_run_ms_per_step": 1e3 * outside_run / sp.steps}
+    if is_ns(sp):
+        parts = ns_parts(sp)
+    else:
+        outside_run = sum(s for p, s in kernels.items() if p.split("/")[0] != spans.RUN)
+        parts = {"k3_ms_per_step": layer.get("k3_ms_per_step"),
+                 "k2_ms_per_step": spans.k2_ms_per_step(sp),
+                 "divgrad_ms_per_step": spans.divgrad_ms_per_step(sp),
+                 "glue_ms_per_step": spans.glue_ms_per_step(sp),
+                 "kernels_outside_run_ms_per_step": 1e3 * outside_run / sp.steps}
     if replayed:
         parts.update({k: None for k in parts if k in REPLAY_BLIND})
     grid = [(op, i) for op, i in zip(sp.ops, sp.owner) if any(k in op[0] for k in GRID_KERNELS)]
-    in_launch = [(op, i) for op, i in grid if i >= 0 and sp.spans[i][0] in spans.LAUNCHES]
+    in_launch = [(op, i) for op, i in grid if i >= 0 and sp.spans[i][0] in LAUNCH_SPANS]
     copies, syncs, by_name = {}, {}, {}
     for op, i in zip(sp.ops, sp.owner):
         kind = next((k for k in ("HtoD", "DtoH") if k in op[0]), None)
@@ -193,7 +242,8 @@ def main(argv=None) -> int:
     yardstick = steps_mod.counts(mesh, cell.config)
     out = open(args.out, "a") if args.out else None
     for turn in args.turns.split(","):
-        counters = {"pressure_iters": program.counter, "visc_iters": visc_counter}
+        counters = {"pressure_iters": program.counter, "visc_iters": visc_counter,
+                    "k4_iters": getattr(program, "k4_counter", None)}
         for c in counters.values():
             if c is not None:
                 c.zero_()
@@ -214,8 +264,10 @@ def main(argv=None) -> int:
                 "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
         if turn == "host":
             host = spans.from_ns(rec.spans, w0)
-            line["host_enqueue_ms"] = spans.host_enqueue_ms(
-                spans.Spanned(steps=steps, window=(0.0, (w1 - w0) / 1e9), ops=[], spans=host))
+            hosted = spans.Spanned(steps=steps, window=(0.0, (w1 - w0) / 1e9), ops=[], spans=host)
+            line["host_enqueue_ms"] = spans.host_enqueue_ms(hosted)
+            if is_ns(hosted):
+                line["ns_host_ms_per_step"] = ns_line(hosted, {})["host_ms_per_step"]
             line["host_self_ms_per_step"] = [[p, 1e3 * s / steps]
                                              for p, s in spans.host_self(host, 12)]
             emit(line, out)
@@ -229,8 +281,11 @@ def main(argv=None) -> int:
                            counters=read, calls=calls)
         line["per_layer"] = layer
         if turn == "on":
-            line["span_metrics"] = {name: None if graph["replays"] and name in REPLAY_BLIND
-                                    else f(sp) for name, f in spans.METRICS.items()}
+            blind = (REPLAY_BLIND if graph["replays"] else ()) + (STOKES_ONLY if is_ns(sp) else ())
+            line["span_metrics"] = {name: None if name in blind else f(sp)
+                                    for name, f in spans.METRICS.items()}
+            if is_ns(sp):
+                line["ns"] = ns_line(sp, read)
             line["checks"] = {"device_clock_shifts_us": [1e6 * min(shifts, default=0.0),
                                                          1e6 * max(shifts, default=0.0)],
                               **checks(sp, layer, graph["replays"] > 0)}

@@ -28,9 +28,9 @@ For each kernel there are three functions:
 * the wrapper (:func:`viscous_cg`, :func:`pressure_cg`, :func:`ns_bicgstab`),
   which launches the CUDA kernel in ``csrc/grid_cg.cu`` for CUDA tensors,
   takes the plain version for CPU tensors, and raises for anything else;
-* the wrapper's launch count, ``<wrapper>.launches``; K2's and K3's wrappers
-  also record their launch as a span, ``k2.launch`` and ``k3.launch``
-  (:func:`tpufem_torch.metrics.span`).
+* the wrapper's launch count, ``<wrapper>.launches``; the wrappers also
+  record their launch as a span, ``k2.launch``, ``k3.launch`` and
+  ``k4.launch`` (:func:`tpufem_torch.metrics.span`).
 
 The solves round to float32 where tpufem's kernels do, at every field
 precision: the TPU kernels take ``preferred_element_type=float32`` in the
@@ -751,12 +751,13 @@ def ns_bicgstab(solver: NSGridBiCGStab, op: GridOperator, mask: torch.Tensor,
     lib = _lib or build()
     C, n = b.shape[0], op.n
     b, x0 = b.contiguous(), x0.contiguous()
-    x = torch.empty_like(b)
-    work = torch.empty(_NS_PLANES * C * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
-    _launch(getattr(lib, _NS[b.dtype]), b.device, *_kernel_operator_args(op),
-            mask.contiguous().data_ptr(), inv_diag.contiguous().data_ptr(), b.data_ptr(),
-            x0.data_ptr(), x.data_ptr(), work.data_ptr(), C, int(solver.iters),
-            float(solver.tol), None if iters_out is None else iters_out.data_ptr())
+    with span("k4.launch"):
+        x = torch.empty_like(b)
+        work = torch.empty(_NS_PLANES * C * n + _PARTIAL_VALUES, dtype=b.dtype, device=b.device)
+        _launch(getattr(lib, _NS[b.dtype]), b.device, *_kernel_operator_args(op),
+                mask.contiguous().data_ptr(), inv_diag.contiguous().data_ptr(), b.data_ptr(),
+                x0.data_ptr(), x.data_ptr(), work.data_ptr(), C, int(solver.iters),
+                float(solver.tol), None if iters_out is None else iters_out.data_ptr())
     ns_bicgstab.launches += 1
     return x
 

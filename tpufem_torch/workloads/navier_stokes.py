@@ -24,6 +24,13 @@ Three solver paths:
   C(u) refilled into offset planes (``GridRefill``), then one launch of K4
   for both velocity columns and one of K3 for the pressure.
 
+Spans (:func:`tpufem_torch.metrics.span`): ``NSProblem.build`` (inside it
+``assembly``, ``grid_refill``, ``dense_split``, ``pressure_build``);
+``ns.run``, in it ``step`` (marked with its index), and in the step
+``convection``, ``velocity_solve`` (K4's ``k4.launch`` inside),
+``div``, ``pressure_solve`` (K3's ``k3.launch``), ``grad``, ``walls``
+and ``step_metrics``.
+
 ``cg_storage``: ``"auto"`` takes the grid on CUDA at f32 when N = ns² and
 ``GridRefill`` decomposes, else tpufem's stencil rule, as ``"stencil"``
 does; ``"grid"`` runs K4/K3 at f32 and f64; ``"grid_interpret"`` runs their
@@ -47,6 +54,7 @@ import torch
 
 from tpufem_torch import config as tconfig
 from tpufem_torch.mesh.core import Mesh
+from tpufem_torch.metrics import span
 from tpufem_torch.ops import assembly, calculus
 from tpufem_torch.solve.cg import bicgstab_fixed
 from tpufem_torch.solve.dense import DenseInverse, make_dense_solver
@@ -502,8 +510,13 @@ class NSProblem:
     @classmethod
     def build(cls, mesh: Mesh, config: NSConfig = NSConfig(), device=None) -> "NSProblem":
         """Assemble on the host in float64, move to ``device`` (see
-        :func:`tpufem_torch.config.device`)."""
+        :func:`tpufem_torch.config.device`), inside the span ``NSProblem.build``."""
         check_config(config)
+        with span("NSProblem.build"):
+            return cls._build(mesh, config, device)
+
+    @classmethod
+    def _build(cls, mesh: Mesh, config: NSConfig, device) -> "NSProblem":
         dtype = tconfig.dtype(config.precision, bf16=False)
         dev = tconfig.device(device)
         x, y = mesh.coords[:, 0], mesh.coords[:, 1]
@@ -513,16 +526,18 @@ class NSProblem:
         force = torch.as_tensor(np.asarray(config.body_force), dtype=dtype, device=dev)
         if config.solver == "cg":
             return cls._build_matfree(mesh, config, wall_mask, force, dtype, dev)
-        k = assembly.assemble_dense(mesh, assembly.element_stiffness(mesh, signed=True)).numpy()
-        a_p = k.copy()
-        if config.pressure_scaling == "mass_lumped":
-            a_p = a_p / (assembly.lumped_mass(mesh).numpy()[:, None] + 1e-12)
-        a_p[0, :] = 0.0  # row-only pin
-        a_p[0, 0] = 1.0
-        if config.precision == "f64":
-            pressure = make_dense_solver(a_p, "lu", dtype=dtype, device=dev)
-        else:
-            pressure = DenseInverse.factor(a_p, dtype=dtype, device=dev)
+        with span("assembly"):
+            k = assembly.assemble_dense(mesh, assembly.element_stiffness(mesh, signed=True)).numpy()
+        with span("pressure_build"):
+            a_p = k.copy()
+            if config.pressure_scaling == "mass_lumped":
+                a_p = a_p / (assembly.lumped_mass(mesh).numpy()[:, None] + 1e-12)
+            a_p[0, :] = 0.0  # row-only pin
+            a_p[0, 0] = 1.0
+            if config.precision == "f64":
+                pressure = make_dense_solver(a_p, "lu", dtype=dtype, device=dev)
+            else:
+                pressure = DenseInverse.factor(a_p, dtype=dtype, device=dev)
         return cls(mesh=mesh, wall_mask=wall_mask, config=config,
                    wall=torch.as_tensor(wall_mask, device=dev), body_force=force,
                    pressure_solver=pressure, k_signed=torch.as_tensor(k, dtype=dtype, device=dev))
@@ -539,24 +554,25 @@ class NSProblem:
         from tpufem_torch.ops.gridop import GridDecompositionError, GridRefill
 
         n = mesh.n_nodes
-        K_signed = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=True))
-        K_p = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=False))
-        if config.pressure_scaling == "mass_lumped":
-            m_l = assembly.lumped_mass(mesh).numpy()
-        else:
-            m_l = np.ones(n)
-        deg = np.zeros(n)
-        np.add.at(deg, mesh.tris.reshape(-1), np.repeat(mesh.valid.astype(np.float64), 3))
-        wall_mask = wall_mask | (deg == 0)
-        k_diag = torch.abs(K_signed.diag())
-        inv_ml = None
-        if config.mass_consistent:
-            ml_full = assembly.lumped_mass(mesh)
-            inv_ml = torch.where(ml_full > 0, 1.0 / torch.where(ml_full > 0, ml_full, 1.0), 1.0)
-            inv_diag = 1.0 / (1.0 + config.nu * config.dt * inv_ml * k_diag)
-            inv_ml = inv_ml.to(dtype=dtype, device=dev)
-        else:
-            inv_diag = 1.0 / (1.0 + config.nu * config.dt * k_diag)
+        with span("assembly"):
+            K_signed = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=True))
+            K_p = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh, signed=False))
+            if config.pressure_scaling == "mass_lumped":
+                m_l = assembly.lumped_mass(mesh).numpy()
+            else:
+                m_l = np.ones(n)
+            deg = np.zeros(n)
+            np.add.at(deg, mesh.tris.reshape(-1), np.repeat(mesh.valid.astype(np.float64), 3))
+            wall_mask = wall_mask | (deg == 0)
+            k_diag = torch.abs(K_signed.diag())
+            inv_ml = None
+            if config.mass_consistent:
+                ml_full = assembly.lumped_mass(mesh)
+                inv_ml = torch.where(ml_full > 0, 1.0 / torch.where(ml_full > 0, ml_full, 1.0), 1.0)
+                inv_diag = 1.0 / (1.0 + config.nu * config.dt * inv_ml * k_diag)
+                inv_ml = inv_ml.to(dtype=dtype, device=dev)
+            else:
+                inv_diag = 1.0 / (1.0 + config.nu * config.dt * k_diag)
         common = dict(mesh=mesh, wall_mask=wall_mask, config=config,
                       wall=torch.as_tensor(wall_mask, device=dev), body_force=force,
                       inv_diag_visc=inv_diag.to(dtype=dtype, device=dev), inv_ml=inv_ml)
@@ -571,7 +587,8 @@ class NSProblem:
                          and ns * ns == n))
         if want_grid:
             try:
-                refill = GridRefill.build(mesh, ns, dtype=dtype, device=dev)
+                with span("grid_refill"):
+                    refill = GridRefill.build(mesh, ns, dtype=dtype, device=dev)
             except GridDecompositionError:
                 if explicit:
                     raise  # asked for by name: say why it cannot be had
@@ -593,27 +610,28 @@ class NSProblem:
                 conv_refill = None
         else:
             _mat = lambda csr: csr.astype(dtype, dev)
-        K_p_op = _mat(K_p)
-        lmax, tl = 0.0, None
-        if config.cg_precond == "twolevel":
-            from tpufem_torch.solve.cg import estimate_lmax
-            from tpufem_torch.solve.twolevel import build_twolevel
+        with span("pressure_build"):
+            K_p_op = _mat(K_p)
+            lmax, tl = 0.0, None
+            if config.cg_precond == "twolevel":
+                from tpufem_torch.solve.cg import estimate_lmax
+                from tpufem_torch.solve.twolevel import build_twolevel
 
-            d = K_p.diag()
-            inv_d = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
-                                torch.ones_like(d)).to(dev)
-            lmax = estimate_lmax(K_p_op.matvec, inv_d, n)
-            tl = build_twolevel(K_p, np.asarray(mesh.coords), K_p_op.matvec, inv_d,
-                                target_coarse=config.cg_coarse_nodes, dtype=dtype, lmax=lmax)
-        from tpufem_torch.solve.matfree import PressureCG
+                d = K_p.diag()
+                inv_d = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
+                                    torch.ones_like(d)).to(dev)
+                lmax = estimate_lmax(K_p_op.matvec, inv_d, n)
+                tl = build_twolevel(K_p, np.asarray(mesh.coords), K_p_op.matvec, inv_d,
+                                    target_coarse=config.cg_coarse_nodes, dtype=dtype, lmax=lmax)
+            from tpufem_torch.solve.matfree import PressureCG
 
-        empty = np.zeros(0, dtype=np.int64)
-        pressure = PressureCG(
-            K_merged=K_p_op, m_lumped=torch.as_tensor(m_l, dtype=dtype, device=dev), masters=empty,
-            slaves=empty, active_mask=torch.ones(n, dtype=dtype, device=dev),
-            iters=config.cg_iters_pressure, precond=config.cg_precond, lmax=lmax, twolevel=tl,
-            tol=config.cg_tol, pin=0,
-        )
+            empty = np.zeros(0, dtype=np.int64)
+            pressure = PressureCG(
+                K_merged=K_p_op, m_lumped=torch.as_tensor(m_l, dtype=dtype, device=dev),
+                masters=empty, slaves=empty, active_mask=torch.ones(n, dtype=dtype, device=dev),
+                iters=config.cg_iters_pressure, precond=config.cg_precond, lmax=lmax, twolevel=tl,
+                tol=config.cg_tol, pin=0,
+            )
         return cls(**common, pressure_solver=pressure, K_csr=_mat(K_signed),
                    conv_refill=conv_refill)
 
@@ -627,16 +645,20 @@ def _grid_fields(mesh, config, refill, K_p, m_l, deg, dtype, dev) -> dict:
     from tpufem_torch.solve.grid_cg import NSGridBiCGStab, PressureGridCG
 
     plain = config.cg_storage == "grid_interpret"
-    Kg = refill.refill(assembly.element_stiffness(mesh, signed=True).to(dtype=dtype, device=dev))
+    with span("grid_refill"):
+        Kg = refill.refill(assembly.element_stiffness(mesh, signed=True).to(dtype=dtype, device=dev))
     nudt = float(config.nu * config.dt)
     kp = K_p.astype(dtype)  # the coarse operator from the run-precision values, as tpufem
+    with span("dense_split"):
+        kp_grid = GridOperator.dense_split(kp, refill.template.ns, dtype=dtype, device=dev)
     empty = np.zeros(0, dtype=np.int64)
-    pressure = PressureGridCG.build(
-        kp, GridOperator.dense_split(kp, refill.template.ns, dtype=dtype, device=dev), m_l,
-        empty, empty, (deg > 0).astype(np.float64), iters=config.cg_iters_pressure, tol=config.cg_tol,
-        target_coarse=config.cg_coarse_nodes, use_coarse=config.cg_precond == "twolevel",
-        plain=plain,
-    )
+    with span("pressure_build"):
+        pressure = PressureGridCG.build(
+            kp, kp_grid, m_l, empty, empty, (deg > 0).astype(np.float64),
+            iters=config.cg_iters_pressure, tol=config.cg_tol,
+            target_coarse=config.cg_coarse_nodes, use_coarse=config.cg_precond == "twolevel",
+            plain=plain,
+        )
     velocity = NSGridBiCGStab(ns=refill.template.ns, offsets=refill.template.offsets,
                               n_rest=refill.template.n_rest, iters=config.cg_iters_visc,
                               tol=config.cg_tol, interpret=plain)
@@ -647,19 +669,26 @@ def _grid_fields(mesh, config, refill, K_p, m_l, deg, dtype, dev) -> dict:
 
 def _project(problem: NSProblem, u_star: torch.Tensor, p0: torch.Tensor):
     """The pressure projection(s) and the wall condition after the velocity
-    solve: → (u, p, metrics)."""
+    solve: → (u, p, div u*), the metrics' inputs."""
     cfg, mesh = problem.config, problem.mesh
     dt = cfg.dt
-    div = calculus.divergence(mesh, u_star)
-    p = problem.pressure_solver.solve(-(cfg.rho / dt) * div, x0=p0)
-    u_new = u_star - dt * calculus.gradient(mesh, p)
+    with span("div"):
+        div = calculus.divergence(mesh, u_star)
+    with span("pressure_solve"):
+        p = problem.pressure_solver.solve(-(cfg.rho / dt) * div, x0=p0)
+    with span("grad"):
+        u_new = u_star - dt * calculus.gradient(mesh, p)
     if cfg.double_projection:
-        div2 = calculus.divergence(mesh, u_new)
-        p2 = problem.pressure_solver.solve(-(cfg.rho / dt) * div2, x0=p)
-        u_new = u_new - dt * calculus.gradient(mesh, p2)
-    u_new = torch.where(problem.wall[:, None], torch.zeros((), dtype=u_new.dtype,
-                                                           device=u_new.device), u_new)
-    return u_new, p, _metrics(u_new, p, div)
+        with span("div"):
+            div2 = calculus.divergence(mesh, u_new)
+        with span("pressure_solve"):
+            p2 = problem.pressure_solver.solve(-(cfg.rho / dt) * div2, x0=p)
+        with span("grad"):
+            u_new = u_new - dt * calculus.gradient(mesh, p2)
+    with span("walls"):
+        u_new = torch.where(problem.wall[:, None], torch.zeros((), dtype=u_new.dtype,
+                                                               device=u_new.device), u_new)
+    return u_new, p, div
 
 
 def _metrics(u, p, div) -> dict:
@@ -672,11 +701,14 @@ def _ns_step_grid(problem: NSProblem, u: torch.Tensor, p0: torch.Tensor):
     launch for both velocity columns (warm start uⁿ), the K3 pressure."""
     cfg = problem.config
     dt = cfg.dt
-    Cg = problem.grid_refill.refill_flat(assembly.element_convection_flat(problem.mesh, u, "opsplit"))
-    Ag = dataclasses.replace(Cg, diags=dt * Cg.diags + problem.Kg_diags,
-                             rest_vals=dt * Cg.rest_vals + problem.Kg_rest)
-    u_star = problem.vel_solver_grid.solve(Ag, problem.ones_mask, problem.inv_diag_visc,
-                                           u + dt * problem.body_force, u)
+    with span("convection"):
+        Cg = problem.grid_refill.refill_flat(
+            assembly.element_convection_flat(problem.mesh, u, "opsplit"))
+        Ag = dataclasses.replace(Cg, diags=dt * Cg.diags + problem.Kg_diags,
+                                 rest_vals=dt * Cg.rest_vals + problem.Kg_rest)
+    with span("velocity_solve"):
+        u_star = problem.vel_solver_grid.solve(Ag, problem.ones_mask, problem.inv_diag_visc,
+                                               u + dt * problem.body_force, u)
     return _project(problem, u_star, p0)
 
 
@@ -689,8 +721,9 @@ def _ns_step_matfree(problem: NSProblem, u: torch.Tensor, p0: torch.Tensor):
     dt = cfg.dt
 
     if problem.conv_refill is not None:
-        conv = problem.conv_refill.refill_flat(
-            assembly.element_convection_flat(problem.mesh, u, "opsplit")).matvec
+        with span("convection"):
+            conv = problem.conv_refill.refill_flat(
+                assembly.element_convection_flat(problem.mesh, u, "opsplit")).matvec
     else:
         def conv(x):
             return calculus.convection_apply(problem.mesh, u, x, variant="opsplit")
@@ -708,11 +741,12 @@ def _ns_step_matfree(problem: NSProblem, u: torch.Tensor, p0: torch.Tensor):
     invd = problem.inv_diag_visc
     f = problem.body_force
     cols = []
-    for c in range(2):
-        fc = f[:, c] if f.ndim == 2 else f[c]
-        xc, _ = bicgstab_fixed(a_mv, u[:, c] + dt * fc, x0=u[:, c], iters=cfg.cg_iters_visc,
-                               precond=lambda r: invd * r)
-        cols.append(xc)
+    with span("velocity_solve"):
+        for c in range(2):
+            fc = f[:, c] if f.ndim == 2 else f[c]
+            xc, _ = bicgstab_fixed(a_mv, u[:, c] + dt * fc, x0=u[:, c], iters=cfg.cg_iters_visc,
+                                   precond=lambda r: invd * r)
+            cols.append(xc)
     return _project(problem, torch.stack(cols, dim=1), p0)
 
 
@@ -742,25 +776,30 @@ def run(problem: NSProblem, steps: int | None = None, state=None, return_state: 
 
     A Python loop that only enqueues device work: each step's metrics go
     into preallocated (steps,) device tensors.  The dense path carries p
-    unchanged (its pressure solve takes no warm start)."""
-    n_steps = steps if steps is not None else problem.config.steps
-    n, dtype, dev = problem.mesh.n_nodes, problem.dtype, problem.device
-    if state is None:
-        u = torch.zeros((n, 2), dtype=dtype, device=dev)
-        p = torch.zeros(n, dtype=dtype, device=dev)
-    else:
-        u, p = state
-    metrics = {k: torch.empty(n_steps, dtype=dtype, device=dev)
-               for k in ("max_u", "max_p", "div_star_max")}
-    for i in range(n_steps):
-        if problem.config.solver != "cg":
-            u, m = ns_step(problem, u)
-        elif problem.grid_refill is not None:
-            u, p, m = _ns_step_grid(problem, u, p)
+    unchanged (its pressure solve takes no warm start).  Its spans:
+    ``ns.run`` over the call, ``step`` (marked with its index) in it."""
+    with span("ns.run"):
+        n_steps = steps if steps is not None else problem.config.steps
+        n, dtype, dev = problem.mesh.n_nodes, problem.dtype, problem.device
+        if state is None:
+            u = torch.zeros((n, 2), dtype=dtype, device=dev)
+            p = torch.zeros(n, dtype=dtype, device=dev)
         else:
-            u, p, m = _ns_step_matfree(problem, u, p)
-        for k, series in metrics.items():
-            series[i] = m[k]
+            u, p = state
+        metrics = {k: torch.empty(n_steps, dtype=dtype, device=dev)
+                   for k in ("max_u", "max_p", "div_star_max")}
+        for i in range(n_steps):
+            with span("step", step=i):
+                if problem.config.solver != "cg":
+                    u, m = ns_step(problem, u)
+                else:
+                    step = _ns_step_grid if problem.grid_refill is not None else _ns_step_matfree
+                    u, p, div = step(problem, u, p)
+                with span("step_metrics"):
+                    if problem.config.solver == "cg":
+                        m = _metrics(u, p, div)
+                    for k, series in metrics.items():
+                        series[i] = m[k]
     if return_state:
         return u, metrics, (u, p)
     return u, metrics
