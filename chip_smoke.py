@@ -332,6 +332,17 @@ Phase 49, the gallery (``tpufem_torch.gallery``), runs last:
     ms and kernels a step with K2's, K3's and the advection's shares; the
     frames saved as ``.npz``, rendered only where matplotlib imports.
 
+Phase 50, the NS step's C(u) refill (kernels E and G,
+``tpufem_torch/csrc/ns_refill.cu``, built in phase 2), runs after phase 13
+on its 1,048,576-node problem; phase 14 counts E and G once a step:
+
+50. E (``assembly.element_convection_flat`` on the card) bit-equal to its
+    plain version there, f32 and f64, both variants; G
+    (``GridRefill.refill_flat``) bit-equal to the CPU's ``index_add_`` and
+    to its plain version on the card, two refills bit-equal; µs a call of
+    E, G and the pair (graph replay) beside their byte bounds and their
+    plain versions' (the step's plain torch and ``index_add_``).
+
 ``python3 chip_smoke.py --cards N`` runs phases 1, 2 and 23–26 alone, with
 one shard on each of N cards: K6 pushes into its neighbours' outputs on
 the other cards through peer access, and its times there are taken by the
@@ -367,6 +378,7 @@ from tpufem_torch.bench import (bench_config, bench_mesh, card, profile_run, pro
 from tpufem_torch.mesh import generate_annulus_mesh
 from tpufem_torch.ops import _nvcc, assembly, calculus
 from tpufem_torch.ops import fused_matvec as fm
+from tpufem_torch.ops import ns_refill
 from tpufem_torch.ops.gridop import (STREAMED_NODES, GridDecompositionError, GridOperator,
                                      GridRefill, _PatternCSR)
 from tpufem_torch.ops.stencil import StencilOperator
@@ -431,6 +443,7 @@ def zero_launches() -> None:
     grid_cg.pressure_cg.variant_launches = dict.fromkeys(grid_cg.pressure_cg.variant_launches, 0)
     gs.grid_step.launches = 0
     rdma.halo_rdma.launches = 0
+    ns_refill.convection_flat.launches = ns_refill.segment_sum.launches = 0
 
 
 def launch_counts() -> dict:
@@ -590,17 +603,20 @@ def instance_report(path, blocks: dict, entry: str = "") -> list[str]:
 def phase_build() -> float:
     """Build every kernel library at once; returns the seconds it took."""
     t0 = time.perf_counter()
-    _nvcc.build_all([fm.SOURCE, grid_cg.SOURCE, gs.SOURCE, rdma.SOURCE])
+    _nvcc.build_all([fm.SOURCE, grid_cg.SOURCE, gs.SOURCE, rdma.SOURCE, ns_refill.SOURCE])
     fm.build()
     grid_cg.build()
     gs.build()
     rdma.build()
+    ns_refill.build()
     seconds = time.perf_counter() - t0
     print(f"[2 build] K1 from {fm.SOURCE.relative_to(_nvcc.PKG.parent)}, K2/K3/K4 from "
           f"{grid_cg.SOURCE.relative_to(_nvcc.PKG.parent)}, K5 from "
-          f"{gs.SOURCE.relative_to(_nvcc.PKG.parent)} and K6 from "
-          f"{rdma.SOURCE.relative_to(_nvcc.PKG.parent)} in parallel: {seconds:.2f} s; "
-          f"K1 {ptxas_report(fm.library_path())}")
+          f"{gs.SOURCE.relative_to(_nvcc.PKG.parent)}, K6 from "
+          f"{rdma.SOURCE.relative_to(_nvcc.PKG.parent)} and the NS refill's E and G from "
+          f"{ns_refill.SOURCE.relative_to(_nvcc.PKG.parent)} in parallel: {seconds:.2f} s; "
+          f"K1 {ptxas_report(fm.library_path())}; E and G "
+          f"{ptxas_report(ns_refill.library_path())}")
     return seconds
 
 
@@ -1508,6 +1524,10 @@ def phase_ns_main_path(problem, build_s: float, steps: int = NS_STEPS) -> dict:
     launches = launch_counts()
     check(launches == {"K1": 0, "K2": 0, "K3": 2 * steps, "K4": 2 * steps, "K5": 0, "K6": 0},
           f"launches {launches} in two {steps}-step NS runs (want K4 = K3 = steps)")
+    refills = {"E": ns_refill.convection_flat.launches, "G": ns_refill.segment_sum.launches}
+    check(refills == {"E": 2 * steps, "G": 2 * steps},
+          f"the C(u) refill's kernels launched {refills} in two {steps}-step NS runs "
+          "(want E = G = steps)")
     u, p = row.pop("state")
     check(bool(torch.isfinite(u).all() and torch.isfinite(p).all()), "NS state is finite")
     t = problem.grid_refill.template
@@ -1515,8 +1535,80 @@ def phase_ns_main_path(problem, build_s: float, steps: int = NS_STEPS) -> dict:
           f"{t.n_rest} remainder entries; {len(problem.pressure_solver.K.offsets)} pressure "
           f"planes), {steps}+{steps} steps: build {build_s:.1f} s, cold "
           f"{row['cold_steps_per_sec']:.2f} steps/s, warm {row['warm_steps_per_sec']:.2f} "
-          f"steps/s; launches {launches}; {json.dumps(row)}")
-    return launches
+          f"steps/s; launches {launches}, E and G {refills}; {json.dumps(row)}")
+    return {**launches, **refills}
+
+
+def refill_bounds(problem, item: int) -> tuple[dict, dict]:
+    """The bounds of kernels E and G on ``problem``'s mesh and refill at
+    ``item``-byte floats: E reads the element indices (int32) and seven
+    constants and u once and writes 9·T values; G reads the index (int32)
+    and the values once an entry and the run pointers (int32) once, and
+    writes every slot."""
+    t, n, n_flat = problem.mesh.n_tris, problem.mesh.n_nodes, problem.grid_refill.n_flat
+    e_bytes = t * (3 * 4 + 7 * item) + 2 * n * item + 9 * t * item
+    g_bytes = 9 * t * (4 + item) + (n_flat + 1) * 4 + n_flat * item
+    return bound(e_bytes, 18.0 * t), bound(g_bytes, 9.0 * t)
+
+
+def phase_ns_refill(dev, problem) -> dict:
+    """Kernels E and G on ``problem``'s 1,048,576-node mesh and refill, f32
+    and f64, from a seeded u: E bit-equal to its plain version on the card
+    in both variants, G bit-equal to the CPU's ``index_add_`` (the card's
+    is atomic) and to its plain version on the card, two refills bit-equal;
+    device ms a call of E, G and the pair (graph replay) beside their
+    bounds and their plain versions'; returns the f32 numbers of each."""
+    mesh, refill = problem.mesh, problem.grid_refill
+    idx, ptr = refill.segments()
+    rng = np.random.default_rng(50)
+    u64 = 0.1 * rng.standard_normal((mesh.n_nodes, 2))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        bits_type = torch.int32 if dtype == torch.float32 else torch.int64
+        name = str(dtype)[6:]
+
+        def same(a, b):
+            return torch.equal(a.view(bits_type), b.view(bits_type))
+
+        u = torch.as_tensor(u64, dtype=dtype, device=dev)
+        for variant in ("opsplit", "stokescolor"):
+            got = assembly.element_convection_flat(mesh, u, variant)
+            want = assembly.element_convection_flat_ref(mesh, u, variant)
+            check(same(got, want), f"E {name} {variant}: {int((got != want).sum())} of "
+                  f"{got.numel()} values differ from the plain version on the card")
+        flat = assembly.element_convection_flat(mesh, u, "opsplit")
+        ops = [refill.refill_flat(flat) for _ in range(2)]
+        slots = [torch.cat([op.diags.reshape(-1), op.rest_vals]) for op in ops]
+        cpu = torch.zeros(refill.n_flat, dtype=dtype).index_add_(
+            0, refill.dest.cpu(), flat.cpu()[refill.order_k.cpu()])
+        check(same(slots[0].cpu(), cpu), f"G {name}: {int((slots[0].cpu() != cpu).sum())} of "
+              f"{cpu.numel()} slots differ from the CPU's index_add_")
+        check(same(slots[0], slots[1]), f"G {name}: two refills of one state differ")
+        check(same(slots[0], ns_refill.segment_sum_ref(flat, idx, ptr)),
+              f"G {name}: differs from its plain version on the card")
+        tris, geo = assembly.convection_constants(mesh, "opsplit", dtype, dev)
+        e_bound, g_bound = refill_bounds(problem, u.element_size())
+        times = {
+            "E": (device_ms(ns_refill.convection_flat, tris, geo, u),
+                  device_ms(assembly.element_convection_flat_ref, mesh, u, "opsplit"), e_bound),
+            "G": (device_ms(ns_refill.segment_sum, flat, idx, ptr),
+                  device_ms(refill.refill_flat_ref, flat), g_bound),
+            "E+G": (device_ms(lambda: refill.refill_flat(
+                        assembly.element_convection_flat(mesh, u, "opsplit"))),
+                    device_ms(lambda: refill.refill_flat_ref(
+                        assembly.element_convection_flat_ref(mesh, u, "opsplit"))),
+                    {"bound_ms": e_bound["bound_ms"] + g_bound["bound_ms"], "bound_by": "bytes"}),
+        }
+        for key, (ms, plain_ms, b) in times.items():
+            print(f"[50 NS refill] {key} {name} at {mesh.n_nodes} nodes ({mesh.n_tris} elements, "
+                  f"{refill.n_flat} slots): bit-equal; {1e3 * ms:.2f} us a call (graph replay), "
+                  f"bound {1e3 * b['bound_ms']:.2f} us by {b['bound_by']} "
+                  f"({100 * b['bound_ms'] / ms:.3g} %), plain {1e3 * plain_ms:.2f} us")
+            if dtype == torch.float32 and key != "E+G":
+                out[key] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+                            "library_ms": None}
+    print(f"[50 NS refill] {ptxas_report(ns_refill.library_path())}")
+    return out
 
 
 def phase_ns_grid_parity(dev, steps: int = NS_PARITY_STEPS) -> None:
@@ -4024,6 +4116,7 @@ def main() -> None:
     timed(12, phase_ns_build, build_s)
     ns_big, ns_build_s = built(*SCALE_MESH, ns_problem)
     k4_main = timed(13, phase_ns_kernel, dev, ns_big)
+    refill_main = timed(50, phase_ns_refill, dev, ns_big)
     ns_launches = timed(14, phase_ns_main_path, ns_big, ns_build_s)
     timed(15, phase_ns_grid_parity, dev)
     timed(16, phase_ns_dense_parity, dev)
@@ -4072,6 +4165,11 @@ def main() -> None:
                     "replaces": "tpufem/solve/pallas_step.py:146", "launches": k5_launches,
                     **k5_main})
     kernels.append(kernel_entry_k6(k6_launches, k6_main))
+    for key, name in (("E", "ns_convection_flat"), ("G", "ns_segment_sum")):
+        kernels.append({"name": name, "route": "cuda", "source": "tpufem_torch/csrc/ns_refill.cu",
+                        "replaces": "none (tpufem's C(u) refill is XLA's elementwise program "
+                                    "and scatter)", "launches": ns_launches[key],
+                        **refill_main[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

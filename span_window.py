@@ -33,8 +33,9 @@ the step's kernel time by the NS step's own spans instead (``convection``,
 ``velocity_solve`` with K4's ``k4.launch``, ``div``, ``pressure_solve``
 with K3's ``k3.launch``, ``grad``, ``walls``, ``step_metrics``) in
 ``step_parts``; its lines give ``ns``: the host milliseconds a step in
-``ns.run``, K4's iterations a solve and the set-up's ``NSProblem.build``
-seconds; the span metrics that read the Stokes step's spans
+``ns.run``, K4's iterations a solve, the set-up's ``NSProblem.build``
+seconds and the launches a step of the C(u) refill's kernels E and G
+(``ops/ns_refill.py``'s counters); the span metrics that read the Stokes step's spans
 (``STOKES_ONLY``) read None there.
 """
 
@@ -118,6 +119,13 @@ def ns_line(sp, counters: dict) -> dict:
     return {"host_ms_per_step": 1e3 * sum(runs) / sp.steps if runs else None,
             "k4_iters": None if k4 is None else k4 / sp.steps,
             "build_s": sum(builds) if builds else None}
+
+
+def refill_launches() -> dict:
+    """The launch counters of the C(u) refill's kernels E and G."""
+    from tpufem_torch.ops import ns_refill
+
+    return {"E": ns_refill.convection_flat.launches, "G": ns_refill.segment_sum.launches}
 
 
 def checks(sp, layer: dict, replayed: bool) -> dict:
@@ -248,7 +256,7 @@ def main(argv=None) -> int:
             if c is not None:
                 c.zero_()
         rec = metrics.SpanRecorder()
-        copies_s, graph0 = [], dict(stokes.graph_counts)
+        copies_s, graph0, refills0 = [], dict(stokes.graph_counts), refill_launches()
         with tracing.profiler(device) if turn != "host" else contextlib.nullcontext() as prof:
             with metrics.recording(rec) if turn != "off" else contextlib.nullcontext():
                 harness._sync(device)
@@ -286,6 +294,8 @@ def main(argv=None) -> int:
                                     for name, f in spans.METRICS.items()}
             if is_ns(sp):
                 line["ns"] = ns_line(sp, read)
+                line["ns"]["refill_launches_per_step"] = {
+                    k: (v - refills0[k]) / steps for k, v in refill_launches().items()}
             line["checks"] = {"device_clock_shifts_us": [1e6 * min(shifts, default=0.0),
                                                          1e6 * max(shifts, default=0.0)],
                               **checks(sp, layer, graph["replays"] > 0)}

@@ -161,12 +161,13 @@ def _build_kernels(device) -> None:
     """Build (or load) the grid kernels' libraries before any timing, so a
     cold run does not include nvcc; a set-up cost, counted in ``build_s``."""
     if torch.device(device).type == "cuda":
-        from tpufem_torch.ops import _nvcc
+        from tpufem_torch.ops import _nvcc, ns_refill
         from tpufem_torch.solve import grid_cg, grid_step
 
-        _nvcc.build_all([grid_cg.SOURCE, grid_step.SOURCE])
+        _nvcc.build_all([grid_cg.SOURCE, grid_step.SOURCE, ns_refill.SOURCE])
         grid_cg.build()
         grid_step.build()
+        ns_refill.build()
 
 
 def _sync(problem) -> None:

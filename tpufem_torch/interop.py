@@ -338,6 +338,20 @@ def multimesh_from_numpy(arrays: dict[str, np.ndarray], meshes, device_mesh,
            for k in ("inner_values", "visc_inv", "pressure_inv", "div_x", "div_y")})
 
 
+def grid_refill_from_numpy(arrays: dict[str, np.ndarray], device=None) -> GridRefill:
+    """A port ``GridRefill`` of the arrays ``grid_refill.<dest|order|order_k>``
+    and its template under ``grid_refill.template.``."""
+    dev = tconfig.device(device)
+    template = _grid_operator(arrays, "grid_refill.template", dev)
+
+    def index(key):
+        return torch.as_tensor(np.asarray(arrays[key], dtype=np.int64), device=dev)
+
+    return GridRefill(template=template, dest=index("grid_refill.dest"),
+                      order=index("grid_refill.order"), order_k=index("grid_refill.order_k"),
+                      n_flat=len(template.offsets) * template.n + template.n_rest)
+
+
 def ns_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: NSConfig,
                           device=None) -> NSProblem:
     """A port grid-path ``NSProblem`` holding the given operator arrays."""
@@ -346,15 +360,9 @@ def ns_problem_from_numpy(arrays: dict[str, np.ndarray], mesh: Mesh, config: NSC
         raise ValueError("ns_problem_from_numpy carries the grid path only: grid_refill.* "
                          "arrays and a solver='cg' configuration")
     dev = tconfig.device(device)
-    template = _grid_operator(arrays, "grid_refill.template", dev)
+    refill = grid_refill_from_numpy(arrays, dev)
+    template = refill.template
     m = template.n_rest
-
-    def index(key):
-        return torch.as_tensor(np.asarray(arrays[key], dtype=np.int64), device=dev)
-
-    refill = GridRefill(template=template, dest=index("grid_refill.dest"),
-                        order=index("grid_refill.order"), order_k=index("grid_refill.order_k"),
-                        n_flat=len(template.offsets) * template.n + m)
     plain = config.cg_storage == "grid_interpret"
     wall_mask = np.asarray(arrays["wall_mask"], dtype=bool)
     dtype = tconfig.dtype(config.precision)

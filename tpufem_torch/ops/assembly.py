@@ -94,15 +94,52 @@ def element_convection_flat(mesh: Mesh, u: torch.Tensor, variant: str = "stokesc
     """(9·T,) k-major convection values: entry ``k·T + t`` equals
     ``element_convection(mesh, u, variant)[t, k // 3, k % 3]`` up to
     rounding: the centroid is divided by 3 and no multiply-add is fused,
-    both as in tpufem's flat form outside a compiled program."""
-    dtype, dev = u.dtype, u.device
-    geo = mesh.tensors(dtype, dev)
-    scale, row = _convection_scaling(mesh, variant, dtype, dev)
-    row = torch.where(geo["valid"], row, torch.zeros((), dtype=dtype, device=dev))
-    grads = geo["grads"]
+    both as in tpufem's flat form outside a compiled program.  On a CUDA
+    tensor kernel E (``ops/ns_refill.convection_flat``) on the cached
+    :func:`convection_constants`, bit-equal to
+    :func:`element_convection_flat_ref` there; elsewhere that plain code."""
+    if u.device.type == "cuda":
+        from tpufem_torch.ops import ns_refill
+
+        return ns_refill.convection_flat(*convection_constants(mesh, variant, u.dtype, u.device),
+                                         u.contiguous())
+    return element_convection_flat_ref(mesh, u, variant)
+
+
+def _masked_scaling(mesh: Mesh, variant: str, dtype, device):
+    """(grads·scale (T, 3, 2), the row weight zeroed on invalid elements)."""
+    geo = mesh.tensors(dtype, device)
+    scale, row = _convection_scaling(mesh, variant, dtype, device)
+    row = torch.where(geo["valid"], row, torch.zeros((), dtype=dtype, device=device))
+    return geo["grads"] * scale[:, None, None], row
+
+
+def element_convection_flat_ref(mesh: Mesh, u: torch.Tensor,
+                                variant: str = "stokescolor") -> torch.Tensor:
+    """The plain version of :func:`element_convection_flat`, on any device."""
+    gs, row = _masked_scaling(mesh, variant, u.dtype, u.device)
     ucx, ucy = _centroid_velocity(mesh, u, mean=False)
-    w = [row * (ucx * (grads[:, j, 0] * scale) + ucy * (grads[:, j, 1] * scale)) for j in range(3)]
+    w = [row * (ucx * gs[:, j, 0] + ucy * gs[:, j, 1]) for j in range(3)]
     return torch.cat(w * 3)  # k = 3i + j, the row index i uniform
+
+
+def convection_constants(mesh: Mesh, variant: str, dtype, device):
+    """Kernel E's per-element constants, (tris (3, T) int32, geo (7, T):
+    gx0, gy0, gx1, gy1, gx2, gy2 of grads·scale and the masked row weight),
+    the bits :func:`element_convection_flat_ref` computes on ``device``.
+    Made once per (variant, dtype, device) and kept on the mesh, as
+    ``Mesh.tensors`` keeps its arrays."""
+    cache = mesh.__dict__.setdefault("_convection_constants", {})
+    geo = mesh.tensors(dtype, device)
+    key = (variant, dtype, geo["det"].device)
+    hit = cache.get(key)
+    if hit is None:
+        gs, row = _masked_scaling(mesh, variant, dtype, device)
+        hit = cache[key] = (
+            geo["tris"].to(torch.int32).T.contiguous(),
+            torch.cat([gs.reshape(-1, 6).T, row[None]]).contiguous(),
+        )
+    return hit
 
 
 def assemble_coo(mesh: Mesh, elem: torch.Tensor):

@@ -361,15 +361,21 @@ class GridRefill:
     Built on the host from the mesh's CSR pattern: each element entry's
     flat slot is ``g·N + row`` on plane g and ``n_off·N + k`` for remainder
     entry k, in the template's remainder order (sorted stably by target,
-    which keeps the CSR order; :meth:`from_template` asserts it).  On CUDA
-    the sum uses atomics, so two refills of one state are not bit-equal
-    there."""
+    which keeps the CSR order; :meth:`from_template` asserts it).
+    :meth:`refill_flat` on CUDA runs kernel G (``ops/ns_refill.py``), which
+    sums each slot's entries in entry order over :meth:`segments`: the
+    order of the CPU's ``index_add_``, so the two are bit-equal and two
+    refills of one state are too.  :meth:`refill`, run once at set-up,
+    keeps ``index_add_`` on every device."""
 
     template: GridOperator  # pattern donor; its values are not used
     dest: torch.Tensor  # (E,) int64: ordered element entry → flat slot
     order: torch.Tensor  # (E,) int64: (T, 3, 3) flat index of each ordered entry
     order_k: torch.Tensor  # (E,) int64: the same entries in the k-major (9·T,) layout
     n_flat: int  # n_off·N + n_rest
+    # kernel G's slot-sorted index, made at first use (:meth:`segments`)
+    _segments: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
 
     @classmethod
     def build(cls, mesh, ns: int, dtype=torch.float32, device=None) -> "GridRefill":
@@ -436,12 +442,42 @@ class GridRefill:
 
     def refill_flat(self, flat_k: torch.Tensor) -> GridOperator:
         """(9·T,) k-major element values (entry ``k·T + t``, the layout of
-        ``assembly.element_convection_flat``) → the filled operator."""
+        ``assembly.element_convection_flat``) → the filled operator: kernel
+        G on a CUDA tensor, :meth:`refill_flat_ref` elsewhere."""
+        if flat_k.device.type == "cuda":
+            from tpufem_torch.ops import ns_refill
+
+            return self._from_flat(ns_refill.segment_sum(flat_k.contiguous(), *self.segments()))
+        return self.refill_flat_ref(flat_k)
+
+    def refill_flat_ref(self, flat_k: torch.Tensor) -> GridOperator:
+        """The plain version of :meth:`refill_flat`, on any device: one
+        ``index_add_`` (with atomics, in no fixed order, on CUDA)."""
         return self._from_gathered(flat_k[self.order_k])
+
+    def segments(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(index (E,), ptr (n_flat + 1,)), int32 on ``dest``'s device: the
+        k-major positions of the element entries, slot by slot and each
+        slot's in entry order (``order_k`` through the stable sort of
+        ``dest``), and each slot's run in it.  Made from ``dest`` and
+        ``order_k`` alone at first call, and kept."""
+        hit = self._segments.get("index")
+        if hit is None:
+            if len(self.dest) >= 2 ** 31:
+                raise ValueError(f"{len(self.dest)} element entries: int32 indices take "
+                                 "fewer than 2**31")
+            perm = torch.sort(self.dest, stable=True).indices
+            ptr = torch.zeros(self.n_flat + 1, dtype=torch.int32, device=self.dest.device)
+            ptr[1:] = torch.cumsum(torch.bincount(self.dest, minlength=self.n_flat), 0)
+            hit = self._segments["index"] = (self.order_k[perm].to(torch.int32), ptr)
+        return hit
 
     def _from_gathered(self, vals: torch.Tensor) -> GridOperator:
         flat = torch.zeros(self.n_flat, dtype=vals.dtype, device=vals.device)
         flat.index_add_(0, self.dest, vals)
+        return self._from_flat(flat)
+
+    def _from_flat(self, flat: torch.Tensor) -> GridOperator:
         t = self.template
         split = len(t.offsets) * t.n
         return dataclasses.replace(t, diags=flat[:split].reshape(len(t.offsets), t.ns, t.ns),
