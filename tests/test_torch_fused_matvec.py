@@ -1,6 +1,7 @@
 """Kernel K1's plain version against tpufem's fused-step matvec, and the
 wrapper's refusals.  The CUDA kernel itself is held against the plain
-version on the card by ``chip_smoke.py`` (this machine has no card)."""
+version on the card by ``tests/test_torch_card_kernels.py`` (marked
+``card``; it skips without one)."""
 
 import jax.numpy as jnp
 import numpy as np

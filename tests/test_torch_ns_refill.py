@@ -10,10 +10,10 @@ refusals and launch counters.
 
 The tests marked ``card`` run E and G at 1,048,576 nodes on a CUDA card and
 skip without one: E bit-equal to its plain version on the card, G to the
-CPU's fixed-order sum (the card's ``index_add_`` is atomic), two refills
-bit-equal, and 200 NS steps against the plain path within the benchmark
-cell's ``u_err`` limit.  On the card, without JAX:
-``python -m pytest --noconftest -m card tests/test_torch_ns_refill.py``.
+CPU's fixed-order sum (the card's ``index_add_`` is atomic) and to its
+plain version there, two refills bit-equal, and 200 NS steps against the
+plain path within the benchmark cell's ``u_err`` limit.  On the card,
+without JAX: the command in ``tests/_card.py``.
 """
 
 import re
@@ -22,11 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from _card import BIG, card, ns_grid
 from tpufem_torch import generate_annulus_mesh
 from tpufem_torch.ops import assembly, ns_refill
 from tpufem_torch.ops.gridop import GridRefill
 
 torch.set_num_threads(2)
+assert card  # the fixture, imported for the tests marked card
 
 BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 SIZES = {32: 40, 64: 72}  # n_side → n_circle of the pad_hole annuli
@@ -199,26 +201,16 @@ def test_launch_counters_start_at_zero_and_the_cpu_path_launches_nothing():
 # on the card
 # ---------------------------------------------------------------------------
 
-CARD_MESH = (1024, 1088)  # 1,048,576 nodes, the ns_1m configuration's mesh
 STEPS = 200
 U_ERR_LIMIT = 0.002  # portbench/checks/ns_1m.steady.json
 U_FLOOR = 0.01  # portbench/steppers/ns.py: the change taken as at least 1 % of the first speed
 
 
-@pytest.fixture(scope="module")
-def card_problem():
-    """The ns_1m configuration's problem (``bench_large.ns_config``) on the
-    card, TF32 off."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    from tpufem_torch import bench_large
-    from tpufem_torch.workloads import navier_stokes
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mesh = generate_annulus_mesh(*CARD_MESH, pad_hole=True)
-    return navier_stokes.NSProblem.build(mesh, bench_large.ns_config("f32"),
-                                         device=torch.device("cuda", 0))
+@pytest.fixture
+def card_problem(card):
+    """The ns_1m configuration's problem (``bench_large.ns_config``, the
+    grid path) on the 1,048,576-node annulus."""
+    return ns_grid(card, *BIG)
 
 
 @pytest.mark.card
@@ -236,6 +228,8 @@ def test_card_e_is_its_plain_version_bit_for_bit(card_problem, dtype):
 @pytest.mark.card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_card_g_is_the_cpu_fixed_order_sum_and_repeats(card_problem, dtype):
+    """Bit-equal to the CPU's ``index_add_`` (the card's is atomic) and to
+    its plain version on the card; two refills of one state bit-equal."""
     mesh, refill = card_problem.mesh, card_problem.grid_refill
     flat = assembly.element_convection_flat(mesh, seeded_u(mesh.n_nodes, dtype,
                                                            card_problem.device), "opsplit")
@@ -246,6 +240,7 @@ def test_card_g_is_the_cpu_fixed_order_sum_and_repeats(card_problem, dtype):
         0, refill.dest.cpu(), flat.cpu()[refill.order_k.cpu()])
     assert same_bits(first.cpu(), cpu)
     assert same_bits(first, second)
+    assert same_bits(first, ns_refill.segment_sum_ref(flat, *refill.segments()))
 
 
 @pytest.mark.card

@@ -1,6 +1,6 @@
 """tpufem_torch.roofline: the Hopper byte model against a hand count on a
 small operator and on each sparse storage's apply (the one source of the
-bounds ``chip_smoke.py`` prints), and
+kernels' bounds), and
 the measuring machinery through the kernels' plain versions on the CPU,
 which must give finite, self-consistent rows (times and rates mean
 something only on the card)."""
@@ -95,14 +95,6 @@ def test_apply_bound_matches_a_hand_count(storage):
     assert roofline.apply_flops(op, cols=2) == 2 * stored * 2
     assert roofline.apply_bound(op, cols=2) == roofline.bound(stored * 4 + extra + vectors,
                                                              4 * stored)
-
-
-def test_chip_smoke_takes_its_bounds_from_here():
-    import chip_smoke
-
-    for name in ("APPLIES", "HBM_BYTES_PER_S", "F32_FLOPS", "bound", "iteration_bound",
-                 "solve_bound"):
-        assert getattr(chip_smoke, name) is getattr(roofline, name)
 
 
 @pytest.fixture(scope="module")

@@ -13,8 +13,8 @@ import dataclasses
 
 import pytest
 import torch
-from torch.autograd import DeviceType
 
+from _card import BIG, STEP_METRICS, card, deterministic, eager, stokes_grid
 from tpufem_torch import generate_annulus_mesh
 from tpufem_torch.bench_large import bench_config, with_iteration_counters
 from tpufem_torch.solve import grid_cg
@@ -22,9 +22,10 @@ from tpufem_torch.workloads import stokes
 
 torch.set_num_threads(2)
 
+assert card and deterministic  # fixtures, imported for the tests marked card
+
 MESH = (12, 16)
 STEPS = 3
-METRICS = ("div_star_max", "final_div_max", "max_u")
 
 
 def _build(**kw) -> stokes.StokesProblem:
@@ -94,17 +95,17 @@ def test_run_on_the_cpu_is_the_eager_loop_bit_for_bit():
     problem = _build(**GRID)
     before = dict(stokes.graph_counts)
     state, metrics = stokes.run(problem, steps=STEPS)
-    want, series = stokes.initial_state(problem), {k: [] for k in METRICS}
+    want, series = stokes.initial_state(problem), {k: [] for k in STEP_METRICS}
     step = stokes.make_step(problem)
     for _ in range(STEPS):
         want, m = step(want)
-        for k in METRICS:
+        for k in STEP_METRICS:
             series[k].append(m[k])
     assert list(state) == list(want)
     for k in want:
         assert torch.equal(state[k], want[k]), k
-    assert sorted(metrics) == sorted(METRICS)
-    for k in METRICS:
+    assert sorted(metrics) == sorted(STEP_METRICS)
+    for k in STEP_METRICS:
         assert torch.equal(metrics[k], torch.stack(series[k])), k
     assert stokes.graph_counts == {**before, "eager_steps": before["eager_steps"] + STEPS}
     assert not problem._graphs
@@ -126,53 +127,19 @@ def test_replaced_problem_has_its_own_graph_cache():
 # on the card
 # ---------------------------------------------------------------------------
 
-CARD_MESHES = {"1m": (1024, 1088), "16k": (128, 144)}
+CARD_MESHES = {"1m": BIG, "16k": (128, 144)}
 CALL_STEPS = 20
 
 
-@pytest.fixture
-def card():
-    """The card, with deterministic algorithms on: the stencil remainder's
-    ``index_add_`` sums with atomics in a varying order otherwise, and two
-    eager loops part by ~1e-7 in ``u`` after 20 steps at 1,048,576 nodes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    yield torch.device("cuda", 0)
-    torch.use_deterministic_algorithms(was)
-
-
 def _card_problem(card, size):
-    mesh = generate_annulus_mesh(*CARD_MESHES[size], pad_hole=True)
-    problem = stokes.StokesProblem.build(mesh, bench_config(n_nodes=mesh.n_nodes), device=card)
+    problem = stokes_grid(card, *CARD_MESHES[size])
     assert stokes.graph_path(problem)
     return problem
 
 
-def _eager(problem, state, steps):
-    """A hand-written loop over ``make_step`` → (state, metrics)."""
-    step = stokes.make_step(problem)
-    series = {k: [] for k in METRICS}
-    for _ in range(steps):
-        state, m = step(state)
-        for k in METRICS:
-            series[k].append(m[k])
-    return state, {k: torch.stack(v) for k, v in series.items()}
-
-
-def _grid_kernels(prof) -> dict:
-    """K2's and K3's kernels that ran on the card in a profile, by name."""
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {k: sum(kernel in n for n in names)
-            for k, kernel in (("K2", "viscous_cg_kernel"), ("K3", "pressure_cg_kernel"))}
-
-
 @pytest.mark.card
 @pytest.mark.parametrize("size", sorted(CARD_MESHES))
-def test_card_graph_calls_match_the_eager_loop_bit_for_bit(card, size):
+def test_card_graph_calls_match_the_eager_loop_bit_for_bit(card, deterministic, size):
     base = _card_problem(card, size)
     graph_pb, graph_counters = with_iteration_counters(base)
     eager_pb, eager_counters = with_iteration_counters(base)
@@ -183,17 +150,15 @@ def test_card_graph_calls_match_the_eager_loop_bit_for_bit(card, size):
     kept = ({k: v.clone() for k, v in s1.items()}, {k: v.clone() for k, v in m1.items()})
     counts1 = dict(stokes.graph_counts)
     host1 = (grid_cg.viscous_cg.launches, grid_cg.pressure_cg.launches)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        s2, m2 = stokes.run(graph_pb, steps=CALL_STEPS, state=s1)
-        torch.cuda.synchronize()
+    s2, m2 = stokes.run(graph_pb, steps=CALL_STEPS, state=s1)
     counts2 = dict(stokes.graph_counts)
-    # the second call runs K2 once and K3 twice a step on the card, all
-    # replayed: the host launches neither
-    assert _grid_kernels(prof) == {"K2": CALL_STEPS, "K3": 2 * CALL_STEPS}
+    # the second call replays every step: the host launches neither K2 nor
+    # K3, and its results and the solvers' device counters are the eager
+    # loop's (below), which a replay that left out a kernel would not give
     assert (grid_cg.viscous_cg.launches, grid_cg.pressure_cg.launches) == host1
 
-    e1, em1 = _eager(eager_pb, start, CALL_STEPS)
-    e2, em2 = _eager(eager_pb, e1, CALL_STEPS)
+    e1, em1 = eager(eager_pb, start, CALL_STEPS)
+    e2, em2 = eager(eager_pb, e1, CALL_STEPS)
     torch.cuda.synchronize()
 
     for got, want in ((s1, e1), (s2, e2)):

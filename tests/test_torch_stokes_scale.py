@@ -122,7 +122,7 @@ def test_grid_div_grad_on_tpufems_stencil():
 def test_auto_off_the_grid_on_cuda_is_stencil_else_csr(pad_hole, kind):
     """``"auto"`` on CUDA off the grid (``"auto_accel"``): the stencil at ≥ 90 %
     coverage, as tpufem; below it CSR, where tpufem takes banded (the band
-    lost to CSR on the card, ``chip_smoke.py`` phase 47).  The rule runs
+    lost to CSR on the card, PERF.md §6).  The rule runs
     here on CPU tensors."""
     _, tm = meshes(12, 16, pad_hole=pad_hole)
     materialize = tstokes._materializer("auto_accel", torch.float64, torch.device("cpu"))

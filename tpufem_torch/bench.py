@@ -71,18 +71,20 @@ def timed_run(problem: stokes.StokesProblem, steps: int):
 
 
 def profile_steps(problem: stokes.StokesProblem, steps: int, top: int = 8,
-                  state: dict | None = None) -> dict:
+                  state: dict | None = None, rate: float | None = None) -> dict:
     """Device kernels of one ``steps``-step Stokes run (from ``state``,
     default the initial state) under ``torch.profiler``: see
     :func:`profile_run`."""
-    return profile_run(lambda: stokes.run(problem, steps=steps, state=state), steps, top)
+    return profile_run(lambda: stokes.run(problem, steps=steps, state=state), steps, top, rate)
 
 
-def profile_run(run, steps: int, top: int = 8) -> dict:
+def profile_run(run, steps: int, top: int = 8, rate: float | None = None) -> dict:
     """Device kernels of ``run()``, a run of ``steps`` steps, under
     ``torch.profiler``: kernel launches and device ms per step, and the
     ``top`` kernels by device time.  Profiling slows the host, so no wall
-    time is taken here."""
+    time is taken here: given ``rate``, the steps a second of an untraced
+    run, it adds the device's busy share of that run,
+    ``device_busy_share``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,12 +100,15 @@ def profile_run(run, steps: int, top: int = 8) -> dict:
     launches = sum(n for n, _ in by_name.values())
     busy_ms = sum(ms for _, ms in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return {
+    prof = {
         "kernels_per_step": launches / steps,
         "device_ms_per_step": busy_ms / steps,
         "top": [{"name": name[:80], "per_step": n / steps, "ms_per_step": ms / steps}
                 for name, (n, ms) in ranked],
     }
+    if rate is not None:
+        prof["device_busy_share"] = prof["device_ms_per_step"] * rate / 1e3
+    return prof
 
 
 def main() -> None:
@@ -118,8 +123,7 @@ def main() -> None:
     if not bool(torch.isfinite(u).all()):
         raise RuntimeError("bench run diverged")
     n_tracers = problem.tracer_init.shape[0]
-    prof = profile_steps(problem, PROFILE_STEPS)
-    prof["device_busy_share"] = prof["device_ms_per_step"] * warm / 1e3
+    prof = profile_steps(problem, PROFILE_STEPS, rate=warm)
     print(json.dumps({
         "metric": (f"Stokes+tracer steps/sec ({mesh.n_nodes} nodes, {BENCH_STEPS} steps, "
                    f"{n_tracers} tracers, f32 fused path, K1 CUDA kernel)"),

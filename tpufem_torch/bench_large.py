@@ -296,10 +296,9 @@ def run_mesh(mesh, steps: int, t0: float, precond: str = "twolevel", transport: 
         row["device"] = torch.cuda.get_device_name(problem.device)
         row["card"] = card()
         if profile:
-            prof = profile_steps(problem, steps, state=state)
+            prof = profile_steps(problem, steps, state=state, rate=warm)
             if counters:
                 prof["iters_per_solve"] = iterations_per_solve(counters, steps)
-            prof["device_busy_share"] = prof["device_ms_per_step"] * warm / 1e3
             row["profile_of_warm_run"] = prof
     return row
 
@@ -413,10 +412,9 @@ def run_ns(n_side: int, n_circle: int, steps: int, precision: str = "f32",
         row["card"] = card()
         if profile:
             prof = profile_run(lambda: navier_stokes.run(problem, steps=steps, state=state),
-                               steps)
+                               steps, rate=row["warm_steps_per_sec"])
             if counters:
                 prof["iters_per_solve"] = iterations_per_solve(counters, steps)
-            prof["device_busy_share"] = prof["device_ms_per_step"] * row["warm_steps_per_sec"] / 1e3
             row["profile_of_warm_run"] = prof
     return row
 
@@ -501,8 +499,7 @@ def run_poisson_large(n_side: int, n_circle: int, precision: str = "f32", device
         row["device"] = torch.cuda.get_device_name(device)
         row["card"] = card()
         iters = run.iterations
-        prof = profile_run(lambda: run(b), iters, top=40)
-        prof["device_busy_share"] = prof["device_ms_per_step"] * iters / (solve_s * 1e3)
+        prof = profile_run(lambda: run(b), iters, top=40, rate=iters / solve_s)
         prof["index_share"] = index_share(prof)
         prof["top"] = prof["top"][:8]
         row["profile_per_iteration"] = prof
@@ -565,8 +562,8 @@ def run_heat_large(n_side: int, n_circle: int, steps: int = 50, precision: str =
     if torch.device(device).type == "cuda":
         row["device"] = torch.cuda.get_device_name(device)
         row["card"] = card()
-        prof = profile_run(lambda: heat.run_problem(problem, u0, steps), steps, top=40)
-        prof["device_busy_share"] = prof["device_ms_per_step"] * row["steps_per_sec"] / 1e3
+        prof = profile_run(lambda: heat.run_problem(problem, u0, steps), steps, top=40,
+                           rate=row["steps_per_sec"])
         prof["index_share"] = index_share(prof)
         prof["top"] = prof["top"][:8]
         row["profile_per_step"] = prof
@@ -709,8 +706,7 @@ def run_th_sparse(n_side: int, n_circle: int, steps: int, precision: str = "f64"
             row["iters_per_step"] = {"K2": iters["vel"] / steps, "K3": iters["plap"] / steps}
             row["warm_iters_per_step"] = {"K2": warm_iters["vel"] / steps,
                                           "K3": warm_iters["plap"] / steps}
-        prof = profile_run(lambda: runner(steps, state=state), steps, top=40)
-        prof["device_busy_share"] = prof["device_ms_per_step"] * warm / 1e3
+        prof = profile_run(lambda: runner(steps, state=state), steps, top=40, rate=warm)
         for name, key in (("viscous_cg", "K2_share"), ("pressure_cg", "K3_share")):
             prof[key] = sum(k["ms_per_step"] for k in prof["top"]
                             if name in k["name"]) / prof["device_ms_per_step"]

@@ -8,8 +8,8 @@ the least HBM traffic an iteration needs on the card's split of the
 operator (``GridOperator.dense_split``): the planes and remainder once an
 apply, each apply's planes at their own width (K3's preconditioner reads
 bfloat16 planes under ``cg_precond_bf16="on"``), plus the vector passes
-the fused kernels make.  That byte model, and the bounds ``chip_smoke.py``
-prints for every kernel, have their one source here.  :func:`probes` splits
+the fused kernels make.  That byte model, and every kernel's bound in
+PERF.md §6, have their one source here.  :func:`probes` splits
 K3's iteration with its measurement variants (``--probes``).
 
 The peaks are the NVIDIA H100 SXM data sheet's (dense rates), which

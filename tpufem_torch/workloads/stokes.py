@@ -518,7 +518,7 @@ def _materializer(storage: str, dtype, dev):
     coverage, else CSR; ``"auto_accel"`` (``"auto"`` on CUDA) the stencil at
     ≥ 90 %, else CSR where tpufem takes banded: on the H100 the band's
     whole envelope made the 160,000-node Stokes step 3.1× slower than CSR
-    (``chip_smoke.py`` phase 47); anything else CSR."""
+    (PERF.md §6); anything else CSR."""
     def materialize(csr):
         if storage == "banded":
             return BandedOperator.build(csr, dtype=dtype, device=dev)
