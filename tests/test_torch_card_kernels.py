@@ -330,3 +330,46 @@ def test_k3_probes_against_plain(card, size, case, probe):
     assert grid_cg.pressure_cg.variant_launches[probe] == before + 2
     assert torch.equal(got, again) and bool(torch.isfinite(got).all())
     assert rel(got, grid_cg.pressure_cg_ref(s, b, x0)) <= GRID_RTOL[(dtype, 0.0)]
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+@pytest.mark.parametrize("size", PB16_SIZES)
+def test_k3_exchange_probe_against_plain(card, size, case):
+    """The exchange probe visits no point between the grid barriers: after
+    its fixed iterations it returns its start projected, as its plain
+    version does."""
+    dtype, coarse, iters = PROBE_CASES[case]
+    pres = dataclasses.replace(PB16_SIZES[size](card).pressure_solver, K_pre=None)
+    s = dataclasses.replace(k3_cast(pres, dtype, coarse), tol=0.0, iters=iters, probe="exchange")
+    b, x0 = (seeded((pres.K.ns, pres.K.ns), F64, card, seed).to(dtype) * s.act_grid
+             for seed in (49, 50))
+    before = grid_cg.pressure_cg.variant_launches["exchange"]
+    assert_solve(grid_cg.pressure_cg, grid_cg.pressure_cg_ref, s, b, x0, GRID_RTOL[(dtype, 0.0)])
+    assert grid_cg.pressure_cg.variant_launches["exchange"] == before + 2
+
+
+# K3's exchange at the grid barriers (grid_common.cuh: the totals, phase C)
+# at launch shapes the cells do not take: on 280² K3 launches 307 blocks at
+# f32 (the totals read a padded last run) and 264 at f64, neither a
+# multiple of 32 nor 528, with 1,024 coarse nodes or, asked for 900, 784;
+# at 10⁶ nodes a coarse space of 900
+EXCHANGE_SIZES = {
+    "280-m1024": (lambda d: stokes_grid(d, 280, 320), 1024),
+    "280-m784": (lambda d: stokes_grid(d, 280, 320, cg_coarse_nodes=900), 784),
+    "1m-m900": (lambda d: stokes_grid(d, *BIG, cg_coarse_nodes=900), 900),
+}
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-5])
+@pytest.mark.parametrize("case", ["K3-f32-bf16", "K3-f32-f32", "K3-f64"])
+@pytest.mark.parametrize("size", EXCHANGE_SIZES)
+def test_k3_exchange_at_other_launch_shapes(card, size, case, tol):
+    """Fixed iterations from zero, and tol 1e-5 from a warm start."""
+    make, m = EXCHANGE_SIZES[size]
+    dtype, coarse = GRID_CASES[case]
+    solver = dataclasses.replace(k3_cast(make(card).pressure_solver, dtype, coarse), tol=tol)
+    assert tuple(solver.ac_inv.shape) == (m, m)
+    b = seeded((solver.K.ns, solver.K.ns), dtype, card, 7) * solver.act_grid
+    plain = grid_cg.pressure_cg_ref
+    x0 = warm_start(plain, solver, b) if tol else torch.zeros_like(b)
+    assert_solve(grid_cg.pressure_cg, plain, solver, b, x0, GRID_RTOL[(dtype, tol)])

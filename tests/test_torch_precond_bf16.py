@@ -187,6 +187,24 @@ def test_plain_probes_match_their_definitions(probe):
     assert rel(got.numpy(), grid_cg.pressure_cg_ref(base, b, x0).numpy()) > 1e-3
 
 
+@pytest.mark.parametrize("tol", [0.0, 1e-5])
+def test_plain_exchange_probe_visits_no_point(tol):
+    """exchange: no point is visited between the grid barriers, so x stays
+    the start and leaves projected; r·r reads 0, so every fixed iteration
+    runs and a tolerance stops the loop before the first."""
+    base = dataclasses.replace(port_problem().pressure_solver, tol=tol, iters=PRESSURE_ITERS)
+    ps = dataclasses.replace(base, probe="exchange")
+    act = ps.act_grid
+    x0 = torch.as_tensor(np.random.default_rng(6).standard_normal(act.shape)) * act
+    b = torch.as_tensor(np.random.default_rng(5).standard_normal(act.shape)) * act
+    count = torch.zeros(1, dtype=torch.int32)
+    got = grid_cg.pressure_cg(ps, b, x0, count)
+    want = x0 - (torch.sum(act * x0) / torch.sum(act * act)) * act
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(count.item()) == (PRESSURE_ITERS if tol == 0.0 else 0)
+    assert rel(got.numpy(), grid_cg.pressure_cg_ref(base, b, x0).numpy()) > 1e-3
+
+
 def test_unknown_probe_refused():
     with pytest.raises(ValueError, match="probe"):
         dataclasses.replace(port_problem().pressure_solver, probe="nodram")

@@ -139,7 +139,7 @@ def test_measure_refuses_a_problem_off_the_grid_storage():
 def test_probes_rows_have_tpufems_keys():
     rows = roofline.probes(28, 32, iters_p=3, reps=1, label="toy", storage="grid_interpret",
                            device="cpu")
-    assert [r["probe"] for r in rows] == ["real", "nofma", "nodma"]
+    assert [r["probe"] for r in rows] == ["real", "nofma", "nodma", "exchange"]
     for r in rows:
         assert set(r) == {"label", "n_nodes", "ns", "probe", "iters_p", "reps", "t_pressure_s",
                           "us_per_p_iter"}

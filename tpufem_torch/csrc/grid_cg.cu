@@ -11,8 +11,9 @@
 //       constant-nullspace deflation and the two-level preconditioner; with
 //       precond_bf16 (:1147-1160, mvp :1349) the preconditioner's two
 //       applies read bf16 planes (pressure_pb16_kernel below), and its
-//       probes (pressure_nofma_kernel, pressure_nodma_kernel) take out the
-//       plane products or the plane reads;
+//       probes (pressure_nofma_kernel, pressure_nodma_kernel,
+//       pressure_exchange_kernel) take out the plane products, the plane
+//       reads, or every point between the grid barriers;
 //   K4  NSGridBiCGStab._solve_fn  (pallas_cg.py:1844; kernels :1869/:1905,
 //       _bicgstab_core_cols :1653): right-preconditioned Jacobi-BiCGStab on
 //       the nonsymmetric Navier–Stokes velocity system
@@ -330,10 +331,12 @@ __global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
 // they are deterministic (grid_common.cuh, ProbeOp): nofma loads every
 // plane entry and drops it, so each apply is its remainder alone; nodma
 // reads no plane byte and multiplies each gathered source by its plane's
-// constant.  Their results are wrong by design; nothing but the roofline
-// reads them.  Instances: f32 fields with the f32 and bf16 coarse inverses
-// (the bench configuration's) and f64 fields with an f64 one, where their
-// plain versions hold them tightly.
+// constant; exchange (tpufem has none) visits no point in phases A, B and
+// D, so an iteration is its syncs, totals and coarse product.  Their
+// results are wrong by design; nothing but the roofline reads them.  Each
+// launches on the real instance's blocks.  Instances: f32 fields with the
+// f32 and bf16 coarse inverses (the bench configuration's) and f64 fields
+// with an f64 one, where their plain versions hold them tightly.
 template <typename T, typename A, int Probe>
 using ProbeArgs = PressureArgs<T, A, ProbeOp<T, Probe>>;
 
@@ -351,6 +354,22 @@ __global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
   cg::grid_group grid = cg::this_grid();
   int slot = 0;
   pressure_solve(a, grid, slot);
+}
+
+template <typename T, typename A>
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks<T>)
+    pressure_exchange_kernel(const __grid_constant__ ProbeArgs<T, A, kExchange> a) {
+  cg::grid_group grid = cg::this_grid();
+  int slot = 0;
+  pressure_solve(a, grid, slot);
+}
+
+// Blocks per SM of K3's real instance, which its probes launch on.
+template <typename T, typename A>
+int real_per_sm() {
+  int per_sm = 0;
+  blocks_per_sm(pressure_cg_kernel<T, A>, &per_sm);
+  return per_sm;
 }
 
 // ---------------------------------------------------------------------------
@@ -613,13 +632,14 @@ int viscous_cg(const T* diags, const int* rs, const int* ls, int n_off, int ns, 
 
 // Fill K3's arguments other than its operators (a.op, and a.pop where the
 // preconditioner has its own) and launch `kernel`, an instance of K3's
-// solve (pressure_cg_kernel or one of its variants).
+// solve (pressure_cg_kernel or one of its variants), on at most
+// `max_per_sm` blocks a SM where it is given.
 template <typename T, typename A, typename... O>
 int pressure_cg(void (*kernel)(PressureArgs<T, A, O...>), PressureArgs<T, A, O...>& a,
                 const T* act, const T* invd, const A* ac_inv,
                 int blk, int nc, int use_coarse, const T* b, const T* x0, T* x, T* work,
                 float* fwork, double omega, int iters, double tol, int* iters_out,
-                void* stream) {
+                void* stream, int max_per_sm = 0) {
   const int ns = a.op.ns;
   if (!coarse_ok(blk, nc, ns)) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)ns * ns;
@@ -645,7 +665,7 @@ int pressure_cg(void (*kernel)(PressureArgs<T, A, O...>), PressureArgs<T, A, O..
   a.use_coarse = use_coarse;
   a.iters = iters;
   a.iters_out = iters_out;
-  return (int)launch_coop(kernel, a, (int)n, (cudaStream_t)stream);
+  return (int)launch_coop(kernel, a, (int)n, (cudaStream_t)stream, max_per_sm);
 }
 
 template <typename T>
@@ -735,7 +755,8 @@ int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns,
     cudaError_t err = make_op(a.op, OP_ARGS);                             \
     if (err != cudaSuccess) return (int)err;                              \
     a.op.probe.keep = 0u;                                                 \
-    return pressure_cg(pressure_nofma_kernel<T, A>, a, PRESSURE_ARGS);    \
+    return pressure_cg(pressure_nofma_kernel<T, A>, a, PRESSURE_ARGS,     \
+                       real_per_sm<T, A>());                              \
   }
 
 // K3's nodma probe: plane_const holds n_off values on the host, one a plane
@@ -745,7 +766,17 @@ int ns_bicgstab(const T* diags, const int* rs, const int* ls, int n_off, int ns,
     cudaError_t err = make_op(a.op, OP_ARGS);                                             \
     if (err != cudaSuccess) return (int)err;                                              \
     for (int g = 0; g < n_off; ++g) a.op.probe.plane_const[g] = (T)plane_const[g];        \
-    return pressure_cg(pressure_nodma_kernel<T, A>, a, PRESSURE_ARGS);                    \
+    return pressure_cg(pressure_nodma_kernel<T, A>, a, PRESSURE_ARGS,                     \
+                       real_per_sm<T, A>());                                              \
+  }
+
+#define EXCHANGE_ENTRY(NAME, T, A)                                             \
+  extern "C" int NAME(OP_PARAMS(T), PRESSURE_PARAMS(T, A)) {                   \
+    ProbeArgs<T, A, kExchange> a;                                              \
+    cudaError_t err = make_op(a.op, OP_ARGS);                                  \
+    if (err != cudaSuccess) return (int)err;                                   \
+    return pressure_cg(pressure_exchange_kernel<T, A>, a, PRESSURE_ARGS,       \
+                       real_per_sm<T, A>());                                   \
   }
 
 #define NS_ENTRY(NAME, T)                                                                       \
@@ -772,6 +803,9 @@ NOFMA_ENTRY(pressure_nofma_f64, double, double)
 NODMA_ENTRY(pressure_nodma_f32, float, float)
 NODMA_ENTRY(pressure_nodma_f32_bf16, float, __nv_bfloat16)
 NODMA_ENTRY(pressure_nodma_f64, double, double)
+EXCHANGE_ENTRY(pressure_exchange_f32, float, float)
+EXCHANGE_ENTRY(pressure_exchange_f32_bf16, float, __nv_bfloat16)
+EXCHANGE_ENTRY(pressure_exchange_f64, double, double)
 NS_ENTRY(ns_bicgstab_f32, float)
 NS_ENTRY(ns_bicgstab_f64, double)
 
@@ -779,10 +813,11 @@ NS_ENTRY(ns_bicgstab_f64, double)
 // C=2 (HBM, L2), f64 C=1, C=2; pressure f32, f32 with a bf16 coarse inverse,
 // f64, f64 bf16; BiCGStab f32 C=1, C=2, f64 C=1, C=2; pressure with bf16
 // preconditioner planes f32, f32 bf16, f64, f64 bf16; the nofma probe f32,
-// f32 bf16, f64; the nodma probe f32, f32 bf16, f64: writes `cap` of them,
-// returns the count.
+// f32 bf16, f64; the nodma probe f32, f32 bf16, f64; the exchange probe f32,
+// f32 bf16, f64 (each probe launches on the real instance's, at most):
+// writes `cap` of them, returns the count.
 extern "C" int grid_cg_blocks_per_sm(int* out, int cap) {
-  int v[24] = {0};
+  int v[27] = {0};
   blocks_per_sm(viscous_cg_kernel<float, 1, kFusedMinBlocks<float>>, &v[0]);
   blocks_per_sm(viscous_cg_kernel<float, 1, kInL2MinBlocks<float>>, &v[1]);
   blocks_per_sm(viscous_cg_kernel<float, 2, kFusedMinBlocks<float>>, &v[2]);
@@ -807,6 +842,9 @@ extern "C" int grid_cg_blocks_per_sm(int* out, int cap) {
   blocks_per_sm(pressure_nodma_kernel<float, float>, &v[21]);
   blocks_per_sm(pressure_nodma_kernel<float, __nv_bfloat16>, &v[22]);
   blocks_per_sm(pressure_nodma_kernel<double, double>, &v[23]);
-  for (int i = 0; i < 24 && i < cap; ++i) out[i] = v[i];
-  return 24;
+  blocks_per_sm(pressure_exchange_kernel<float, float>, &v[24]);
+  blocks_per_sm(pressure_exchange_kernel<float, __nv_bfloat16>, &v[25]);
+  blocks_per_sm(pressure_exchange_kernel<double, double>, &v[26]);
+  for (int i = 0; i < 27 && i < cap; ++i) out[i] = v[i];
+  return 27;
 }

@@ -41,6 +41,23 @@
 // the dot products differ in order and in two places in form:
 // p·(q − cq·act) = p·q − cq·(p·act) and r·(z − coef·act) = r·z − coef·(r·act)
 // (p and r are projected, so p·act and r·act are roundoff).
+//
+// The exchange at the grid barriers is the part of an iteration that does
+// not scale with the grid: its 4 grid syncs, the totals of its two
+// reductions, and phase C (K3's `exchange` probe, roofline.probes, times it
+// alone).  Each block stores its partial sums value-major
+// ([slot][value][kMaxBlocks]); after the sync warp j of every block sums
+// value j, each lane loading kTotalRuns 16-byte runs of consecutive blocks'
+// partials before its first add: one L2 round trip up to 640 blocks at f32.
+// On an H100 at 1,048,576 nodes (528 blocks) that took an iteration's two
+// totals from ~5 µs to ~2 and its exchange from 12.6–14.3 µs to 9.8–10.9
+// (the block-major [block][kSlots] store it replaced was read by warp 0 of
+// every block, 17 loads a lane at a 32-byte stride for each value).  What is
+// left is the 4 grid syncs (6.1–7.0 µs together) and phase C (1.6–1.9 µs).
+// Phase C spread over every resident block (a few rows a block, each split
+// over the block's warps, rc staged in shared memory or read from L2 beside
+// the inverse) took as long as one warp a row on the first 128 blocks, so it
+// stays so.
 
 #pragma once
 
@@ -62,6 +79,7 @@ constexpr int kMaxBlocks = 4096;  // partial-sum slots per reduction (the wrappe
 constexpr int kSlots = 8;         // values reduced per phase, at most
 constexpr int kTile = 1024;       // K3's tiles: points a slab and lanes a unit, at most
 constexpr int kLanes = 256;       // K3's tiles: lanes a unit where blk ≤ kLanes
+constexpr int kTotalRuns = 5;     // 16-byte runs a lane of grid_totals loads at once
 
 struct Shifts {
   int rs[kMaxOffsets];  // source row offset, (dy mod ns)
@@ -96,14 +114,20 @@ struct GridOp {
 //   kNoDma  reads no plane bytes: each gathered source is multiplied by its
 //           plane's constant (`plane_const`, the plane's mean), so the
 //           gathers and the FMAs stay.
-// The remainder, the syncs, the vector passes and the coarse solve are the
-// real kernel's.
+//   (in both the remainder, the syncs, the vector passes and the coarse
+//   solve are the real kernel's)
+//   kExchange  phases A, B and D visit no points: an iteration is its grid
+//              syncs, its two reductions' totals and the coarse product
+//              (on whatever rc holds), the exchange alone.
+// A probe launches on as many blocks as the real kernel (launch_coop).
 constexpr int kNoFma = 1;
 constexpr int kNoDma = 2;
+constexpr int kExchange = 3;
 
 template <typename T, int Probe> struct ProbeParams;
 template <typename T> struct ProbeParams<T, kNoFma> { unsigned keep; };
 template <typename T> struct ProbeParams<T, kNoDma> { T plane_const[kMaxOffsets]; };
+template <typename T> struct ProbeParams<T, kExchange> {};
 
 template <typename T, int Probe>
 struct ProbeOp : GridOp<T> {
@@ -247,46 +271,91 @@ __device__ __forceinline__ void apply_cols(const GridOp<T>& op, int iy, int ix, 
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // the total is in lane 0
+struct Add {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
+};
+
+// v combined over the warp's lanes by op, in a fixed order
+template <typename T, typename Op>
+__device__ __forceinline__ T warp_reduce(T v, Op op) {
+  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;  // the result is in lane 0
 }
 
-// Block sums of v[0..NV) into this block's row of the partials slot.
-template <typename T, int NV>
-__device__ void block_partials(const T (&v)[NV], T* out) {
+// Values of T in a 16-byte run.
+template <typename T> constexpr int kRun = 16 / (int)sizeof(T);
+
+// The block's v[0..NV) combined by op into its column of the partials
+// slot: value j at out[j·kMaxBlocks].  The last block also zeroes the slots
+// after it up to a whole number of runs, so that the totals read whole runs.
+template <typename T, int NV, typename Op>
+__device__ void block_partials(const T (&v)[NV], T* out, Op op) {
   __shared__ T sm[kWarps][NV];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    T s = warp_sum(v[j]);
+    T s = warp_reduce(v[j], op);
     if (lane == 0) sm[warp][j] = s;
   }
   __syncthreads();
   if (warp == 0) {
+    const int nb = gridDim.x, pad = (nb + kRun<T> - 1) / kRun<T> * kRun<T> - nb;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      T s = warp_sum(lane < kWarps ? sm[lane][j] : T(0));
-      if (lane == 0) out[j] = s;
+      T s = warp_reduce(lane < kWarps ? sm[lane][j] : T(0), op);
+      if (lane == 0) out[(size_t)j * kMaxBlocks] = s;
+      if (blockIdx.x == nb - 1 && lane >= 1 && lane <= pad)
+        out[(size_t)j * kMaxBlocks + lane] = T(0);
     }
   }
   __syncthreads();
 }
 
-// Every block sums all blocks' partials in the same order: identical bits.
-template <typename T, int NV>
-__device__ void grid_totals(const T* partials, T (&v)[NV]) {
-  __shared__ T res[NV];
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
+__device__ __forceinline__ bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
+// x = the run p[i..i+V) where i < end, zeros where not: one 16-byte load
+// where `vec` (p 16-byte aligned, i and end multiples of V), else a load an
+// element, each below end.  Both read the same elements.
+template <typename T, int V>
+__device__ __forceinline__ void load_run(const T* p, int i, int end, bool vec, T (&x)[V]) {
+  static_assert(V * sizeof(T) == 16, "a run is 16 bytes");
+  if (vec) {
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (i < end) w = *reinterpret_cast<const uint4*>(p + i);
+    memcpy(&x, &w, sizeof(w));
+  } else {
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      T s = T(0);
-      for (int b = lane; b < (int)gridDim.x; b += 32) s += partials[b * kSlots + j];
-      s = warp_sum(s);
-      if (lane == 0) res[j] = s;
+    for (int e = 0; e < V; ++e) x[e] = i + e < end ? p[i + e] : T{};
+  }
+}
+
+// Every block combines all blocks' partials in the same order: identical
+// bits.  Warp j takes value j, whose partials lie contiguous: its lanes load
+// kTotalRuns runs each, 32 runs apart, before the first combine, a chunk of
+// 32·kTotalRuns runs at a time, then the warp combines its lanes.
+template <typename T, int NV, typename Op>
+__device__ void grid_totals(const T* partials, T (&v)[NV], Op op) {
+  static_assert(NV <= kWarps, "a warp a value");
+  constexpr int V = kRun<T>, kChunk = 32 * V * kTotalRuns;
+  __shared__ T res[NV];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < NV) {
+    const T* p = partials + (size_t)warp * kMaxBlocks;
+    const bool vec = aligned16(partials);
+    const int end = ((int)gridDim.x + V - 1) / V * V;  // block_partials zeroed the pad
+    T s = T(0);
+    for (int c = 0; c < end; c += kChunk) {
+      T x[kTotalRuns][V];
+#pragma unroll
+      for (int u = 0; u < kTotalRuns; ++u) load_run(p, c + (u * 32 + lane) * V, end, vec, x[u]);
+#pragma unroll
+      for (int u = 0; u < kTotalRuns; ++u)
+#pragma unroll
+        for (int e = 0; e < V; ++e) s = op(s, x[u][e]);
     }
+    s = warp_reduce(s, op);
+    if (lane == 0) res[warp] = s;
   }
   __syncthreads();
 #pragma unroll
@@ -294,14 +363,16 @@ __device__ void grid_totals(const T* partials, T (&v)[NV]) {
   __syncthreads();
 }
 
-// v ← the grid-wide sums of v (a grid sync inside).
-template <typename T, int NV>
+// v ← the grid-wide sums of v, or its combination by op (K5's
+// NaN-propagating max; 0 starts every combination), a grid sync inside.
+template <typename T, int NV, typename Op = Add>
 __device__ __forceinline__ void reduce_grid(cg::grid_group& grid, T (&v)[NV], T* partials,
-                                            int& slot) {
+                                            int& slot, Op op = Op()) {
+  static_assert(NV <= kSlots, "kSlots values a slot");
   T* base = partials + (size_t)slot * kMaxBlocks * kSlots;
-  block_partials<T, NV>(v, base + (size_t)blockIdx.x * kSlots);
+  block_partials(v, base + blockIdx.x, op);
   grid.sync();
-  grid_totals<T, NV>(base, v);
+  grid_totals(base, v, op);
   slot ^= 1;
 }
 
@@ -439,6 +510,7 @@ __device__ void apply_unit(const Op& op, const Units& u, int k, S src, B body, E
 template <typename T, typename A, typename... O>
 __device__ void phase_a(const PressureArgs<T, A, O...>& a, const PressureState<T>& s, const Units& u,
                         T (&sums)[3]) {
+  if constexpr (decltype(a.op)::kProbe == kExchange) return;
   const int ns = a.op.ns;
   const T* __restrict__ act = a.act;
   const T* z = a.z;
@@ -468,6 +540,7 @@ __device__ void phase_a(const PressureArgs<T, A, O...>& a, const PressureState<T
 template <typename T, typename A, typename... O>
 __device__ void update_r(const PressureArgs<T, A, O...>& a, const PressureState<T>& s, const Units& u,
                          const Scratch<T>& sm, bool init, T (&sums)[4]) {
+  if constexpr (decltype(a.op)::kProbe == kExchange) return;
   const int ns = a.op.ns;
   const T* __restrict__ act = a.act;
   const T* __restrict__ invd = a.invd;
@@ -542,7 +615,7 @@ __device__ void coarse_solve(const PressureArgs<T, A, O...>& a) {
     Acc acc = Acc(0);
     for (int j = lane; j < m; j += 32)
       acc += coarse_val(a.ac_inv[(size_t)row * m + j]) * coarse_rhs<A>(a.rc[j]);
-    acc = warp_sum(acc);
+    acc = warp_reduce(acc, Add{});
     if (lane == 0) a.zc[row] = (float)acc;
   }
 }
@@ -552,6 +625,7 @@ __device__ void coarse_solve(const PressureArgs<T, A, O...>& a) {
 template <typename T, typename A, typename... O>
 __device__ void smooth_z(const PressureArgs<T, A, O...>& a, const PressureState<T>& s, const Units& u,
                          T (&sums)[4]) {
+  if constexpr (decltype(a.op)::kProbe == kExchange) return;
   const int ns = a.op.ns;
   const T* __restrict__ act = a.act;
   const T* __restrict__ invd = a.invd;
@@ -710,9 +784,11 @@ cudaError_t blocks_per_sm(void (*kernel)(Args), int* per_sm) {
 }
 
 // Launch `kernel` cooperatively on as many blocks as fit on the card at
-// once (and no more than the points need, nor than kMaxBlocks).
+// once (and no more than the points need, nor than kMaxBlocks, nor than
+// `max_per_sm` a SM where it is given: a probe takes the real kernel's).
 template <typename Args>
-cudaError_t launch_coop(void (*kernel)(Args), Args& args, int n, cudaStream_t stream) {
+cudaError_t launch_coop(void (*kernel)(Args), Args& args, int n, cudaStream_t stream,
+                        int max_per_sm = 0) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -723,6 +799,7 @@ cudaError_t launch_coop(void (*kernel)(Args), Args& args, int n, cudaStream_t st
     return err;
   if ((err = blocks_per_sm(kernel, &per_sm)) != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  if (max_per_sm > 0 && max_per_sm < per_sm) per_sm = max_per_sm;
   int blocks = per_sm * sms;
   blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;
   const int need = (n + kThreads - 1) / kThreads;

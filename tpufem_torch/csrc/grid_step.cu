@@ -107,49 +107,10 @@ struct StepArgs {
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) { return (a > b || a != a) ? a : b; }
 
-template <typename T>
-__device__ __forceinline__ T warp_max(T v) {
-  for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
-  return v;  // the max is in lane 0
-}
-
-// v ← the grid-wide maxima of v (a grid sync inside); the partial slots as
-// reduce_grid's.
-template <typename T, int NV>
-__device__ void reduce_grid_max(cg::grid_group& grid, T (&v)[NV], T* partials, int& slot) {
-  __shared__ T sm[kWarps][NV];
-  __shared__ T res[NV];
-  T* base = partials + (size_t)slot * kMaxBlocks * kSlots;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    T s = warp_max(v[j]);
-    if (lane == 0) sm[warp][j] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      T s = warp_max(lane < kWarps ? sm[lane][j] : T(0));
-      if (lane == 0) base[(size_t)blockIdx.x * kSlots + j] = s;
-    }
-  }
-  grid.sync();
-  if (threadIdx.x < 32) {
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      T s = T(0);
-      for (int b = lane; b < (int)gridDim.x; b += 32) s = nan_max(s, base[b * kSlots + j]);
-      s = warp_max(s);
-      if (lane == 0) res[j] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NV; ++j) v[j] = res[j];
-  __syncthreads();
-  slot ^= 1;
-}
+struct NanMax {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return nan_max(a, b); }
+};
 
 // The flat index `shift` grid points along the pairing axis, cyclic:
 // +1 reaches a slave's master, −1 a master's slave.
@@ -347,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, kStepMinBlocks<T>)
       a.d[i] = dv;
       m0[0] = nan_max(m0[0], dv < T(0) ? -dv : dv);
     }
-    reduce_grid_max(grid, m0, a.pres.partials, slot);
+    reduce_grid(grid, m0, a.pres.partials, slot, NanMax{});
     if (tid == 0) a.met[step * 3 + 0] = m0[0];
 
     // 4. the two projections
@@ -415,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, kStepMinBlocks<T>)
       const T ux = a.u[i], uy = a.u[n + i];
       m1[1] = nan_max(m1[1], nan_max(ux < T(0) ? -ux : ux, uy < T(0) ? -uy : uy));
     }
-    reduce_grid_max(grid, m1, a.pres.partials, slot);
+    reduce_grid(grid, m1, a.pres.partials, slot, NanMax{});
     if (tid == 0) {
       a.met[step * 3 + 1] = m1[0];
       a.met[step * 3 + 2] = m1[1];

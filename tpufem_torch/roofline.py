@@ -314,7 +314,7 @@ def ab(n_side: int, n_circle: int, knobs: list[dict], iters_p: int = 120, iters_
 def probes(n_side: int, n_circle: int, iters_p: int = 120, reps: int = 8,
            label: str | None = None, storage: str = "auto", device=None) -> list[dict]:
     """How K3's iteration splits: the bench problem's pressure solve at
-    ``iters_p`` fixed iterations in three variants, timed round-robin in
+    ``iters_p`` fixed iterations in four variants, timed round-robin in
     one process (CUDA events on the card), best of ``reps`` each —
 
     * ``real``: the kernel itself;
@@ -322,11 +322,15 @@ def probes(n_side: int, n_circle: int, iters_p: int = 120, reps: int = 8,
       remainder alone (the plane stream and the rest, no gathers or
       products for the planes);
     * ``nodma``: no plane read, each plane replaced by its constant (the
-      gathers, the products and the rest, no plane bytes).
+      gathers, the products and the rest, no plane bytes);
+    * ``exchange``: no point visited between the grid barriers (the syncs,
+      the reductions' totals and the coarse product: the part of an
+      iteration that does not scale with the grid).
 
     real ≈ nofma: the gathers and products cost nothing beside the plane
     stream; real ≈ nodma: the plane bytes cost nothing beside the rest.
-    One row a variant, with tpufem's keys (``tpufem.roofline.probes``;
+    Every variant launches the real kernel's blocks.  One row a variant,
+    with tpufem's keys (``tpufem.roofline.probes``;
     ``chain``, ``compile_s`` and ``stream_chunk`` belong to its TPU
     dispatch and are left out)."""
     problem, _ = build_problem(n_side, n_circle, storage, device)
@@ -341,7 +345,7 @@ def probe_problem(problem, iters_p: int = 120, reps: int = 8,
     bp = torch.as_tensor(rng.standard_normal(base.K.n), dtype=problem.dtype,
                          device=problem.device)
     entries = []
-    for probe in ("", "nofma", "nodma"):
+    for probe in ("", "nofma", "nodma", "exchange"):
         ps = dataclasses.replace(base, probe=probe)
         ps.solve(bp)  # its first launch, untimed
         entries.append({"probe": probe or "real", "ps": ps, "best": float("inf")})
@@ -367,7 +371,8 @@ def main(argv=None) -> list[dict]:
                         help='a JSON list of StokesConfig overrides to time in turns, e.g. '
                              '\'[{}, {"cg_coarse_dtype": "same"}]\'')
     parser.add_argument("--probes", action="store_true",
-                        help="split K3's iteration: real, nofma and nodma (roofline.probes)")
+                        help="split K3's iteration: real, nofma, nodma and exchange "
+                             "(roofline.probes)")
     parser.add_argument("--out", default=None)
     parser.add_argument("--device", default=None, help="torch device (default: the card)")
     args = parser.parse_args(argv)

@@ -55,12 +55,15 @@ ignored; the port always runs the velocity columns in lockstep (tpufem's
   As in tpufem it is taken only with the two-level preconditioner in the
   streamed regime (``stream_diags``); :meth:`PressureGridCG.build` makes
   K̃ then (``K_pre``).  K3's instances ``pressure_cg_*_pb16`` run it.
-* ``probe="nofma"|"nodma"``: measurement variants with wrong results by
-  design (``roofline.probes``): every apply the remainder alone after
-  loading and dropping its plane entries, or each plane replaced by its
-  constant, the plane's mean, with no plane read.  Their kernels have f32
-  fields with an f32 or bf16 coarse inverse, and f64 fields with an f64
-  one.
+* ``probe="nofma"|"nodma"|"exchange"``: measurement variants with wrong
+  results by design (``roofline.probes``): every apply the remainder alone
+  after loading and dropping its plane entries, or each plane replaced by
+  its constant, the plane's mean, with no plane read; or (``exchange``, the
+  port's own) no point visited between the grid barriers, so that an
+  iteration is its syncs, reductions and coarse product and the solve
+  returns its projected start.  Their kernels have f32 fields with an f32
+  or bf16 coarse inverse, and f64 fields with an f64 one, and launch on the
+  real kernel's blocks.
 
 ``plain=True`` (K2/K3) and ``interpret=True`` (K4, tpufem's name), set by
 ``cg_storage="grid_interpret"``, take the plain versions on every device.
@@ -94,12 +97,12 @@ _NS = {torch.float32: "ns_bicgstab_f32", torch.float64: "ns_bicgstab_f64"}
 # preconditioner planes) and the probes
 _PRESSURE_VARIANTS = {
     **{("pb16", *key): f"{name}_pb16" for key, name in _PRESSURE.items()},
-    **{(probe, dt, cd): f"pressure_{probe}_{name}" for probe in ("nofma", "nodma")
+    **{(probe, dt, cd): f"pressure_{probe}_{name}" for probe in ("nofma", "nodma", "exchange")
        for (dt, cd), name in (((torch.float32, torch.float32), "f32"),
                               ((torch.float32, torch.bfloat16), "f32_bf16"),
                               ((torch.float64, torch.float64), "f64"))},
 }
-PROBES = ("", "nofma", "nodma")
+PROBES = ("", "nofma", "nodma", "exchange")
 _VISCOUS_PLANES = 4  # K2's work planes a column: r, q, and p twice (read one, write one)
 _NS_PLANES = 7  # K4's work planes a column: r̂, r, t, and p and v twice (read one, write one)
 _PRESSURE_PLANES = 6  # K3's work planes: r and p twice (read one, write the other), q, z
@@ -115,6 +118,7 @@ _VARIANT_ARGTYPES = {  # the second plane set and its remainder; the planes' con
     "pb16": _OP_ARGS + [_vp] * 5 + _PRESSURE_ARGTYPES[len(_OP_ARGS):],
     "nofma": _PRESSURE_ARGTYPES,
     "nodma": _OP_ARGS + [_vp] + _PRESSURE_ARGTYPES[len(_OP_ARGS):],
+    "exchange": _PRESSURE_ARGTYPES,
 }
 _NS_ARGTYPES = _OP_ARGS + [_vp] * 6 + [_int, _int, _dbl, _vp, _vp]
 
@@ -164,7 +168,8 @@ def blocks_per_sm(lib: ctypes.CDLL | None = None) -> dict[str, int]:
         ("ns_bicgstab", ("f32 C=1", "f32 C=2", "f64 C=1", "f64 C=2")),
         ("pressure_pb16", ("f32", "f32 bf16", "f64", "f64 bf16")),
         ("pressure_nofma", ("f32", "f32 bf16", "f64")),
-        ("pressure_nodma", ("f32", "f32 bf16", "f64"))) for t in types]
+        ("pressure_nodma", ("f32", "f32 bf16", "f64")),
+        ("pressure_exchange", ("f32", "f32 bf16", "f64"))) for t in types]
     out = (ctypes.c_int * len(names))()
     got = (lib or build()).grid_cg_blocks_per_sm(out, len(names))
     return dict(zip(names[:got], out))
@@ -392,7 +397,7 @@ class PressureGridCG:
     hbm_io: bool = False
     roll_cache: bool = True
     stream_chunk: int = 1
-    probe: str = ""  # "", or a measurement variant: "nofma", "nodma"
+    probe: str = ""  # "", or a measurement variant: "nofma", "nodma", "exchange"
     K_pre: GridOperator | None = None  # K̃, the preconditioner's operator under precond_bf16
 
     def __post_init__(self):
@@ -569,6 +574,11 @@ def pressure_cg_ref(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
     def project(X):
         return X - (torch.sum(act * X) / ww) * act
 
+    if solver.probe == "exchange":  # no point visited: r·r reads 0, so tol > 0 stops at once
+        if iters_out is not None:
+            iters_out += iters if tol <= 0 else 0
+        return project(x0)
+
     def precond(r):
         if not solver.use_coarse:
             return invd * r
@@ -659,7 +669,7 @@ def pressure_cg(solver: PressureGridCG, b: torch.Tensor, x0: torch.Tensor,
 
 pressure_cg.launches = 0
 # launches of K3's variants, each also counted in pressure_cg.launches
-pressure_cg.variant_launches = {"pb16": 0, "nofma": 0, "nodma": 0}
+pressure_cg.variant_launches = {"pb16": 0, "nofma": 0, "nodma": 0, "exchange": 0}
 
 
 # ---------------------------------------------------------------------------
